@@ -1,0 +1,555 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+1. Prints the card, its power limit, the torch and CUDA versions, and
+   builds every kernel of ``src/repro_torch/kernels/csrc`` with ``nvcc``
+   (time, and the ``ptxas -v`` register and spill lines).
+2. Holds each kernel against its plain torch version on the card, at the
+   paper's largest size (n = 10^6 buckets, 2^20 keys), exactly, and times
+   kernel, plain version and (for the delta apply) ``Tensor.index_put``,
+   beside the least time the card could take for the same work.
+3. Drives the main path, ``SessionRouter.route_batch`` on 2^20 session ids
+   at n = 10^6, through the paper's scenarios (stable, one-shot 90 %
+   removal, incremental removals) and failover in overlap mode, checking
+   every batch against the plain version, and asserts that every kernel
+   was launched on that path.
+4. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+
+Any mismatch or error exits non-zero.  Without a GPU, or outside a
+checkout of the repository, it exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parent / "src"
+
+N = 10**6                 # buckets: the paper's largest size (§VIII)
+KEYS = 2**20              # keys per batch
+ONESHOT_FRACTION = 0.9    # one-shot scenario: 90 % of the nodes removed
+INCREMENTAL_STAGES = (0.1, 0.3, 0.5)  # growing removal fraction (phase 2)
+INCREMENTAL_EVENTS = 128  # single removals on the main path, one delta each
+DELTA_TABLE = 2_000_000   # store capacity at n = 10^6 (headroom 2)
+DELTA_UPDATES = 4096
+SEED = 0
+SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU clock: covers issuing a timed run
+
+# Peak rates of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM,
+# 67 TFLOP/s float32 outside
+# the tensor cores.  The float32 rate counts an FMA as 2 operations on 128
+# lanes per SM; Hopper has 64 INT32 lanes per SM (architecture white
+# paper), so its INT32 issue rate is 67e12 / 2 / 2 operations per second.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 2 / 2
+
+# 32-bit operations of the lookup, counted from csrc/engine.cu, each at
+# one issue slot (a lower bound: a correctly rounded divide or an integer
+# modulo takes several):
+#   per key:            index, key load, bucket store, final repl read + test
+#   per jump32 step:    step hash (mul-add, xor, fmix32 = 8, shift) 11,
+#                       float part (2 converts, 2 adds, mul, divide, floor,
+#                       min, compare, convert) 10, loop counter 1
+#   per Alg. 4 pass:    repl read + test 2, hash2 (mul-add, 2 x fmix32, xor)
+#                       18, modulo 1, first chain read + test 2
+#   per chain read:     move, read, test
+OPS_PER_KEY, OPS_PER_STEP, OPS_PER_OUTER, OPS_PER_READ = 6, 22, 23, 3
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found: run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    smoke = Smoke(torch)
+    smoke.phase_build(smi)
+    kernels = smoke.phase_kernels()
+    smoke.phase_main_path(kernels)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+class Smoke:
+    def __init__(self, torch):
+        import numpy as np
+
+        self.torch, self.np = torch, np
+        self.dev = torch.device("cuda", 0)
+        self.rng = np.random.default_rng(SEED)
+
+    # -- helpers ---------------------------------------------------------------
+    def time_ms(self, fn, reps: int, warmup: int = 3) -> float:
+        """Mean device time of ``fn`` over ``reps`` calls (CUDA events).
+
+        The calls are queued behind a ``torch.cuda._sleep`` on the stream,
+        so the card runs them back to back and the host's time to issue
+        each one (Python, checks, ``ctypes``) stays out of the reading;
+        the host's share is in ``wrapper_ms``/the scenario latencies.  A
+        function that synchronizes inside (the plain versions) is timed
+        as it runs: its waits are part of its time."""
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def remove_random(self, m, count: int) -> None:
+        """``count`` removals of random working buckets on the host."""
+        removed = 0
+        for b in self.rng.permutation(m.n).tolist():
+            if removed == count:
+                return
+            if m.is_working(b) and m.working > 1:
+                m.remove(b)
+                removed += 1
+
+    def keys(self):
+        from repro_torch.kernels.engine import key_tensor
+
+        k = self.rng.integers(0, 2**32, size=KEYS, dtype=self.np.uint32)
+        return k, key_tensor(k, self.dev)
+
+    @staticmethod
+    def lookup_ops(work: dict, keys: int) -> int:
+        """32-bit operations of one lookup pass over ``keys`` keys whose
+        plain-version lane counts are ``work``."""
+        return (keys * OPS_PER_KEY + work.get("step", 0) * OPS_PER_STEP
+                + work.get("outer", 0) * OPS_PER_OUTER
+                + work.get("read", 0) * OPS_PER_READ)
+
+    @staticmethod
+    def bound(ops: int, nbytes: int) -> tuple[float, str]:
+        """The least time (ms) for ``ops`` int32 operations and ``nbytes``
+        of memory traffic, and which of the two sets it."""
+        ops_ms = ops / INT32_OPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+    # -- phase 1 ---------------------------------------------------------------
+    def phase_build(self, smi: str) -> None:
+        from repro_torch.kernels import build
+
+        torch = self.torch
+        log(smi)
+        log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+            f"python {sys.version.split()[0]}")
+        t0 = time.perf_counter()
+        built = build.build()
+        log(f"build: {time.perf_counter() - t0:.3f} s for {sorted(built)} "
+            f"(one nvcc per source, started together: {' '.join(build.NVCC_FLAGS)})")
+        for name, b in sorted(built.items()):
+            log(f"  {name}: nvcc {b.seconds:.3f} s{' (reused)' if b.reused else ''}")
+            for line in b.ptxas.splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log(f"  ptxas {name}: {line.strip()}")
+
+    # -- phase 2 ---------------------------------------------------------------
+    def phase_kernels(self) -> list[dict]:
+        from repro_torch.core.memento import MementoHash
+
+        torch = self.torch
+        states = {"stable": MementoHash(N, variant="32")}
+        inc = MementoHash(N, variant="32")
+        removed = 0
+        images = [("stable", states["stable"].device_image())]
+        for frac in INCREMENTAL_STAGES:
+            self.remove_random(inc, int(frac * N) - removed)
+            removed = int(frac * N)
+            images.append((f"incremental {frac:.0%}", inc.device_image()))
+        states["incremental"] = inc
+        one = MementoHash(N, variant="32")
+        t0 = time.perf_counter()
+        self.remove_random(one, int(ONESHOT_FRACTION * N))
+        log(f"host: one-shot removal of {int(ONESHOT_FRACTION * N)} buckets "
+            f"took {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        states["oneshot"] = one
+        images.append(("oneshot", one.device_image()))
+        images = [(name, img.arrays["repl"].to(self.dev), img.n)
+                  for name, img in images]
+        lookup = self.check_lookup(states, images)
+        diff = self.check_diff(images)
+        apply = self.check_apply()
+        torch.cuda.synchronize()
+        return [lookup, diff, apply]
+
+    def check_lookup(self, states, images) -> dict:
+        from repro_torch.kernels.engine import memento_lookup, memento_lookup_plain
+
+        np = self.np
+        host_of = {"stable": states["stable"], "oneshot": states["oneshot"],
+                   f"incremental {INCREMENTAL_STAGES[-1]:.0%}": states["incremental"]}
+        by_state = {}
+        for name, repl, n in images:
+            keys_np, keys = self.keys()
+            out = memento_lookup(keys, repl, n)
+            work: dict = {}
+            plain = memento_lookup_plain(keys, repl, n, work)
+            err = int((out.long() - plain.long()).abs().max())
+            if err:
+                raise AssertionError(f"memento_lookup {name}: kernel != plain "
+                                     f"(max abs err {err})")
+            if name in host_of:
+                sample = np.arange(0, KEYS, KEYS // 2048)
+                host = np.array([host_of[name].lookup(int(k)) for k in keys_np[sample]])
+                if not (host == out.cpu().numpy()[sample]).all():
+                    raise AssertionError(f"memento_lookup {name}: kernel != host")
+            ok = bool(((out >= 0) & (out < n)).all()) and bool((repl[out.long()] < 0).all())
+            if not ok:
+                raise AssertionError(f"memento_lookup {name}: non-working bucket")
+            ms = self.time_ms(lambda: memento_lookup(keys, repl, n), reps=50)
+            plain_ms = self.time_ms(lambda: memento_lookup_plain(keys, repl, n),
+                                    reps=2, warmup=1)
+            ops = self.lookup_ops(work, KEYS)
+            bound_ms, bound_by = self.bound(ops, 8 * KEYS + 4 * n)
+            ops_key = ops / KEYS
+            by_state[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "max_abs_err": err}
+            log(f"check memento_lookup {name}: n={n} keys={KEYS} kernel == plain"
+                f"{' == host sample' if name in host_of else ''}; kernel {ms:.6f} ms, "
+                f"plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+                f"{ops_key:.1f} ops/key = {OPS_PER_KEY} + "
+                f"{work.get('step', 0) / KEYS:.3f} steps x {OPS_PER_STEP} + "
+                f"{work.get('outer', 0) / KEYS:.3f} passes x {OPS_PER_OUTER} + "
+                f"{work.get('read', 0) / KEYS:.3f} reads x {OPS_PER_READ}, "
+                f"at {INT32_OPS_PER_S:.4g} int32 ops/s), "
+                f"{bound_ms / ms:.1%} of the bound")
+        head = by_state["oneshot"]
+        return {"name": "memento_lookup", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/engine.cu",
+                "replaces": "src/repro/kernels/engine.py:526",
+                "launches": None, "max_abs_err": max(s["max_abs_err"] for s in by_state.values()),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": None, "state": "oneshot", "by_state": by_state}
+
+    def check_diff(self, images) -> dict:
+        from repro_torch.kernels.engine import (memento_diff, memento_diff_plain,
+                                                memento_lookup_plain)
+
+        pairs = list(zip(images[:-2], images[1:-1]))  # stable → incremental stages
+        pairs.append((images[0], images[-1]))         # stable → one-shot
+        result = None
+        for (name_a, repl_a, n_a), (name_b, repl_b, n_b) in pairs:
+            _, keys = self.keys()
+            old, new, moved = memento_diff(keys, repl_a, n_a, repl_b, n_b)
+            p_old, p_new, p_moved = memento_diff_plain(keys, repl_a, n_a, repl_b, n_b)
+            err = max(int((old.long() - p_old.long()).abs().max()),
+                      int((new.long() - p_new.long()).abs().max()),
+                      int((moved != p_moved).sum()))
+            if err:
+                raise AssertionError(f"memento_diff {name_a} -> {name_b}: "
+                                     f"kernel != plain ({err})")
+            log(f"check memento_diff {name_a} -> {name_b}: kernel == plain, "
+                f"moved {int(moved.sum())} of {KEYS}")
+            if name_b == "oneshot":
+                ms = self.time_ms(lambda: memento_diff(keys, repl_a, n_a, repl_b, n_b),
+                                  reps=30)
+                plain_ms = self.time_ms(
+                    lambda: memento_diff_plain(keys, repl_a, n_a, repl_b, n_b),
+                    reps=2, warmup=1)
+                w_a: dict = {}
+                w_b: dict = {}
+                memento_lookup_plain(keys, repl_a, n_a, w_a)
+                memento_lookup_plain(keys, repl_b, n_b, w_b)
+                # two lookups and a compare per key; keys read once, 3 outputs
+                bound_ms, bound_by = self.bound(
+                    self.lookup_ops(w_a, KEYS) + self.lookup_ops(w_b, KEYS) + KEYS,
+                    16 * KEYS + 4 * (n_a + n_b))
+                log(f"time memento_diff stable -> oneshot: kernel {ms:.6f} ms, plain "
+                    f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by} of both "
+                    f"lookups), {bound_ms / ms:.1%} of the bound")
+                result = {"name": "memento_diff", "route": "cuda",
+                          "source": "src/repro_torch/kernels/csrc/engine.cu",
+                          "replaces": "src/repro/kernels/engine.py:526",
+                          "launches": None, "max_abs_err": err, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by,
+                          "library_ms": None, "state": "stable -> oneshot"}
+        return result
+
+    def check_apply(self) -> dict:
+        from repro_torch.kernels.delta_apply import (_pad_updates, dedup_last,
+                                                     delta_apply, delta_apply_plain,
+                                                     scatter_update)
+
+        np, torch = self.np, self.torch
+        base = self.rng.integers(-1, N, size=DELTA_TABLE).astype(np.int32)
+        table = torch.from_numpy(base).to(self.dev)
+        # duplicates among the updates: the last write must win
+        idx = self.rng.integers(0, DELTA_TABLE, size=DELTA_UPDATES)
+        idx[-512:] = idx[:512]
+        vals = self.rng.integers(-1, N, size=DELTA_UPDATES).astype(np.int32)
+        host = base.copy()
+        for i, v in zip(idx.tolist(), vals.tolist()):
+            host[i] = v
+        uidx, uvals = dedup_last(idx, vals)
+        pidx, pval, count = _pad_updates(uidx, uvals, sentinel=-1)
+        meta = torch.from_numpy(np.concatenate([pidx, pval])).to(self.dev)
+        out = delta_apply(table, meta, count)
+        plain = delta_apply_plain(table, meta, count)
+        ti = torch.from_numpy(uidx).to(self.dev)
+        tv = torch.from_numpy(uvals).to(self.dev)
+        lib = table.index_put((ti,), tv)
+        via_wrapper = scatter_update(table, idx, vals)
+        err = int((out.long() - plain.long()).abs().max())
+        if err or not torch.equal(out, lib) or not torch.equal(out, via_wrapper):
+            raise AssertionError("delta_apply: kernel != plain / index_put / wrapper")
+        if not (out.cpu().numpy() == host).all() or not (table.cpu().numpy() == base).all():
+            raise AssertionError("delta_apply: kernel != in-order host apply, or input changed")
+        ms = self.time_ms(lambda: delta_apply(table, meta, count), reps=100)
+        plain_ms = self.time_ms(lambda: delta_apply_plain(table, meta, count), reps=100)
+        library_ms = self.time_ms(lambda: table.index_put((ti,), tv), reps=100)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            scatter_update(table, idx, vals)
+        torch.cuda.synchronize()
+        wrapper_ms = (time.perf_counter() - t0) / 20 * 1e3
+        bound_ms, _ = self.bound(0, 2 * 4 * DELTA_TABLE + 8 * count)
+        log(f"check delta_apply: {DELTA_UPDATES} updates ({count} distinct indices) into "
+            f"{DELTA_TABLE} int32: kernel == plain == index_put == in-order host apply, "
+            f"input unchanged; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, index_put "
+            f"{library_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes: 2 x {4 * DELTA_TABLE} "
+            f"table + {8 * count} update bytes at {HBM_BYTES_PER_S:.3g} B/s), "
+            f"{bound_ms / ms:.1%} of the bound; scatter_update incl. host dedup and "
+            f"copy {wrapper_ms:.4f} ms")
+        return {"name": "delta_apply", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/delta_apply.cu",
+                "replaces": "src/repro/kernels/delta_apply.py:52",
+                "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+                "wrapper_ms": wrapper_ms}
+
+    # -- phase 3 ---------------------------------------------------------------
+    def check_batch(self, router, ids, out, what: str) -> None:
+        """``out`` of ``route_batch(ids)`` against the plain version on the
+        front image, and every bucket working."""
+        from repro_torch.core.hashing import np_key_to_u32
+        from repro_torch.kernels.engine import key_tensor, memento_lookup_plain
+
+        np = self.np
+        img = router.image_store().image()
+        repl = img.arrays["repl"]
+        plain = memento_lookup_plain(key_tensor(np_key_to_u32(ids), self.dev),
+                                     repl, img.n).cpu().numpy()
+        if out.shape != (len(ids),) or out.dtype != np.int32 or not (out == plain).all():
+            raise AssertionError(f"{what}: route_batch != plain version")
+        if not ((out >= 0) & (out < img.n)).all() or (repl.cpu().numpy()[out] >= 0).any():
+            raise AssertionError(f"{what}: a session routed to a removed replica")
+
+    def run_batches(self, router, batches: int, what: str, lat: list) -> None:
+        torch = self.torch
+        for _ in range(batches):
+            ids = self.rng.integers(0, 2**63, size=KEYS, dtype=self.np.uint64)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = router.route_batch(ids)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            self.check_batch(router, ids, out, what)
+
+    def report(self, what: str, lat: list, syncs: list, launches: dict) -> None:
+        np = self.np
+        sync_ms = [s for s, _ in syncs]
+        modes: dict = {}
+        for _, m in syncs:
+            modes[m] = modes.get(m, 0) + 1
+        log(f"scenario {what}: batches={len(lat)} of {KEYS} ids, keys/s="
+            f"{KEYS * len(lat) / (sum(lat) / 1e3):.6g}, p50_lookup_ms={np.median(lat):.4f} "
+            f"max_lookup_ms={max(lat):.4f}, syncs={len(syncs)} modes={modes} "
+            + (f"p50_sync_ms={np.median(sync_ms):.4f} max_sync_ms={max(sync_ms):.4f} "
+               if syncs else "") + f"launches={launches}")
+
+    def working_victim(self, m) -> int:
+        victim = int(self.rng.integers(m.n))
+        while not m.is_working(victim):
+            victim = int(self.rng.integers(m.n))
+        return victim
+
+    def phase_main_path(self, kernels: list[dict]) -> None:
+        from repro_torch.core.hashing import np_key_to_u32
+        from repro_torch.kernels import delta_apply, engine
+        from repro_torch.kernels.engine import key_tensor, memento_diff_plain
+        from repro_torch.serve.router import SessionRouter
+
+        np, torch = self.np, self.torch
+        counters = [engine.LAUNCHES, delta_apply.LAUNCHES]
+
+        def snapshot():
+            return {k: v for c in counters for k, v in c.items()}
+
+        def since(before):
+            now = snapshot()
+            return {k: now[k] - before[k] for k in now}
+
+        for c in counters:
+            for k in c:
+                c[k] = 0
+
+        # stable, then one-shot removal of 90 % and one sync, on one router
+        router = SessionRouter(N)
+        t0 = time.perf_counter()
+        store = router.image_store()
+        torch.cuda.synchronize()
+        log(f"store build (snapshot upload of {store.capacity['repl']} int32): "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+        before, lat = snapshot(), []
+        self.run_batches(router, 10, "stable", lat)
+        self.report("stable", lat, [], since(before))
+
+        before, lat = snapshot(), []
+        t0 = time.perf_counter()
+        self.remove_random(router.ch, int(ONESHOT_FRACTION * N))
+        log(f"host: one-shot removal, {router.ch.working} of {N} working, "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        t0 = time.perf_counter()
+        st = store.sync()
+        torch.cuda.synchronize()
+        syncs = [((time.perf_counter() - t0) * 1e3, st.mode)]
+        if st.mode != "snapshot":
+            raise AssertionError(f"one-shot sync was {st.mode}, expected snapshot")
+        keys = np_key_to_u32(self.rng.integers(0, 2**63, size=KEYS, dtype=np.uint64))
+        t0 = time.perf_counter()
+        diff = store.migration_diff(keys)
+        torch.cuda.synchronize()
+        diff_ms = (time.perf_counter() - t0) * 1e3
+        prev, front = store.previous_image(), store.image()
+        p_old, p_new, p_moved = memento_diff_plain(
+            key_tensor(keys, self.dev), prev.arrays["repl"], prev.n,
+            front.arrays["repl"], front.n)
+        if not (torch.equal(diff.old, p_old) and torch.equal(diff.new, p_new)
+                and torch.equal(diff.moved, p_moved)):
+            raise AssertionError("migration_diff != plain version")
+        log(f"one-shot migration_diff: {diff.num_moved} of {KEYS} keys moved, "
+            f"{diff_ms:.4f} ms")
+        self.run_batches(router, 10, "oneshot", lat)
+        self.report("oneshot", lat, syncs, since(before))
+        oneshot_router = router
+
+        # incremental: single removals, each synced as a delta, then a batch
+        router = SessionRouter(N)
+        router.image_store()
+        before, lat, syncs = snapshot(), [], []
+        for _ in range(INCREMENTAL_EVENTS):
+            victim = self.working_victim(router.ch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = router.fail_replica(victim)
+            torch.cuda.synchronize()
+            syncs.append(((time.perf_counter() - t0) * 1e3, info["control_plane"]["mode"]))
+            self.run_batches(router, 1, "incremental", lat)
+        if any(m != "delta" for _, m in syncs):
+            raise AssertionError("an incremental removal did not sync as a delta")
+        self.report("incremental", lat, syncs, since(before))
+
+        # failover with overlapped syncs: mark, fail, restore
+        router = SessionRouter(N, sync_mode="overlap")
+        store = router.image_store()
+        before, lat, syncs = snapshot(), [], []
+        for _ in range(4):
+            victim = self.working_victim(router.ch)
+            router.mark_failed(victim)
+            self.run_batches(router, 1, "failover", lat)
+            t0 = time.perf_counter()
+            info = router.fail_replica(victim)
+            syncs.append(((time.perf_counter() - t0) * 1e3, info["control_plane"]["mode"]))
+            self.run_batches(router, 1, "failover", lat)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            router.restore_replica()
+            syncs.append(((time.perf_counter() - t0) * 1e3, store.pending.stats.mode))
+            self.run_batches(router, 1, "failover", lat)
+        store.flush()
+        if store.epoch != router.ch.epoch or any(m != "delta" for _, m in syncs):
+            raise AssertionError("overlap store missed the host epoch or a delta")
+        self.run_batches(router, 1, "failover", lat)
+        sids = self.rng.integers(0, 2**63, size=256, dtype=np.uint64)
+        if [router.route(int(s)) for s in sids] != router.route_batch(sids).tolist():
+            raise AssertionError("route() on the host != route_batch() on the card")
+        self.report("failover (overlap)", lat, syncs, since(before))
+
+        launches = snapshot()
+        log(f"main-path launches: {launches}")
+        for k in kernels:
+            k["launches"] = launches[k["name"]]
+            if k["launches"] <= 0:
+                raise AssertionError(f"kernel {k['name']} was not launched on the main path")
+        self.breakdown(oneshot_router)
+
+    def breakdown(self, router) -> None:
+        """Where a ``route_batch`` goes, on the one-shot state."""
+        from repro_torch.core.hashing import np_key_to_u32
+        from repro_torch.kernels.engine import key_tensor, memento_lookup
+
+        np, torch = self.np, self.torch
+        img = router.image_store().image()
+        repl, n = img.arrays["repl"], img.n
+        rows = []
+        for _ in range(10):
+            ids = self.rng.integers(0, 2**63, size=KEYS, dtype=np.uint64)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            keys = np_key_to_u32(ids)
+            t1 = time.perf_counter()
+            ev[0].record()
+            kt = key_tensor(keys, self.dev)
+            ev[1].record()
+            out = memento_lookup(kt, repl, n)
+            ev[2].record()
+            host = out.cpu().numpy()
+            ev[3].record()
+            t2 = time.perf_counter()
+            ev[3].synchronize()
+            rows.append(((t1 - t0) * 1e3, ev[0].elapsed_time(ev[1]),
+                         ev[1].elapsed_time(ev[2]), ev[2].elapsed_time(ev[3]),
+                         (t2 - t0) * 1e3))
+            del host
+        lat = []
+        ids = self.rng.integers(0, 2**63, size=KEYS, dtype=np.uint64)
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            router.route_batch(ids)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        med = np.median(np.asarray(rows), axis=0)
+        p50 = float(np.median(lat))
+        busy = (med[1] + med[2] + med[3]) / p50
+        log(f"route_batch breakdown (one-shot state, {KEYS} ids, medians of 10): "
+            f"route_batch p50 {p50:.4f} ms; host hashing {med[0]:.4f} ms, "
+            f"host-to-device keys {med[1]:.4f} ms, lookup kernel {med[2]:.4f} ms, "
+            f"device-to-host buckets {med[3]:.4f} ms (events); parts end to end "
+            f"{med[4]:.4f} ms; card busy at most {busy:.2%} of route_batch "
+            f"(idle at least {1 - busy:.2%}), kernel {med[2] / p50:.2%}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,18 @@
+"""PyTorch and CUDA port of the MementoHash system.
+
+The reference package ``repro`` (JAX, Pallas kernels for the TPU) stays
+beside this one and is never imported by it.  This package serves the
+paper's main path on an NVIDIA H100: host ``MementoHash`` state →
+``DeviceImageStore`` (epoch deltas through the ``delta_apply`` kernel) →
+``engine_lookup`` (the ``memento_lookup`` kernel) →
+``SessionRouter.route_batch``.
+
+Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``,
+where every kernel is replaced by its plain torch version.
+"""
+from repro_torch.core import (DeviceImage, DeviceImageStore, MementoHash,
+                              SyncHandle, SyncStats, make_hash)
+from repro_torch.serve.router import BatchScheduler, SessionRouter
+
+__all__ = ["BatchScheduler", "DeviceImage", "DeviceImageStore", "MementoHash",
+           "SessionRouter", "SyncHandle", "SyncStats", "make_hash"]

@@ -1,0 +1,258 @@
+"""DeviceImageStore: epoch-versioned, double-buffered device images.
+
+A store wraps one host consistent-hash state and keeps its
+:class:`~repro_torch.core.protocol.DeviceImage` resident on the device:
+
+  * **stable shapes**: tables are allocated 128-padded with headroom
+    (``headroom×`` the size for growable algorithms), so churn never
+    reshapes a device buffer; ``n`` travels as a scalar;
+  * **delta application**: ``sync()`` drains the host's
+    ``device_delta(epoch)`` and applies it as an O(changed-words) scatter
+    (the ``delta_apply`` kernel) instead of re-sending an O(n) snapshot;
+  * **double-buffered epochs**: applying never writes the serving
+    tensors.  The epoch-N image keeps answering lookups while N+1 is
+    materialized, then the store flips under its lock.  ``image()`` is the
+    front, ``previous_image()`` the retained epoch that ``migration_diff``
+    compares against.
+
+A snapshot is rebuilt only when the host's bounded delta log no longer
+covers the store's epoch, or when growth outruns the padded capacity.
+
+``sync()`` prepares and flips in one call; ``sync_async()`` dispatches the
+scatter and returns a :class:`SyncHandle` without flipping.  The flip
+lands on ``handle.commit()``, the store's ``poll()`` (only once a CUDA
+event recorded after the scatter has completed) or ``flush()``.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.delta_apply import apply_updates
+from repro_torch.kernels.engine import engine_diff, engine_lookup
+from .protocol import DeviceImage, ImageDelta, required_lengths, round_up
+
+
+def delta_fits(caps: dict[str, int], delta: ImageDelta) -> bool:
+    """Do buffers of the given per-array lengths absorb ``delta``?  Every
+    array a lookup at ``delta.n`` may read must be long enough."""
+    needed = required_lengths(delta.algo, delta.n)
+    return all(caps.get(name, 0) >= need for name, need in needed.items())
+
+
+@dataclass
+class SyncStats:
+    """What one ``sync()`` did."""
+
+    mode: str            # "noop" | "delta" | "snapshot"
+    events: int          # membership events covered
+    words: int           # 32-bit words sent host→device
+    epoch: int           # store epoch after the sync
+
+
+@dataclass
+class SyncTotals:
+    syncs: int = 0
+    delta_applies: int = 0
+    snapshot_rebuilds: int = 0
+    events: int = 0
+    words: int = 0
+
+
+class SyncHandle:
+    """One in-flight ``sync_async()``: epoch N+1 materializing while the
+    store keeps serving N.  ``commit()`` blocks on the device and flips;
+    ``poll()`` flips only if the device work is done.  Idempotent."""
+
+    def __init__(self, store: "DeviceImageStore", stats: SyncStats,
+                 new_front: DeviceImage | None,
+                 event: torch.cuda.Event | None = None):
+        self._store = store
+        self._stats = stats
+        self._new = new_front           # None → noop: nothing to flip
+        self._event = event             # None → the work ran on the host
+        self._done = new_front is None
+        if self._done:
+            store._account(stats)
+
+    @property
+    def done(self) -> bool:
+        return self._done
+
+    @property
+    def stats(self) -> SyncStats:
+        """Target-epoch stats (valid before and after the flip)."""
+        return self._stats
+
+    def ready(self) -> bool:
+        """Non-blocking: has the device finished the dispatched work?"""
+        return self._done or self._event is None or self._event.query()
+
+    def poll(self) -> bool:
+        """Flip iff the device work is done; never blocks.  Returns whether
+        the handle is done."""
+        if not self._done and self.ready():
+            self.commit()
+        return self._done
+
+    def commit(self) -> SyncStats:
+        """Wait for epoch N+1 on the device, then flip under the lock."""
+        with self._store._lock:
+            if self._done:
+                return self._stats
+            if self._event is not None:
+                self._event.synchronize()
+            self._store._flip(self._new, self._stats)
+            self._done = True
+            if self._store._pending is self:
+                self._store._pending = None
+        return self._stats
+
+
+class DeviceImageStore:
+    """Double-buffered device image of a consistent-hash state, updated by
+    deltas.  ``device`` defaults to ``"cuda"``; with no GPU the constructor
+    raises unless the caller passes ``device="cpu"``."""
+
+    def __init__(self, ch, *, device=None, headroom: int = 2,
+                 compact: bool = False):
+        if compact:
+            raise NotImplementedError("packed images: ROADMAP.md Queue 2, K1b")
+        self.device = resolve_device(device)
+        self._ch = ch
+        self.headroom = max(1, headroom)
+        self.totals = SyncTotals()
+        self.last_sync: SyncStats | None = None
+        self._prev: DeviceImage | None = None
+        self._lock = threading.RLock()
+        self._pending: SyncHandle | None = None
+        self._front = self._snapshot()
+
+    # -- buffers ---------------------------------------------------------------
+    def _snapshot(self) -> DeviceImage:
+        """Build (do not install) a full snapshot image on the device, with
+        ``headroom×`` the current size so growth can ride deltas."""
+        cap = round_up(max(self.headroom * self._ch.size, 128))
+        img = self._ch.device_image(capacity=cap)
+        return DeviceImage(
+            algo=img.algo, n=img.n,
+            arrays={k: v.to(self.device) for k, v in img.arrays.items()},
+            scalars=dict(img.scalars), epoch=img.epoch)
+
+    @property
+    def epoch(self) -> int:
+        return self._front.epoch
+
+    @property
+    def capacity(self) -> dict[str, int]:
+        return {k: int(v.shape[0]) for k, v in self._front.arrays.items()}
+
+    def image(self) -> DeviceImage:
+        """The serving (front) image.  Never edited: syncs replace it."""
+        return self._front
+
+    def previous_image(self) -> DeviceImage | None:
+        """The retained pre-sync epoch (migration-diff comparand), if any."""
+        return self._prev
+
+    # -- epoch advancement -----------------------------------------------------
+    def sync(self) -> SyncStats:
+        """Advance the device image to the host's current epoch: an
+        O(changed-words) delta when the host log covers our epoch and the
+        capacity suffices, else a full snapshot.  The old front is kept as
+        ``previous_image()``.  A pending async epoch is committed first."""
+        self.flush()
+        new, stats, _event = self._prepare()
+        with self._lock:
+            if new is not None:
+                self._flip(new, stats)
+            else:
+                self._account(stats)
+        return stats
+
+    def sync_async(self) -> SyncHandle:
+        """Dispatch epoch N+1 without flipping and without waiting for the
+        device.  The front keeps serving epoch N until the handle commits
+        (``handle.commit()``, ``poll()``, ``flush()``, or the next sync)."""
+        self.flush()
+        new, stats, event = self._prepare()
+        handle = SyncHandle(self, stats, new, event)
+        if not handle.done:
+            self._pending = handle
+        return handle
+
+    def poll(self) -> bool:
+        """Commit the pending async epoch iff its device work is done
+        (never blocks).  True when no flip remains outstanding."""
+        h = self._pending
+        return h.poll() if h is not None else True
+
+    def flush(self) -> SyncStats | None:
+        """Commit the pending async epoch, blocking if needed."""
+        h = self._pending
+        return h.commit() if h is not None else None
+
+    @property
+    def pending(self) -> SyncHandle | None:
+        """The in-flight ``sync_async`` handle, if any."""
+        return self._pending
+
+    def _prepare(self):
+        """Drain the host delta and dispatch (not install) the next-epoch
+        image.  Returns ``(new_front | None, stats, event | None)``."""
+        delta = self._ch.device_delta(self._front.epoch)
+        if delta is not None and delta.events == 0:
+            return None, SyncStats("noop", 0, 0, self.epoch), None
+        if delta is not None and delta_fits(self.capacity, delta):
+            arrays = self._apply(delta.updates)
+            new = DeviceImage(algo=delta.algo, n=delta.n, arrays=arrays,
+                              scalars=dict(delta.scalars), epoch=delta.epoch)
+            stats = SyncStats("delta", delta.events, delta.num_words(), new.epoch)
+        else:
+            events = self._ch.epoch - self._front.epoch
+            new = self._snapshot()
+            words = sum(int(v.numel()) for v in new.arrays.values()) + 1
+            stats = SyncStats("snapshot", events, words, new.epoch)
+        return new, stats, self._record_event()
+
+    def _apply(self, updates: dict) -> dict:
+        return apply_updates(self._front.arrays, updates)
+
+    def _record_event(self) -> torch.cuda.Event | None:
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def _flip(self, new: DeviceImage, stats: SyncStats) -> None:
+        """Install epoch N+1 (caller holds ``_lock``)."""
+        self._prev = self._front
+        self._front = new
+        self._account(stats)
+
+    def _account(self, stats: SyncStats) -> None:
+        if stats.mode == "delta":
+            self.totals.delta_applies += 1
+        elif stats.mode == "snapshot":
+            self.totals.snapshot_rebuilds += 1
+        self.totals.syncs += 1
+        self.totals.events += stats.events
+        self.totals.words += stats.words
+        self.last_sync = stats
+
+    # -- data plane ------------------------------------------------------------
+    def lookup(self, keys, *, k: int = 1) -> torch.Tensor:
+        """Bulk lookup against the front image: int32 buckets on the
+        store's device (one ``memento_lookup`` launch on CUDA)."""
+        return engine_lookup(keys, self._front, k=k)
+
+    def migration_diff(self, keys, *, k: int = 1):
+        """Moved-key mask between the retained epoch and the front epoch
+        (one ``memento_diff`` launch on CUDA)."""
+        if self._prev is None:
+            raise ValueError("no previous epoch retained (sync() first)")
+        return engine_diff(keys, self._prev, self._front, k=k)

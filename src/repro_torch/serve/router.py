@@ -1,0 +1,229 @@
+"""Session → replica router: consistent hashing with KV-cache affinity.
+
+Requests carry a session id; the router consistent-hashes sessions onto
+model replicas, so a session lands on the replica that holds its cache,
+a failed replica remaps only its own sessions, and a restored one takes
+back only the sessions that were its.  Bulk routing runs on the device
+through a :class:`~repro_torch.core.image_store.DeviceImageStore`:
+``fail_replica``/``restore_replica`` push O(changed-words) epoch deltas,
+and ``route_batch`` is one ``memento_lookup`` launch.
+
+Session ids are hashed to uint32 keys on the host, as in the reference.
+Not yet ported: k-replica batch sets (``ROADMAP.md`` Queue 2, K1h) and the
+sharded streaming plane (Queue 1, item 8).
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import asdict, dataclass, field
+
+import numpy as np
+
+from repro_torch.core.hashing import key_to_u32, np_key_to_u32
+from repro_torch.core.image_store import DeviceImageStore
+from repro_torch.core.protocol import make_hash
+from repro_torch.device import resolve_device
+
+
+@dataclass
+class RouterStats:
+    """The router's counters."""
+
+    routed: int = 0
+    moved_on_failure: int = 0
+    affinity_hits: int = 0
+    failovers: int = 0
+
+    def as_dict(self) -> dict:
+        return asdict(self)
+
+
+class SessionRouter:
+    """Session → replica router.  With ``replicas_k > 1`` every session has
+    a k-replica set (salted ``lookup_k``; replica 0 is the plain
+    placement) and a replica marked failed (:meth:`mark_failed`) is failed
+    over to the next one before its membership delta lands.
+
+    ``device`` defaults to ``"cuda"``; with no GPU the constructor raises
+    unless the caller passes ``device="cpu"``.  ``sync_mode="overlap"``
+    dispatches membership deltas with ``sync_async()`` and lands the flip
+    at the next batch boundary.
+    """
+
+    def __init__(self, num_replicas: int, *, algo="memento",
+                 capacity: int | None = None, device=None,
+                 max_sessions: int = 1_000_000, replicas_k: int = 1,
+                 store: DeviceImageStore | None = None,
+                 sync_mode: str = "block"):
+        self.device = resolve_device(device)
+        if isinstance(algo, str):
+            # variant="32": host lookups bit-identical to the device
+            self.ch = make_hash(algo, num_replicas, capacity=capacity, variant="32")
+        else:
+            self.ch = algo
+        if replicas_k < 1:
+            raise ValueError("replicas_k must be ≥ 1")
+        if sync_mode not in ("block", "overlap"):
+            raise ValueError(f"unknown sync_mode {sync_mode!r}")
+        self.replicas_k = replicas_k
+        self.sync_mode = sync_mode
+        self.stats = RouterStats()
+        self.max_sessions = max_sessions
+        # session id → last replica, LRU-bounded
+        self._last: OrderedDict = OrderedDict()
+        # an injected store must wrap the same host state
+        if store is not None and store._ch is not self.ch:
+            raise ValueError("injected store wraps a different host state")
+        self._store: DeviceImageStore | None = store
+        # replicas marked failed whose removal has not landed on the device
+        self._failed: set[int] = set()
+        # overlap mode: replica → host epoch whose landing clears the mark
+        self._unmark_at: dict[int, int] = {}
+
+    # -- single-request path --------------------------------------------------
+    def replica_set(self, session_id) -> list[int]:
+        """The session's k distinct candidate replicas, k clamped to the
+        surviving fleet."""
+        k = min(self.replicas_k, self.ch.working)
+        return self.ch.lookup_k(key_to_u32(session_id), k)
+
+    def route(self, session_id) -> int:
+        self._poll_store()
+        if self.replicas_k > 1 and self._failed:
+            reps = self.replica_set(session_id)
+            # fail over while the primary is marked failed; all marked →
+            # keep the primary
+            r = next((c for c in reps if c not in self._failed), reps[0])
+            if r != reps[0]:
+                self.stats.failovers += 1
+        else:
+            r = self.ch.lookup(key_to_u32(session_id))
+        self.stats.routed += 1
+        if self._last.get(session_id) == r:
+            self.stats.affinity_hits += 1
+        self._last[session_id] = r
+        self._last.move_to_end(session_id)
+        if len(self._last) > self.max_sessions:
+            self._last.popitem(last=False)  # evict the coldest session
+        return r
+
+    # -- bulk path (device) ---------------------------------------------------
+    def image_store(self) -> DeviceImageStore:
+        if self._store is None:
+            self._store = DeviceImageStore(self.ch, device=self.device)
+        return self._store
+
+    def route_batch(self, session_ids: np.ndarray) -> np.ndarray:
+        """Session ids → int32 replicas, one device lookup."""
+        self._poll_store()
+        keys = np_key_to_u32(np.asarray(session_ids))
+        if self.replicas_k > 1 and self._failed:
+            raise NotImplementedError(
+                "k-replica batch failover: ROADMAP.md Queue 2, K1h")
+        return self.image_store().lookup(keys).cpu().numpy()
+
+    def sharded_plane(self, *args, **kwargs):
+        raise NotImplementedError("sharded plane: ROADMAP.md Queue 1, item 8")
+
+    def route_stream(self, *args, **kwargs):
+        raise NotImplementedError("route_stream: ROADMAP.md Queue 1, item 8")
+
+    # -- membership ----------------------------------------------------------
+    def _push_delta(self) -> None:
+        """Mirror a membership event to the device as an epoch delta:
+        flipped now (``"block"``) or at the next poll point (``"overlap"``)."""
+        if self._store is not None:
+            if self.sync_mode == "overlap":
+                self._store.sync_async()
+            else:
+                self._store.sync()
+
+    def _poll_store(self) -> None:
+        """Overlap-mode poll point: land a finished async epoch (never
+        blocks) and retire failover marks whose removal has landed."""
+        if self.sync_mode == "overlap" and self._store is not None:
+            self._store.poll()
+        if self._unmark_at and self._store is not None:
+            ep = self._store.epoch
+            for r, until in list(self._unmark_at.items()):
+                if ep >= until:
+                    del self._unmark_at[r]
+                    self._failed.discard(r)
+
+    def mark_failed(self, replica: int) -> None:
+        """Health-checker hook: route around ``replica`` now, before any
+        membership delta is emitted or applied."""
+        self._failed.add(replica)
+
+    def fail_replica(self, replica: int) -> dict:
+        before = dict(self._last)
+        self.mark_failed(replica)  # failover active while the delta lands
+        removed = False
+        try:
+            self.ch.remove(replica)
+            removed = True
+            self._push_delta()
+        finally:
+            if (removed and self.sync_mode == "overlap"
+                    and self._store is not None
+                    and self._store.epoch < self.ch.epoch):
+                # the device still serves the pre-removal epoch: keep
+                # failing over until the flip lands
+                self._unmark_at[replica] = self.ch.epoch
+            else:
+                self._failed.discard(replica)
+        moved = {s for s, r in before.items() if r == replica}
+        self.stats.moved_on_failure += len(moved)
+        info = {"replica": replica, "sessions_moved": len(moved)}
+        if self._store is not None:
+            # overlap: report the in-flight handle's target-epoch stats
+            pend = self._store.pending
+            st = pend.stats if pend is not None else self._store.last_sync
+            if st is not None:
+                info["control_plane"] = {"mode": st.mode, "words": st.words,
+                                         "epoch": st.epoch}
+        return info
+
+    def restore_replica(self) -> int:
+        b = self.ch.add()
+        self._push_delta()
+        return b
+
+    @property
+    def replicas(self) -> set[int]:
+        return self.ch.working_set()
+
+
+@dataclass
+class Request:
+    session_id: int
+    tokens: list[int] = field(default_factory=list)
+
+
+class BatchScheduler:
+    """Groups admitted requests per replica into decode batches of at most
+    ``max_batch``; requests over a replica's budget come back as overflow,
+    are kept in ``self.pending`` and are drained first on the next
+    ``assign``."""
+
+    def __init__(self, router: SessionRouter, max_batch: int):
+        self.router = router
+        self.max_batch = max_batch
+        self.pending: list[Request] = []
+
+    def assign(self, requests: list[Request]) -> tuple[dict[int, list[Request]], list[Request]]:
+        """Route ``pending + requests``; returns ``(batches, overflow)``."""
+        work = self.pending + list(requests)
+        ids = np.asarray([r.session_id for r in work], dtype=np.uint64)
+        replicas = (self.router.route_batch(ids) if len(ids) else
+                    np.zeros((0,), np.int32))
+        out: dict[int, list[Request]] = {}
+        overflow: list[Request] = []
+        for req, rep in zip(work, replicas):
+            lst = out.setdefault(int(rep), [])
+            if len(lst) < self.max_batch:
+                lst.append(req)
+            else:
+                overflow.append(req)  # back-pressure, not truncation
+        self.pending = overflow
+        return out, list(overflow)

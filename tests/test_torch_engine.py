@@ -1,0 +1,145 @@
+"""The port's engine (plain torch versions of the ``memento_lookup`` and
+``memento_diff`` kernels, as its wrappers run them on CPU tensors) against
+the reference engine on both of its planes (Pallas in interpret mode, and
+jnp) and against the host, exactly."""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from conformance import churn, state
+from repro.core import DeviceImageStore as RefStore
+from repro.kernels import engine as ref
+from repro_torch.convert import image_from_arrays, memento_from_state
+from repro_torch.kernels import engine as port
+
+KEYS = np.concatenate([
+    np.asarray([0, 1, 2**31, 2**32 - 1], np.uint32),
+    np.random.default_rng(21).integers(0, 2**32, size=700, dtype=np.uint32)])
+PLANES = ["pallas", "jnp"]
+
+
+def _incremental(n0: int, steps: int, seed: int):
+    """A state after a growing removal fraction, one removal per event."""
+    h = state("memento", n0, 0, seed=seed)
+    for i in range(steps):
+        churn(h, n0 // (2 * steps), seed=seed + i)
+    return h
+
+
+STATES = {
+    "fresh": lambda: state("memento", 300, 0, seed=0),
+    "churned": lambda: state("memento", 300, 120, seed=1),
+    "removed90": lambda: state("memento", 300, 270, seed=2),
+    "incremental": lambda: _incremental(300, 5, seed=3),
+    "one_bucket": lambda: state("memento", 1, 0, seed=0),
+}
+
+
+def _port_image(img):
+    return image_from_arrays(img.algo, img.n, img.arrays, img.scalars, img.epoch)
+
+
+@pytest.mark.parametrize("plane", PLANES)
+@pytest.mark.parametrize("name", sorted(STATES))
+def test_lookup_matches_reference_and_host(name, plane):
+    h = STATES[name]()
+    img = h.device_image()
+    got = port.engine_lookup(KEYS, _port_image(img))
+    assert got.dtype == torch.int32 and got.device.type == "cpu"
+    want = np.asarray(ref.engine_lookup(KEYS, img, plane=plane))
+    np.testing.assert_array_equal(got.numpy(), want)
+    host = memento_from_state(h.n, h.l, h.R)
+    assert got[:100].tolist() == [host.lookup(int(k)) for k in KEYS[:100]]
+
+
+@pytest.mark.parametrize("plane", PLANES)
+@pytest.mark.parametrize("events", [1, 40])
+def test_diff_matches_reference(plane, events):
+    h = state("memento", 300, 100, seed=4)
+    store = RefStore(h)
+    churn(h, events, seed=9)
+    store.sync()
+    old_img, new_img = store.previous_image(), store.image()
+    got = port.engine_diff(KEYS, _port_image(old_img), _port_image(new_img))
+    want = ref.engine_diff(KEYS, old_img, new_img, plane=plane)
+    np.testing.assert_array_equal(got.old.numpy(), want.old)
+    np.testing.assert_array_equal(got.new.numpy(), want.new)
+    np.testing.assert_array_equal(got.moved.numpy(), want.moved)
+    assert got.num_moved == want.num_moved > 0
+
+
+def test_work_counts_match_host_trace():
+    """The plain version's lane counts (what chip_smoke.py's bound reads)
+    equal the host's Alg. 4 iteration counts."""
+    h = state("memento", 300, 200, seed=5)
+    work: dict = {}
+    port.memento_lookup_plain(port.key_tensor(KEYS, "cpu"),
+                              _port_image(h.device_image()).arrays["repl"], h.n, work)
+    outer = inner = 0
+    for k in KEYS:
+        _, ext, inn = h.lookup_trace(int(k))
+        outer, inner = outer + ext, inner + inn
+    assert (work["outer"], work["read"]) == (outer, inner)
+
+
+def test_key_tensor_accepts_numpy_and_tensors():
+    as_np = port.key_tensor(KEYS, "cpu")
+    assert as_np.dtype == torch.int32
+    np.testing.assert_array_equal(as_np.numpy().view(np.uint32), KEYS)
+    assert torch.equal(port.key_tensor(torch.from_numpy(KEYS.view(np.int32)), "cpu"), as_np)
+    assert torch.equal(port.key_tensor(as_np.view(torch.uint32), "cpu"), as_np)
+    with pytest.raises(ValueError):
+        port.key_tensor(torch.zeros(3, dtype=torch.int64), "cpu")
+
+
+def test_wrapper_checks_operands():
+    repl = torch.full((128,), -1, dtype=torch.int32)
+    keys = port.key_tensor(KEYS, "cpu")
+    with pytest.raises(ValueError):
+        port.memento_lookup(keys, repl, 0)
+    with pytest.raises(ValueError):
+        port.memento_lookup(keys, repl, 129)
+    with pytest.raises(ValueError):
+        port.memento_lookup(keys, repl.to(torch.int64), 5)
+    with pytest.raises(ValueError):
+        port.memento_lookup(keys.to(torch.int64), repl, 5)
+    assert port.memento_lookup(keys[:0], repl, 5).shape == (0,)
+
+
+CONFIGS = [dict(algo=a) for a in ("memento", "anchor", "cuckoo")] + [
+    dict(algo="memento", mode="walk"), dict(algo="memento", mode="scan"),
+    dict(algo="memento", k=0), dict(algo="memento", k=2),
+    dict(algo="memento", bounded=True), dict(algo="memento", diff=True),
+    dict(algo="memento", mode="walk", k=2), dict(algo="memento", mode="walk", diff=True),
+    dict(algo="memento", table="compact"), dict(algo="memento", table="packed"),
+    dict(algo="memento", table="sparse"), dict(algo="anchor", table="compact"),
+    dict(algo="memento", table="compact", diff=True),
+]
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+def test_engine_op_checks_match_reference(cfg):
+    """A configuration the reference rejects raises the same ValueError;
+    one it accepts either builds or is not ported yet."""
+    try:
+        ref.EngineOp(**cfg)
+    except ValueError as err:
+        with pytest.raises(ValueError, match=str(err).replace("(", r"\(").replace(")", r"\)")):
+            port.EngineOp(**cfg)
+        return
+    try:
+        op = port.EngineOp(**cfg)
+    except NotImplementedError as err:
+        assert "ROADMAP.md" in str(err)
+        return
+    assert op.algo == "memento" and op.k == 1 and op.table == "dense"
+
+
+def test_unported_configurations_raise_at_entry_points():
+    img = _port_image(state("memento", 40, 5, seed=0).device_image())
+    with pytest.raises(NotImplementedError):
+        port.engine_lookup(KEYS, img, k=2)
+    with pytest.raises(NotImplementedError):
+        port.engine_diff(KEYS, img, img, k=3)

@@ -1,0 +1,98 @@
+"""The port's SessionRouter and BatchScheduler (on the CPU) against the
+reference router on one sequence of batches, failures, restores and
+failover marks, in both sync modes."""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+from repro.serve.router import BatchScheduler as RefScheduler
+from repro.serve.router import Request as RefRequest
+from repro.serve.router import SessionRouter as RefRouter
+from repro_torch.serve.router import BatchScheduler, Request, SessionRouter
+
+IDS = np.random.default_rng(51).integers(0, 2**63, size=1500, dtype=np.uint64)
+
+
+def _routers(n: int, **kw):
+    return SessionRouter(n, device="cpu", **kw), RefRouter(n, **kw)
+
+
+def _same_batch(port, ref, ids=IDS):
+    got = port.route_batch(ids)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, np.asarray(ref.route_batch(ids)))
+
+
+@pytest.mark.parametrize("sync_mode", ["block", "overlap"])
+def test_route_batch_and_route_across_membership_events(sync_mode):
+    port, ref = _routers(200, sync_mode=sync_mode)
+    _same_batch(port, ref)
+    for victim in (3, 150, 199, 77, 10):
+        port.mark_failed(victim)
+        ref.mark_failed(victim)
+        _same_batch(port, ref)
+        got, want = port.fail_replica(victim), ref.fail_replica(victim)
+        assert got == want
+        assert port._failed == ref._failed
+        _same_batch(port, ref)
+        assert [port.route(int(s)) for s in IDS[:60]] == [ref.route(int(s)) for s in IDS[:60]]
+    for _ in range(3):
+        assert port.restore_replica() == ref.restore_replica()
+        _same_batch(port, ref)
+    port.image_store().flush()
+    ref.image_store().flush()
+    _same_batch(port, ref)
+    assert port.stats.as_dict() == ref.stats.as_dict()
+    assert port.replicas == ref.replicas
+    assert port.image_store().totals.__dict__ == ref.image_store().totals.__dict__
+
+
+def test_route_fails_over_on_marked_replicas():
+    port, ref = _routers(50, replicas_k=3)
+    for victim in (4, 9, 31):
+        port.mark_failed(victim)
+        ref.mark_failed(victim)
+    assert [port.route(int(s)) for s in IDS[:300]] == [ref.route(int(s)) for s in IDS[:300]]
+    assert port.stats.failovers == ref.stats.failovers > 0
+    assert [port.replica_set(int(s)) for s in IDS[:50]] == \
+        [ref.replica_set(int(s)) for s in IDS[:50]]
+    with pytest.raises(NotImplementedError, match="K1h"):
+        port.route_batch(IDS)
+
+
+def _as_ids(assigned):
+    batches, overflow = assigned
+    return ({r: [q.session_id for q in qs] for r, qs in batches.items()},
+            [q.session_id for q in overflow])
+
+
+def test_batch_scheduler_assign_matches_reference():
+    port, ref = _routers(30)
+    ps, rs = BatchScheduler(port, max_batch=8), RefScheduler(ref, max_batch=8)
+    for rnd in range(4):
+        ids = IDS[rnd * 200:(rnd + 1) * 200].tolist()
+        got = _as_ids(ps.assign([Request(i) for i in ids]))
+        assert got == _as_ids(rs.assign([RefRequest(i) for i in ids]))
+        assert got[1]  # over budget: the overflow is carried, not dropped
+        port.fail_replica(rnd + 2)
+        ref.fail_replica(rnd + 2)
+    assert _as_ids(ps.assign([])) == _as_ids(rs.assign([]))
+
+
+def test_injected_store_and_unported_paths():
+    from repro_torch.core.image_store import DeviceImageStore
+    from repro_torch.core.protocol import make_hash
+
+    ch = make_hash("memento", 20, variant="32")
+    store = DeviceImageStore(ch, device="cpu")
+    router = SessionRouter(20, algo=ch, store=store, device="cpu")
+    assert router.image_store() is store
+    with pytest.raises(ValueError):
+        SessionRouter(20, store=store, device="cpu")  # a different host state
+    with pytest.raises(ValueError):
+        SessionRouter(20, sync_mode="lazy", device="cpu")
+    with pytest.raises(NotImplementedError):
+        router.route_stream([IDS])
+    with pytest.raises(NotImplementedError):
+        router.sharded_plane()
