@@ -7,15 +7,26 @@
    builds every kernel of ``src/repro_torch/kernels/csrc`` with ``nvcc``
    (time, and the ``ptxas -v`` register and spill lines).
 2. Holds each kernel against its plain torch version on the card, at the
-   paper's largest size (n = 10^6 buckets, 2^20 keys), exactly, and times
-   kernel, plain version and (for the delta apply) ``Tensor.index_put``,
-   beside the least time the card could take for the same work.
-3. Drives the main path, ``SessionRouter.route_batch`` on 2^20 session ids
-   at n = 10^6, through the paper's scenarios (stable, one-shot 90 %
-   removal, incremental removals) and failover in overlap mode, checking
-   every batch against the plain version, and asserts that every kernel
-   was launched on that path.
-4. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+   paper's largest size (10^6 working buckets, 2^20 keys), exactly, and
+   times kernel, plain version and (for the delta apply)
+   ``Tensor.index_put``, beside the least time the card could take for
+   the same work: the Memento kernels and the delta apply, then the
+   lookup and diff kernels of AnchorHash, DxHash, JumpHash and PowerHash
+   on a stable state and after a one-shot removal of 90 % (capacity
+   factor 4 for the fixed-capacity ones).
+3. Drives the first slice's path, ``SessionRouter.route_batch`` on 2^20
+   session ids at n = 10^6, through the paper's scenarios (stable,
+   one-shot 90 % removal, incremental removals) and failover in overlap
+   mode, checking every batch against the plain version, and asserts that
+   every Memento kernel and the delta apply were launched on that path.
+4. Drives this slice's path, ``repro_torch.sim.replay(plane="device")``,
+   for all five algorithms over the stable, one-shot and incremental
+   scenarios at w = 10^6 with 2^20 keys per lookup and probe batch: no
+   checker may report a violation, a sample of every lookup batch must
+   equal the host, and every lookup and diff kernel must be launched.
+   4b replays every scenario but ``session_affinity`` at its default size
+   for every algorithm on the card and on the host: equal fingerprints.
+5. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Any mismatch or error exits non-zero.  Without a GPU, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -32,6 +43,9 @@ SRC = Path(__file__).resolve().parent / "src"
 
 N = 10**6                 # buckets: the paper's largest size (§VIII)
 KEYS = 2**20              # keys per batch
+CAPACITY_FACTOR = 4       # a/w of the fixed-capacity algorithms (the traces' default)
+HOST_SAMPLE = 4096        # keys of each replayed lookup batch checked on the host
+REPLAYED = ("stable", "oneshot", "incremental")  # the paper's §VIII scenarios
 ONESHOT_FRACTION = 0.9    # one-shot scenario: 90 % of the nodes removed
 INCREMENTAL_STAGES = (0.1, 0.3, 0.5)  # growing removal fraction (phase 2)
 INCREMENTAL_EVENTS = 128  # single removals on the main path, one delta each
@@ -59,6 +73,26 @@ INT32_OPS_PER_S = 67e12 / 2 / 2
 #                       18, modulo 1, first chain read + test 2
 #   per chain read:     move, read, test
 OPS_PER_KEY, OPS_PER_STEP, OPS_PER_OUTER, OPS_PER_READ = 6, 22, 23, 3
+# The other bodies of engine.cu, counted the same way.  Each algorithm:
+# (ops per key, {plain-version work counter: ops per lane-iteration}).
+#   anchor: per key index, key load, store, fmix32 8, modulo, A read + test
+#           = 14; per removed bucket met (outer): hash2 18, modulo, A[h]
+#           read + compare 2, move, A[b] read + test 2 = 24; per successor
+#           read: K read, A read, compare = 3
+#   dx:     per key index, key load, store, return = 4; per probe: hash2
+#           18, modulo, shift, word read, shift, and, test, loop 2 = 26
+#   jump:   per key 4; per step as above, 22
+#   power:  per key index, key load, store 3, top-level loop 3 per level
+#           (added below), masks and salt 4, first draw hash2 18 + and +
+#           compare, accept test 3 = 31; per extra draw: hash2 18, add,
+#           and, compare 2, counter 2 = 24; per level descended: hash2 18,
+#           salt 2, mask 3, compare 2, loop 2 = 27
+ALGO_OPS = {
+    "anchor": (14, {"outer": 24, "read": 3}),
+    "dx": (4, {"probe": 26}),
+    "jump": (4, {"step": OPS_PER_STEP}),
+    "power": (31, {"draw": 24, "level": 27}),
+}
 
 
 def log(msg: str) -> None:
@@ -82,7 +116,11 @@ def main() -> int:
     smoke = Smoke(torch)
     smoke.phase_build(smi)
     kernels = smoke.phase_kernels()
+    algo_kernels = smoke.phase_algo_kernels()
     smoke.phase_main_path(kernels)
+    smoke.phase_replay(algo_kernels)
+    smoke.phase_host_vs_device()
+    kernels += algo_kernels
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -349,6 +387,129 @@ class Smoke:
                 "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
                 "wrapper_ms": wrapper_ms}
 
+    # -- phase 2, the other algorithms' kernels ---------------------------------
+    def remove_fraction(self, h, frac: float) -> float:
+        """Remove ``frac`` of the working buckets (random victims; the
+        highest ids for the LIFO-only algorithms); returns host ms."""
+        from repro_torch.core.protocol import ALGORITHM_REGISTRY
+
+        count = int(frac * h.working)
+        t0 = time.perf_counter()
+        if ALGORITHM_REGISTRY[h.name].lifo_only:
+            victims = range(h.size - 1, h.size - 1 - count, -1)
+        else:
+            victims = self.rng.permutation(sorted(h.working_set()))[:count].tolist()
+        for b in victims:
+            h.remove(b)
+        return (time.perf_counter() - t0) * 1e3
+
+    def operands(self, h):
+        """The host state's image as kernel operands on the card."""
+        from repro_torch.kernels.engine import image_operands
+
+        img = h.device_image()
+        img.arrays = {k: v.to(self.dev) for k, v in img.arrays.items()}
+        tables, scalars = image_operands(img)
+        return tables, scalars, sum(4 * t.numel() for t in tables)
+
+    @staticmethod
+    def algo_ops(algo: str, work: dict, keys: int, n: int) -> int:
+        per_key, per_iter = ALGO_OPS[algo]
+        if algo == "power":
+            per_key += 3 * max(1, (n - 1).bit_length())  # the top-level loop
+        return keys * per_key + sum(work.get(k, 0) * v for k, v in per_iter.items())
+
+    def phase_algo_kernels(self) -> list[dict]:
+        """``{algo}_lookup`` and ``{algo}_diff`` of every algorithm but
+        Memento against their plain versions, at w = 10^6 stable and after
+        a one-shot removal of 90 %."""
+        from repro_torch.core.protocol import ALGORITHMS, make_hash
+        from repro_torch.kernels.engine import (diff_plain, kernel_diff, kernel_lookup,
+                                                lookup_plain)
+
+        np, torch = self.np, self.torch
+        rows = []
+        for algo in ALGORITHMS:
+            if algo == "memento":
+                continue
+            t0 = time.perf_counter()
+            h = make_hash(algo, N, capacity=CAPACITY_FACTOR * N, variant="32")
+            build_ms = (time.perf_counter() - t0) * 1e3
+            stable = self.operands(h)
+            remove_ms = self.remove_fraction(h, ONESHOT_FRACTION)
+            oneshot = self.operands(h)
+            log(f"host {algo}: build {build_ms:.1f} ms, one-shot removal to "
+                f"{h.working} of size {h.size} {remove_ms:.1f} ms")
+            by_state = {}
+            for name, (tables, scalars, table_bytes) in (("stable", stable),
+                                                        ("oneshot", oneshot)):
+                keys_np, keys = self.keys()
+                out = kernel_lookup(algo, keys, tables, scalars)
+                work: dict = {}
+                plain = lookup_plain(algo, keys, tables, scalars, work)
+                err = int((out.long() - plain.long()).abs().max())
+                if err:
+                    raise AssertionError(f"{algo}_lookup {name}: kernel != plain ({err})")
+                if name == "oneshot":
+                    sample = np.arange(0, KEYS, KEYS // 2048)
+                    host = np.array([h.lookup(int(k)) for k in keys_np[sample]])
+                    if not (host == out.cpu().numpy()[sample]).all():
+                        raise AssertionError(f"{algo}_lookup {name}: kernel != host")
+                ms = self.time_ms(lambda: kernel_lookup(algo, keys, tables, scalars),
+                                  reps=30)
+                plain_ms = self.time_ms(lambda: lookup_plain(algo, keys, tables, scalars),
+                                        reps=2, warmup=1)
+                ops = self.algo_ops(algo, work, KEYS, scalars[0])
+                bound_ms, bound_by = self.bound(ops, 8 * KEYS + table_bytes)
+                by_state[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                  "bound_by": bound_by, "max_abs_err": err}
+                log(f"check {algo}_lookup {name}: keys={KEYS} kernel == plain"
+                    f"{' == host sample' if name == 'oneshot' else ''}; kernel {ms:.6f} ms, "
+                    f"plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+                    f"{ops / KEYS:.2f} ops/key from "
+                    f"{ {k: round(v / KEYS, 3) for k, v in work.items()} } per key, "
+                    f"{table_bytes} table bytes), {bound_ms / ms:.1%} of the bound")
+            head = by_state["oneshot"]
+            rows.append({"name": f"{algo}_lookup", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/engine.cu",
+                         "replaces": "src/repro/kernels/engine.py:526",
+                         "launches": None,
+                         "max_abs_err": max(v["max_abs_err"] for v in by_state.values()),
+                         "ms": head["ms"], "plain_ms": head["plain_ms"],
+                         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                         "library_ms": None, "state": "oneshot", "by_state": by_state})
+            # the diff across the one-shot removal
+            _, keys = self.keys()
+            old, new = stable[:2], oneshot[:2]
+            got = kernel_diff(algo, keys, old, new)
+            want = diff_plain(algo, keys, old, new)
+            err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+            if err:
+                raise AssertionError(f"{algo}_diff: kernel != plain ({err})")
+            ms = self.time_ms(lambda: kernel_diff(algo, keys, old, new), reps=20)
+            plain_ms = self.time_ms(lambda: diff_plain(algo, keys, old, new),
+                                    reps=2, warmup=1)
+            w_a: dict = {}
+            w_b: dict = {}
+            lookup_plain(algo, keys, *old, w_a)
+            lookup_plain(algo, keys, *new, w_b)
+            bound_ms, bound_by = self.bound(
+                self.algo_ops(algo, w_a, KEYS, old[1][0])
+                + self.algo_ops(algo, w_b, KEYS, new[1][0]) + KEYS,
+                16 * KEYS + stable[2] + oneshot[2])
+            log(f"check {algo}_diff stable -> oneshot: kernel == plain, moved "
+                f"{int(got[2].sum())} of {KEYS}; kernel {ms:.6f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.1%} of the bound")
+            rows.append({"name": f"{algo}_diff", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/engine.cu",
+                         "replaces": "src/repro/kernels/engine.py:526",
+                         "launches": None, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None, "state": "stable -> oneshot"})
+            del h, stable, oneshot
+        torch.cuda.synchronize()
+        return rows
+
     # -- phase 3 ---------------------------------------------------------------
     def check_batch(self, router, ids, out, what: str) -> None:
         """``out`` of ``route_batch(ids)`` against the plain version on the
@@ -503,6 +664,97 @@ class Smoke:
             if k["launches"] <= 0:
                 raise AssertionError(f"kernel {k['name']} was not launched on the main path")
         self.breakdown(oneshot_router)
+
+    # -- phase 4: this slice's path ---------------------------------------------
+    def phase_replay(self, kernels: list[dict]) -> None:
+        """The paper's scenarios through ``repro_torch.sim`` on the card, for
+        every algorithm, at w = 10^6 with 2^20 keys per batch."""
+        from repro_torch.core.protocol import ALGORITHMS, DeltaEmitter
+        from repro_torch.kernels import delta_apply, engine
+        from repro_torch.sim import ScenarioDriver, make_trace
+
+        np = self.np
+
+        class CheckedDriver(ScenarioDriver):
+            """The driver, with a host check of a sample of every lookup
+            batch after the batch's timed part."""
+
+            checked = 0
+
+            def _lookup(self, keys, k=1):
+                self._last = (keys, super()._lookup(keys, k))
+                return self._last[1]
+
+            def _do_lookup(self, i, ev):
+                super()._do_lookup(i, ev)
+                keys, out = self._last
+                idx = np.linspace(0, len(keys) - 1, HOST_SAMPLE).astype(np.int64)
+                host = [self.h.lookup(int(keys[j])) for j in idx]
+                if host != out[idx].tolist():
+                    raise AssertionError(f"{self.algo} event {i}: device lookup != host")
+                self.checked += len(idx)
+
+        counters = [engine.LAUNCHES, delta_apply.LAUNCHES]
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        for algo in ALGORITHMS:
+            for scenario in REPLAYED:
+                trace = make_trace(scenario, SEED, w=N, n_keys=KEYS)
+                t0 = time.perf_counter()
+                driver = CheckedDriver(trace, algo=algo, plane="device", probe_keys=KEYS)
+                res = driver.run()
+                wall = time.perf_counter() - t0
+                if not res.ok:
+                    raise AssertionError(f"replay {scenario} {algo}: {res.violations[:3]}")
+                summ = res.summary()
+                syncs = [(r.op, len(r.buckets), r.sync_mode, round(r.sync_us / 1e3, 3),
+                          r.moved) for r in res.metrics.records if r.sync_mode]
+                log(f"replay {scenario} {algo}: w={N} keys={KEYS} events={summ['events']} "
+                    f"working {N} -> {res.final_working}, lookup_us_per_key="
+                    f"{summ.get('lookup_us_per_key', 0):.6f} over "
+                    f"{summ.get('lookup_keys_total', 0)} keys, host-checked {driver.checked}, "
+                    f"syncs (op, events, mode, ms, moved)={syncs}, violations=0, "
+                    f"fingerprint {res.fingerprint}, wall {wall:.1f} s")
+        launches = {k: v for c in counters for k, v in c.items()}
+        log(f"phase 4 launches: {launches} (a burst longer than the host's "
+            f"{DeltaEmitter._DELTA_LOG_CAP}-event delta log syncs as a snapshot)")
+        for k in kernels:
+            k["launches"] = launches[k["name"]]
+        for name in engine.LAUNCHES:
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the replay path")
+
+    def phase_host_vs_device(self) -> None:
+        """Every scenario but ``session_affinity`` (k-replica failover, not
+        ported) at its default size: card and host replays agree."""
+        from repro_torch.core.protocol import ALGORITHMS
+        from repro_torch.kernels import delta_apply, engine
+        from repro_torch.sim import SCENARIOS, make_trace, replay
+
+        counters = [engine.LAUNCHES, delta_apply.LAUNCHES]
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        t0 = time.perf_counter()
+        count = 0
+        for scenario in SCENARIOS:
+            if scenario == "session_affinity":
+                continue
+            for algo in ALGORITHMS:
+                dev = replay(make_trace(scenario, SEED), algo=algo, plane="device")
+                host = replay(make_trace(scenario, SEED), algo=algo, plane="host")
+                if not (dev.ok and host.ok and dev.fingerprint == host.fingerprint):
+                    raise AssertionError(f"4b {scenario} {algo}: device {dev.fingerprint} "
+                                         f"host {host.fingerprint}, violations "
+                                         f"{dev.violations[:2]} {host.violations[:2]}")
+                count += 1
+        launches = {k: v for c in counters for k, v in c.items()}
+        log(f"phase 4b: {count} replays (every scenario but session_affinity x every "
+            f"algorithm) equal on the card and on the host, no violations, "
+            f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+        if launches["delta_apply"] <= 0:
+            raise AssertionError("no delta sync reached the delta_apply kernel in 4b")
 
     def breakdown(self, router) -> None:
         """Where a ``route_batch`` goes, on the one-shot state."""

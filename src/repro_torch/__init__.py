@@ -2,10 +2,11 @@
 
 The reference package ``repro`` (JAX, Pallas kernels for the TPU) stays
 beside this one and is never imported by it.  This package serves the
-paper's main path on an NVIDIA H100: host ``MementoHash`` state →
-``DeviceImageStore`` (epoch deltas through the ``delta_apply`` kernel) →
-``engine_lookup`` (the ``memento_lookup`` kernel) →
-``SessionRouter.route_batch``.
+paper's path on an NVIDIA H100 for all five algorithms of the reference's
+registry: host state → ``DeviceImageStore`` (epoch deltas through the
+``delta_apply`` kernel) → ``engine_lookup`` / ``engine_diff`` (one lookup
+and one diff kernel per algorithm) → ``SessionRouter.route_batch``, and
+``repro_torch.sim`` replays the paper's scenarios through that stack.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``,
 where every kernel is replaced by its plain torch version.

@@ -4,8 +4,10 @@ A store wraps one host consistent-hash state and keeps its
 :class:`~repro_torch.core.protocol.DeviceImage` resident on the device:
 
   * **stable shapes**: tables are allocated 128-padded with headroom
-    (``headroom×`` the size for growable algorithms), so churn never
-    reshapes a device buffer; ``n`` travels as a scalar;
+    (``headroom×`` the size for growable algorithms; the fixed-capacity
+    AnchorHash and DxHash never outgrow ``a``), so churn never reshapes a
+    device buffer; ``n`` and the other scalars travel with each delta.
+    The tableless Jump and Power images are their ``n`` alone;
   * **delta application**: ``sync()`` drains the host's
     ``device_delta(epoch)`` and applies it as an O(changed-words) scatter
     (the ``delta_apply`` kernel) instead of re-sending an O(n) snapshot;
@@ -33,7 +35,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.delta_apply import apply_updates
 from repro_torch.kernels.engine import engine_diff, engine_lookup
-from .protocol import DeviceImage, ImageDelta, required_lengths, round_up
+from .protocol import (ALGORITHM_REGISTRY, DeviceImage, ImageDelta,
+                       required_lengths, round_up)
 
 
 def delta_fits(caps: dict[str, int], delta: ImageDelta) -> bool:
@@ -134,8 +137,12 @@ class DeviceImageStore:
     # -- buffers ---------------------------------------------------------------
     def _snapshot(self) -> DeviceImage:
         """Build (do not install) a full snapshot image on the device, with
-        ``headroom×`` the current size so growth can ride deltas."""
-        cap = round_up(max(self.headroom * self._ch.size, 128))
+        ``headroom×`` the current size for a growable algorithm so growth
+        can ride deltas."""
+        if ALGORITHM_REGISTRY[self._ch.image_algo].fixed_capacity:
+            cap = None  # the overall capacity a is fixed
+        else:
+            cap = round_up(max(self.headroom * self._ch.size, 128))
         img = self._ch.device_image(capacity=cap)
         return DeviceImage(
             algo=img.algo, n=img.n,
@@ -247,12 +254,12 @@ class DeviceImageStore:
     # -- data plane ------------------------------------------------------------
     def lookup(self, keys, *, k: int = 1) -> torch.Tensor:
         """Bulk lookup against the front image: int32 buckets on the
-        store's device (one ``memento_lookup`` launch on CUDA)."""
-        return engine_lookup(keys, self._front, k=k)
+        store's device (one ``{algo}_lookup`` launch on CUDA)."""
+        return engine_lookup(keys, self._front, k=k, device=self.device)
 
     def migration_diff(self, keys, *, k: int = 1):
         """Moved-key mask between the retained epoch and the front epoch
-        (one ``memento_diff`` launch on CUDA)."""
+        (one ``{algo}_diff`` launch on CUDA)."""
         if self._prev is None:
             raise ValueError("no previous epoch retained (sync() first)")
-        return engine_diff(keys, self._prev, self._front, k=k)
+        return engine_diff(keys, self._prev, self._front, k=k, device=self.device)

@@ -6,13 +6,18 @@
   host agrees bit-for-bit with the CUDA kernel (an IEEE correctly rounded
   f32 divide on both sides).
 
-The stateful ``JumpHash`` class is not part of this slice of the port.
+``JumpHash`` is the stateful wrapper (LIFO-only resizes) whose device
+image is just the dynamic ``n``.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from .hashing import GOLDEN32, LCG_MULT, MASK32, MASK64, np_fmix32
+from .hashing import GOLDEN32, LCG_MULT, MASK32, MASK64, fmix32, np_fmix32
+from .protocol import DeltaEmitter, DeviceImage, ReplicatedLookup
+
+#: per-step salt of the jump32 variate stream
+STEP_SALT = 0x2545F491
 
 
 def jump64(key: int, num_buckets: int) -> int:
@@ -29,16 +34,29 @@ def jump64(key: int, num_buckets: int) -> int:
 
 
 def jump32(key: int, num_buckets: int) -> int:
-    """Device JumpHash variant (scalar; see :func:`np_jump32`)."""
-    out = np_jump32(np.asarray([key & MASK32], dtype=np.uint32), num_buckets)
-    return int(out[0])
+    """Device JumpHash variant for one key: :func:`np_jump32`'s steps on
+    numpy float32 scalars (each add, divide and floor rounded as in f32)."""
+    if num_buckets <= 0:
+        raise ValueError("num_buckets must be positive")
+    key &= MASK32
+    n = np.float32(num_buckets)
+    b, j, i = 0, np.float32(0.0), 0
+    while j < n:
+        b = int(j)
+        u = fmix32(key ^ ((i * GOLDEN32 + STEP_SALT) & MASK32)) >> 8
+        r = np.float32(u + 1) * np.float32(2.0 ** -24)  # exact: u + 1 ≤ 2^24
+        j = min(np.floor((np.float32(b) + np.float32(1.0)) / r), n)
+        i += 1
+        if i > 256:
+            raise RuntimeError("jump32 failed to terminate")
+    return b
 
 
 def _step_u24(keys: np.ndarray, step: int | np.ndarray) -> np.ndarray:
     """Per-(key, step) uniform 24-bit variate (exactly representable in f32)."""
     step = np.asarray(step, dtype=np.uint32)
     with np.errstate(over="ignore"):
-        h = np_fmix32(keys ^ (step * np.uint32(GOLDEN32) + np.uint32(0x2545F491)))
+        h = np_fmix32(keys ^ (step * np.uint32(GOLDEN32) + np.uint32(STEP_SALT)))
     return (h >> np.uint32(8)).astype(np.uint32)
 
 
@@ -69,3 +87,64 @@ def np_jump32(keys: np.ndarray, num_buckets: int) -> np.ndarray:
         if i > 256:  # 24-bit r ⇒ ≤ ~2^24 expansion per step
             raise RuntimeError("jump32 failed to terminate")
     return b
+
+
+class JumpHash(ReplicatedLookup, DeltaEmitter):
+    """Stateful JumpHash with the uniform engine API (LIFO-only resizes)."""
+
+    name = "jump"
+
+    def __init__(self, initial_node_count: int, variant: str = "64"):
+        if initial_node_count <= 0:
+            raise ValueError("initial_node_count must be positive")
+        if variant == "64":
+            self._fn = jump64
+        elif variant == "32":
+            self._fn = jump32
+        else:
+            raise ValueError(f"unknown variant {variant!r}")
+        self.variant = variant
+        self.n = initial_node_count
+        self._init_delta_log()
+
+    def lookup(self, key: int) -> int:
+        return self._fn(key, self.n)
+
+    def lookup_trace(self, key: int) -> tuple[int, int, int]:
+        """Jump has no replacement walk: its steps are internal to the
+        jump, so both counts are 0."""
+        return self.lookup(key), 0, 0
+
+    def add(self) -> int:
+        self.n += 1
+        self._record({}, self.n)  # the whole delta is the new n
+        return self.n - 1
+
+    def remove(self, b: int) -> None:
+        if b != self.n - 1:
+            raise ValueError("JumpHash only supports LIFO removals")
+        if self.n == 1:
+            raise ValueError("cannot remove the last bucket")
+        self.n -= 1
+        self._record({}, self.n)
+
+    def _image_n(self) -> int:
+        return self.n
+
+    @property
+    def size(self) -> int:
+        return self.n
+
+    @property
+    def working(self) -> int:
+        return self.n
+
+    def working_set(self) -> set[int]:
+        return set(range(self.n))
+
+    def memory_bytes(self) -> int:
+        return 8  # a single counter
+
+    def device_image(self, capacity: int | None = None) -> DeviceImage:
+        """Tableless: the image is the dynamic n (lookup = jump32)."""
+        return DeviceImage(algo=self.name, n=self.n, epoch=self._epoch)

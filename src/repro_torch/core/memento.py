@@ -117,6 +117,22 @@ class MementoHash(ReplicatedLookup, DeltaEmitter):
             b = d
         return b
 
+    def lookup_trace(self, key) -> tuple[int, int, int]:
+        """Lookup returning (bucket, Alg. 4 iterations, chain reads)."""
+        key &= self._mask
+        b = self._jump(key, self.n)
+        R = self.R
+        ext = inn = 0
+        while b in R:
+            ext += 1
+            wb = R[b][0]
+            d = self._hash2(key, b) % wb
+            while d in R and R[d][0] >= wb:
+                inn += 1
+                d = R[d][0]
+            b = d
+        return b, ext, inn
+
 
 def random_state(
     rng: np.random.Generator, n0: int, removals: int, variant: str = "64"

@@ -1,5 +1,5 @@
 """The consistent-hash protocol of the port: device images, epoch deltas,
-and the algorithm registry (the port's own copy, cut to this slice).
+and the algorithm registry (the port's own copy of the reference's).
 
 Host control plane: ``lookup / remove / add / working / size /
 working_set / memory_bytes``.  ``device_image()`` flattens the host state
@@ -10,9 +10,8 @@ delta log; ``device_delta(since)`` composes the records after ``since``
 into one :class:`ImageDelta`, which ``DeviceImageStore`` applies to
 double-buffered device tensors.
 
-Only the Memento entry of the registry is ported so far; the others raise
-``NotImplementedError`` naming the ``ROADMAP.md`` queue item that holds
-them.
+Every algorithm of the reference's registry is ported: MementoHash,
+AnchorHash, DxHash, JumpHash and PowerHash.
 """
 from __future__ import annotations
 
@@ -49,17 +48,23 @@ class ReplicatedLookup:
             return hash2_32(key, salt)
         return hash2_64(key, salt)
 
-    def lookup_k_filtered(self, key: int, k: int, reject) -> list[int]:
+    def lookup_k_filtered(self, key: int, k: int, reject,
+                          trace: list | None = None) -> list[int]:
         """The salted walk: ``reject(cand, chosen)`` skips a candidate;
-        slot 0, the plain lookup, is always accepted."""
+        slot 0, the plain lookup, is always accepted.  ``trace``, if given,
+        collects every salted lookup's result in walk order."""
         if k < 1:
             raise ValueError("k must be ≥ 1")
         out = [self.lookup(key)]
+        if trace is not None:
+            trace.append(out[0])
         salt = 1
         while len(out) < k:
             if salt > REPLICA_SALT_CAP:
                 raise RuntimeError("replica salt budget exhausted")
             cand = self.lookup(self._salt_hash2(key, salt))
+            if trace is not None:
+                trace.append(cand)
             if not reject(cand, out):
                 out.append(cand)
             salt += 1
@@ -76,15 +81,27 @@ class ReplicatedLookup:
             raise ValueError(f"k={k} exceeds working buckets ({self.working})")
         return self.lookup_k_filtered(key, k, self._reject_duplicate)
 
+    def lookup_k_trace(self, key: int, k: int) -> tuple[list[int], list[int]]:
+        """``lookup_k`` returning ``(replicas, candidates)``: every salted
+        lookup's result in walk order, rejected ones included (the
+        replica-stability checker's instrument)."""
+        if k > self.working:
+            raise ValueError(f"k={k} exceeds working buckets ({self.working})")
+        cands: list[int] = []
+        out = self.lookup_k_filtered(key, k, self._reject_duplicate, trace=cands)
+        return out, cands
+
 
 @dataclass
 class DeviceImage:
     """Flat image of a consistent-hash state, held as torch tensors.
 
     * ``algo``    — a name in :data:`ALGORITHMS`,
-    * ``n``       — the dynamic size scalar (b-array size for Memento),
-    * ``arrays``  — named flat int32 tensors, lengths 128-padded, all on
-      one device,
+    * ``n``       — the dynamic size scalar (b-array size for Memento and
+      Jump-family, overall capacity ``a`` for Anchor/Dx),
+    * ``arrays``  — named flat int32 tensors (uint32 words bit-cast to
+      int32), lengths 128-padded, all on one device; empty for the
+      tableless Jump and Power,
     * ``scalars`` — extra dynamic int scalars,
     * ``epoch``   — the membership epoch this image snapshots.
     """
@@ -123,14 +140,19 @@ class ImageDelta:
 class AlgoInfo:
     """One algorithm's registry entry: its host factory
     ``(initial_nodes, capacity, variant) → instance``, its dynamic scalars
-    (``n`` first), its table names, and ``required(n)``, the table lengths
-    a lookup at size ``n`` may read."""
+    (``n`` first), its table names, ``required(n)`` (the table lengths a
+    lookup at size ``n`` may read), whether removals are LIFO only (the
+    rule the sim's victim policies degrade to), and whether the overall
+    capacity ``a`` is fixed at construction (growable algorithms get
+    snapshot headroom instead)."""
 
     name: str
     factory: object
     scalars: tuple[str, ...]
     tables: tuple[str, ...]
     required: object
+    lifo_only: bool = False
+    fixed_capacity: bool = False
 
 
 def _memento_factory(n0: int, capacity, variant: str):
@@ -139,31 +161,50 @@ def _memento_factory(n0: int, capacity, variant: str):
     return MementoHash(n0, variant=variant)
 
 
-#: Every algorithm name of the reference, in its registry (wire-id) order.
-#: One name per line: no source line may list three algorithm names.
-ALGORITHMS: tuple[str, ...] = (
-    "memento",
-    "anchor",
-    "dx",
-    "jump",
-    "power",
-)
+def _anchor_factory(n0: int, capacity, variant: str):
+    from .anchor import AnchorHash
 
-#: The algorithms this port serves so far.
+    return AnchorHash(capacity or 10 * n0, n0, variant=variant)
+
+
+def _dx_factory(n0: int, capacity, variant: str):
+    from .dx import DxHash
+
+    return DxHash(capacity or 10 * n0, n0, variant=variant)
+
+
+def _jump_factory(n0: int, capacity, variant: str):
+    from .jump import JumpHash
+
+    return JumpHash(n0, variant=variant)
+
+
+def _power_factory(n0: int, capacity, variant: str):
+    from .power import PowerHash
+
+    return PowerHash(n0, variant=variant)
+
+
+#: Registry order is the reference's (its wire ids).  One name per line: no
+#: source line may list three algorithm names.
 ALGORITHM_REGISTRY: dict[str, AlgoInfo] = {
     info.name: info for info in (
         AlgoInfo("memento", _memento_factory, ("n",), ("repl",),
                  lambda n: {"repl": n}),
+        AlgoInfo("anchor", _anchor_factory, ("n",), ("A", "K"),
+                 lambda n: {"A": n, "K": n}, fixed_capacity=True),
+        AlgoInfo("dx", _dx_factory, ("n", "max_probes", "fallback"),
+                 ("words",), lambda n: {"words": -(-n // 32)},
+                 fixed_capacity=True),
+        AlgoInfo("jump", _jump_factory, ("n",), (), lambda n: {},
+                 lifo_only=True),
+        AlgoInfo("power", _power_factory, ("n",), (), lambda n: {},
+                 lifo_only=True),
     )
 }
 
-#: Where each algorithm not yet ported waits (``ROADMAP.md`` Queue 2).
-NOT_PORTED: dict[str, str] = {
-    "anchor": "ROADMAP.md Queue 2, K1c",
-    "dx": "ROADMAP.md Queue 2, K1d",
-    "power": "ROADMAP.md Queue 2, K1e",
-    "jump": "ROADMAP.md Queue 2, K1f",
-}
+#: every algorithm name, in registry (wire-id) order
+ALGORITHMS: tuple[str, ...] = tuple(ALGORITHM_REGISTRY)
 
 IMAGE_LAYOUT: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     name: (info.scalars, info.tables)
@@ -173,12 +214,9 @@ IMAGE_LAYOUT: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
 
 def _registry_entry(algo: str) -> AlgoInfo:
     info = ALGORITHM_REGISTRY.get(algo)
-    if info is not None:
-        return info
-    if algo in NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {algo!r} is not ported yet: see {NOT_PORTED[algo]}")
-    raise ValueError(f"unknown algorithm {algo!r}")
+    if info is None:
+        raise ValueError(f"unknown algorithm {algo!r}")
+    return info
 
 
 def image_scalar_vec(image: DeviceImage) -> list[int]:

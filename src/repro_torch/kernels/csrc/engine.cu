@@ -1,24 +1,32 @@
-// MementoHash lookup kernels for Hopper (sm_90a): paper Alg. 4 per key.
+// Lookup kernels for Hopper (sm_90a): every algorithm's lookup and k = 1
+// epoch diff, one thread per key.
 //
-// Replaces the dense Memento configurations of the TPU engine kernel
-// src/repro/kernels/engine.py::_engine_pallas (body _engine_kernel_factory):
-//   memento_lookup  <- EngineOp("memento"), dense table, k = 1
-//   memento_diff    <- EngineOp("memento", diff=True), dense table, k = 1
+// Replaces the dense k = 1 configurations of the TPU engine kernel
+// src/repro/kernels/engine.py::_engine_pallas (body _engine_kernel_factory,
+// per-algorithm bodies dispatched by algo_body):
+//   memento_lookup / memento_diff  <- memento_body + dense_body   (K1a, K1i)
+//   anchor_lookup  / anchor_diff   <- anchor_body                 (K1c, K1i)
+//   dx_lookup      / dx_diff       <- dx_body                     (K1d, K1i)
+//   power_lookup   / power_diff    <- primitives.power32          (K1e, K1i)
+//   jump_lookup    / jump_diff     <- primitives.jump32           (K1f, K1i)
 //
-// What bounds it on the card: integer issue.  A key costs ~ln(n) jump32
-// steps (14.4 at n = 10^6), each a murmur3 mix, a correctly rounded f32
-// divide and a floor, plus one hash2 and a modulo per Alg. 4 iteration.
-// Memory is small beside that: 8 bytes of key and bucket per key, and
-// gathers into the 4n-byte repl table, which at n = 10^6 (4 MB) stays in
-// the 50 MB L2.
+// What bounds them on the card: integer issue.  A key costs hashes
+// (murmur3 mixes), integer modulos and, for Memento and Jump, ~ln(n)
+// jump32 steps with a correctly rounded f32 divide each.  Memory is small
+// beside that: 8 bytes of key and bucket per key (16 for a diff), and
+// gathers into tables that at n = 10^6 are a few MB and stay in the 50 MB
+// L2 (Anchor's A and K at a = 4*10^6 are 32 MB; Dx's bitmap 0.5 MB; Jump
+// and Power read no table).  DxHash is the slowest: after a 90 % removal
+// at capacity factor 4 a key needs ~a/w = 40 probes.
 //
-// Design: one thread per key with per-thread loops.  The Pallas kernel
-// runs lane-synchronous masked while_loops over (8, 128) key blocks, so a
-// block settles when its slowest lane does; here a warp waits only for its
-// own 32 keys, and every lane's result is the same either way.  The table
-// is read straight from global memory (through L2); it is far larger than
-// a block's shared memory.  The per-key logic lives in __device__
-// functions shared by both kernels, so lookup and diff cannot disagree.
+// Design: one thread per key with per-thread loops.  The Pallas kernel runs
+// lane-synchronous masked while_loops over (8, 128) key blocks, so a block
+// settles when its slowest lane does; here a warp waits only for its own
+// 32 keys, and every lane's result is the same either way.  Tables are read
+// straight from global memory (through L2).  Each algorithm's per-key logic
+// is one __device__ function, wrapped in a small operand struct, and the
+// lookup and diff kernels are templates over that struct, so a lookup and
+// a diff of one algorithm cannot disagree.
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -32,6 +40,8 @@ constexpr uint32_t kGolden32 = 0x9E3779B1u;
 constexpr uint32_t kC1 = 0x85EBCA6Bu;
 constexpr uint32_t kC2 = 0xC2B2AE35u;
 constexpr uint32_t kStepSalt = 0x2545F491u;
+constexpr uint32_t kPowerSalt = 0x506F5748u;  // repro_torch.core.power
+constexpr int32_t kPowerTryCap = 64;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -81,27 +91,107 @@ __device__ __forceinline__ int32_t memento_one(uint32_t key,
   return b;
 }
 
-__global__ void memento_lookup_kernel(const uint32_t* __restrict__ keys,
-                                      int32_t* __restrict__ out, int64_t count,
-                                      const int32_t* __restrict__ repl,
-                                      int32_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < count) out[i] = memento_one(keys[i], repl, n);
+// AnchorHash: A[b] = 0 for a working bucket, else the working-set size
+// right after b was removed; K[b] the bucket that replaced b.  Start at
+// fmix32(key) % a; at a removed bucket draw h = hash2(key, b) % A[b] and
+// step back through K while h was removed at or after b (A[h] >= A[b]).
+__device__ __forceinline__ int32_t anchor_one(uint32_t key,
+                                              const int32_t* __restrict__ A,
+                                              const int32_t* __restrict__ K,
+                                              int32_t a) {
+  int32_t b = static_cast<int32_t>(fmix32(key) % static_cast<uint32_t>(a));
+  int32_t ab;
+  while ((ab = A[b]) > 0) {
+    int32_t h = static_cast<int32_t>(hash2(key, static_cast<uint32_t>(b)) %
+                                     static_cast<uint32_t>(ab));
+    while (A[h] >= ab) h = K[h];
+    b = h;
+  }
+  return b;
 }
 
-__global__ void memento_diff_kernel(const uint32_t* __restrict__ keys,
-                                    int32_t* __restrict__ old_out,
-                                    int32_t* __restrict__ new_out,
-                                    int32_t* __restrict__ moved, int64_t count,
-                                    const int32_t* __restrict__ repl_old,
-                                    int32_t n_old,
-                                    const int32_t* __restrict__ repl_new,
-                                    int32_t n_new) {
+// DxHash: probe hash2(key, i) % a in the bitmap of working buckets (bucket
+// c is bit c & 31 of word c >> 5) for i < max_probes, else fallback.
+__device__ __forceinline__ int32_t dx_one(uint32_t key,
+                                          const uint32_t* __restrict__ words,
+                                          int32_t a, int32_t max_probes,
+                                          int32_t fallback) {
+  for (int32_t i = 0; i < max_probes; ++i) {
+    const uint32_t c = hash2(key, static_cast<uint32_t>(i)) % static_cast<uint32_t>(a);
+    if ((words[c >> 5] >> (c & 31u)) & 1u) return static_cast<int32_t>(c);
+  }
+  return fallback;
+}
+
+// PowerHash level descent.  Top level L = floor(log2(n - 1)) by the shift
+// loop (n = 1 gives L = 0, and then every path ends at bucket 0).  The top
+// level redraws while v >= n, at most kPowerTryCap draws in all, and
+// accepts v in [2^L, n); otherwise one draw per full level j = L-1 .. 0
+// accepts v >= 2^j; past level 0 the bucket is 0.  n < 2^31 keeps L <= 30,
+// so every shift below is defined.
+__device__ __forceinline__ int32_t power_one(uint32_t key, int32_t n) {
+  int32_t L = 0;
+  while (((n - 1) >> (L + 1)) > 0) ++L;
+  const uint32_t hi_mask = (1u << (L + 1)) - 1u;
+  const uint32_t base = kPowerSalt + (static_cast<uint32_t>(L) << 6);
+  uint32_t v = hash2(key, base) & hi_mask;
+  for (int32_t t = 1; v >= static_cast<uint32_t>(n) && t < kPowerTryCap; ++t)
+    v = hash2(key, base + static_cast<uint32_t>(t)) & hi_mask;
+  if (v < static_cast<uint32_t>(n) && v >= (1u << L)) return static_cast<int32_t>(v);
+  for (int32_t j = L - 1; j >= 0; --j) {
+    const uint32_t c = hash2(key, kPowerSalt + (static_cast<uint32_t>(j) << 6)) &
+                       ((1u << (j + 1)) - 1u);
+    if (c >= (1u << j)) return static_cast<int32_t>(c);
+  }
+  return 0;
+}
+
+// One epoch's operands per algorithm; operator() is that epoch's lookup.
+struct Memento {
+  const int32_t* repl;
+  int32_t n;
+  __device__ int32_t operator()(uint32_t key) const { return memento_one(key, repl, n); }
+};
+struct Anchor {
+  const int32_t* A;
+  const int32_t* K;
+  int32_t a;
+  __device__ int32_t operator()(uint32_t key) const { return anchor_one(key, A, K, a); }
+};
+struct Dx {
+  const uint32_t* words;
+  int32_t a, max_probes, fallback;
+  __device__ int32_t operator()(uint32_t key) const {
+    return dx_one(key, words, a, max_probes, fallback);
+  }
+};
+struct Jump {
+  int32_t n;
+  __device__ int32_t operator()(uint32_t key) const { return jump32(key, n); }
+};
+struct Power {
+  int32_t n;
+  __device__ int32_t operator()(uint32_t key) const { return power_one(key, n); }
+};
+
+template <class Body>
+__global__ void lookup_kernel(const uint32_t* __restrict__ keys,
+                              int32_t* __restrict__ out, int64_t count, Body body) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < count) out[i] = body(keys[i]);
+}
+
+template <class Body>
+__global__ void diff_kernel(const uint32_t* __restrict__ keys,
+                            int32_t* __restrict__ old_out,
+                            int32_t* __restrict__ new_out,
+                            int32_t* __restrict__ moved, int64_t count,
+                            Body old_body, Body new_body) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= count) return;
   const uint32_t key = keys[i];
-  const int32_t o = memento_one(key, repl_old, n_old);
-  const int32_t w = memento_one(key, repl_new, n_new);
+  const int32_t o = old_body(key);
+  const int32_t w = new_body(key);
   old_out[i] = o;
   new_out[i] = w;
   moved[i] = o != w;
@@ -111,31 +201,100 @@ unsigned int blocks_for(long long count) {
   return static_cast<unsigned int>((count + kThreads - 1) / kThreads);
 }
 
-}  // namespace
-
-extern "C" {
-
-// keys: uint32 [count]; out: int32 [count]; repl: int32 [>= n].
-int memento_lookup(const void* keys, void* out, long long count,
-                   const void* repl, int n, void* stream) {
-  memento_lookup_kernel<<<blocks_for(count), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), count,
-      static_cast<const int32_t*>(repl), n);
+template <class Body>
+int launch_lookup(const void* keys, void* out, long long count, Body body,
+                  void* stream) {
+  lookup_kernel<Body><<<blocks_for(count), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), count, body);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both epochs in one launch: old, new and moved (0/1), int32 [count] each.
+template <class Body>
+int launch_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                long long count, Body old_body, Body new_body, void* stream) {
+  diff_kernel<Body><<<blocks_for(count), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
+      static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count,
+      old_body, new_body);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Memento memento(const void* repl, int n) {
+  return {static_cast<const int32_t*>(repl), n};
+}
+Anchor anchor(const void* A, const void* K, int a) {
+  return {static_cast<const int32_t*>(A), static_cast<const int32_t*>(K), a};
+}
+Dx dx(const void* words, int a, int max_probes, int fallback) {
+  return {static_cast<const uint32_t*>(words), a, max_probes, fallback};
+}
+
+}  // namespace
+
+// The plain C interface (ctypes): keys uint32 [count]; outputs int32
+// [count] (a diff writes old, new and moved 0/1); then each epoch's tables
+// (int32, or uint32 words for dx) and int scalars in the registry's order;
+// then the stream.  Each returns cudaGetLastError() after its launch.
+extern "C" {
+
+int memento_lookup(const void* keys, void* out, long long count,
+                   const void* repl, int n, void* stream) {
+  return launch_lookup(keys, out, count, memento(repl, n), stream);
+}
+
 int memento_diff(const void* keys, void* old_out, void* new_out, void* moved,
                  long long count, const void* repl_old, int n_old,
                  const void* repl_new, int n_new, void* stream) {
-  memento_diff_kernel<<<blocks_for(count), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
-      static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count,
-      static_cast<const int32_t*>(repl_old), n_old,
-      static_cast<const int32_t*>(repl_new), n_new);
-  return static_cast<int>(cudaGetLastError());
+  return launch_diff(keys, old_out, new_out, moved, count, memento(repl_old, n_old),
+                     memento(repl_new, n_new), stream);
+}
+
+int anchor_lookup(const void* keys, void* out, long long count, const void* A,
+                  const void* K, int a, void* stream) {
+  return launch_lookup(keys, out, count, anchor(A, K, a), stream);
+}
+
+int anchor_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                long long count, const void* A_old, const void* K_old, int a_old,
+                const void* A_new, const void* K_new, int a_new, void* stream) {
+  return launch_diff(keys, old_out, new_out, moved, count, anchor(A_old, K_old, a_old),
+                     anchor(A_new, K_new, a_new), stream);
+}
+
+int dx_lookup(const void* keys, void* out, long long count, const void* words,
+              int a, int max_probes, int fallback, void* stream) {
+  return launch_lookup(keys, out, count, dx(words, a, max_probes, fallback), stream);
+}
+
+int dx_diff(const void* keys, void* old_out, void* new_out, void* moved,
+            long long count, const void* words_old, int a_old, int max_probes_old,
+            int fallback_old, const void* words_new, int a_new, int max_probes_new,
+            int fallback_new, void* stream) {
+  return launch_diff(keys, old_out, new_out, moved, count,
+                     dx(words_old, a_old, max_probes_old, fallback_old),
+                     dx(words_new, a_new, max_probes_new, fallback_new), stream);
+}
+
+int jump_lookup(const void* keys, void* out, long long count, int n, void* stream) {
+  return launch_lookup(keys, out, count, Jump{n}, stream);
+}
+
+int jump_diff(const void* keys, void* old_out, void* new_out, void* moved,
+              long long count, int n_old, int n_new, void* stream) {
+  return launch_diff(keys, old_out, new_out, moved, count, Jump{n_old}, Jump{n_new},
+                     stream);
+}
+
+int power_lookup(const void* keys, void* out, long long count, int n, void* stream) {
+  return launch_lookup(keys, out, count, Power{n}, stream);
+}
+
+int power_diff(const void* keys, void* old_out, void* new_out, void* moved,
+               long long count, int n_old, int n_new, void* stream) {
+  return launch_diff(keys, old_out, new_out, moved, count, Power{n_old}, Power{n_new},
+                     stream);
 }
 
 const char* error_string(int code) {

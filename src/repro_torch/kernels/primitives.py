@@ -12,9 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.hashing import _C1_32, _C2_32, GOLDEN32, MASK32
-
-#: per-step salt of the jump32 variate stream
-STEP_SALT = 0x2545F491
+from repro_torch.core.jump import STEP_SALT
+from repro_torch.core.power import POWER_SALT, POWER_TRY_CAP
 
 
 def as_u32(x: torch.Tensor) -> torch.Tensor:
@@ -65,6 +64,40 @@ def jump32(keys: torch.Tensor, n: int, work: dict | None = None) -> torch.Tensor
         active = j < nf
         i += 1
     return b
+
+
+def power32(keys: torch.Tensor, n: int, work: dict | None = None) -> torch.Tensor:
+    """Device PowerHash: the level descent of ``repro_torch.core.power``,
+    lane-synchronous.  The top level ``L = ⌊log2(n−1)⌋`` comes from an
+    integer shift loop (no float log); the top level redraws while
+    ``v ≥ n``, at most ``POWER_TRY_CAP`` draws in all; lanes still below
+    ``2^L`` descend one full level per step.  Returns int64 buckets.
+    ``work``, if given, gains ``"draw"`` (extra top-level draws) and
+    ``"level"`` (levels descended), counted over lanes."""
+    L = 0
+    while ((n - 1) >> (L + 1)) > 0:
+        L += 1
+    hi_mask = (1 << (L + 1)) - 1
+    base = POWER_SALT + (L << 6)
+    v = hash2(keys, base) & hi_mask
+    redo = v >= n
+    t = 1
+    while t < POWER_TRY_CAP and bool(redo.any()):
+        if work is not None:
+            work["draw"] = work.get("draw", 0) + int(redo.sum())
+        v = torch.where(redo, hash2(keys, base + t) & hi_mask, v)
+        redo = v >= n
+        t += 1
+    out = torch.where((v < n) & (v >= (1 << L)), v, -1)
+    j = L - 1
+    while j >= 0 and bool((out < 0).any()):
+        pending = out < 0
+        if work is not None:
+            work["level"] = work.get("level", 0) + int(pending.sum())
+        cand = hash2(keys, POWER_SALT + (j << 6)) & ((1 << (j + 1)) - 1)
+        out = torch.where(pending & (cand >= (1 << j)), cand, out)
+        j -= 1
+    return torch.where(out < 0, 0, out)
 
 
 def gather1d(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

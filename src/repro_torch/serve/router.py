@@ -6,7 +6,7 @@ a failed replica remaps only its own sessions, and a restored one takes
 back only the sessions that were its.  Bulk routing runs on the device
 through a :class:`~repro_torch.core.image_store.DeviceImageStore`:
 ``fail_replica``/``restore_replica`` push O(changed-words) epoch deltas,
-and ``route_batch`` is one ``memento_lookup`` launch.
+and ``route_batch`` is one ``{algo}_lookup`` launch.
 
 Session ids are hashed to uint32 keys on the host, as in the reference.
 Not yet ported: k-replica batch sets (``ROADMAP.md`` Queue 2, K1h) and the

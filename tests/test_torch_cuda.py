@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from repro_torch.core.memento import MementoHash
+from repro_torch.core.protocol import ALGORITHMS, ALGORITHM_REGISTRY, make_hash
 from repro_torch.kernels import delta_apply as da
 from repro_torch.kernels import engine
 from repro_torch.serve.router import SessionRouter
+from repro_torch.sim import make_trace, replay
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +123,74 @@ def test_router_on_cuda_matches_host(dev, sync_mode):
     router.image_store().flush()
     assert router.route_batch(ids).tolist() == [router.route(int(s)) for s in ids]
     assert router.image_store().totals.delta_applies == 5
+
+
+def _algo_state(algo: str, n: int, frac: float, seed: int):
+    """A ``variant="32"`` state of ``n`` working buckets (capacity 4n for
+    the fixed-capacity ones) after removing ``frac`` of them: random
+    victims, or the highest ids for the LIFO-only algorithms."""
+    h = make_hash(algo, n, capacity=4 * n, variant="32")
+    count = int(frac * n)
+    if ALGORITHM_REGISTRY[algo].lifo_only:
+        victims = [h.size - 1 - i for i in range(count)]
+    else:
+        victims = np.random.default_rng(seed).permutation(sorted(h.working_set()))[:count]
+    for b in victims:
+        h.remove(int(b))
+    return h
+
+
+def _operands(h, dev):
+    img = h.device_image()
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    return engine.image_operands(img)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 127, 129, 2**16 + 1])
+@pytest.mark.parametrize("removed", [0.0, 0.9])
+@pytest.mark.parametrize("algo", [a for a in ALGORITHMS if a != "memento"])
+def test_lookup_kernel_of_every_algorithm_matches_plain_and_host(dev, algo, n, removed):
+    h = _algo_state(algo, n, removed, seed=n)
+    tables, scalars = _operands(h, dev)
+    keys = engine.key_tensor(KEYS, dev)
+    before = engine.LAUNCHES[f"{algo}_lookup"]
+    out = engine.kernel_lookup(algo, keys, tables, scalars)
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES[f"{algo}_lookup"] == before + 1
+    assert torch.equal(out, engine.lookup_plain(algo, keys, tables, scalars))
+    assert out[:300].cpu().tolist() == [h.lookup(int(k)) for k in KEYS[:300]]
+
+
+@pytest.mark.parametrize("algo", [a for a in ALGORITHMS if a != "memento"])
+def test_diff_kernel_of_every_algorithm_matches_plain(dev, algo):
+    a = _algo_state(algo, 3000, 0.0, seed=1)
+    b = _algo_state(algo, 3000, 0.5, seed=1)
+    keys = engine.key_tensor(KEYS, dev)
+    old, new = _operands(a, dev), _operands(b, dev)
+    got = engine.kernel_diff(algo, keys, old, new)
+    torch.cuda.synchronize()
+    want = engine.diff_plain(algo, keys, old, new)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2].any()
+
+
+def test_dx_kernel_returns_fallback_after_max_probes(dev):
+    h = make_hash("dx", 400, capacity=1600, variant="32")
+    h._MAX_PROBE_FACTOR = 1
+    for b in range(390):
+        h.remove(b)
+    tables, scalars = _operands(h, dev)
+    keys = engine.key_tensor(KEYS, dev)
+    out = engine.kernel_lookup("dx", keys, tables, scalars)
+    assert torch.equal(out, engine.lookup_plain("dx", keys, tables, scalars))
+    assert int((out == 390).sum()) > 1000
+
+
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_replay_on_cuda_matches_host_plane(dev, algo):
+    for scenario in ("oneshot", "churn_storm", "serving_failure"):
+        on_card = replay(make_trace(scenario, 0), algo=algo)
+        host = replay(make_trace(scenario, 0), algo=algo, plane="host")
+        assert on_card.ok and host.ok
+        assert on_card.fingerprint == host.fingerprint

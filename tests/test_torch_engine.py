@@ -1,5 +1,5 @@
-"""The port's engine (plain torch versions of the ``memento_lookup`` and
-``memento_diff`` kernels, as its wrappers run them on CPU tensors) against
+"""The port's engine (plain torch versions of every ``{algo}_lookup`` and
+``{algo}_diff`` kernel, as its wrappers run them on CPU tensors) against
 the reference engine on both of its planes (Pallas in interpret mode, and
 jnp) and against the host, exactly."""
 from __future__ import annotations
@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from conformance import churn, state
+from conformance import ALGORITHMS, churn, churn_mixed, state
 from repro.core import DeviceImageStore as RefStore
 from repro.kernels import engine as ref
 from repro_torch.convert import image_from_arrays, memento_from_state
@@ -134,7 +134,7 @@ def test_engine_op_checks_match_reference(cfg):
     except NotImplementedError as err:
         assert "ROADMAP.md" in str(err)
         return
-    assert op.algo == "memento" and op.k == 1 and op.table == "dense"
+    assert (op.mode, op.k, op.bounded, op.table) == ("lookup", 1, False, "dense")
 
 
 def test_unported_configurations_raise_at_entry_points():
@@ -143,3 +143,91 @@ def test_unported_configurations_raise_at_entry_points():
         port.engine_lookup(KEYS, img, k=2)
     with pytest.raises(NotImplementedError):
         port.engine_diff(KEYS, img, img, k=3)
+
+
+ALGO_STATES = {
+    "fresh": (200, 0),
+    "churned": (200, 80),
+    "removed90": (200, 180),
+}
+
+
+@pytest.mark.parametrize("plane", PLANES)
+@pytest.mark.parametrize("name", sorted(ALGO_STATES))
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_every_body_lookup_matches_reference(algo, name, plane):
+    n0, removals = ALGO_STATES[name]
+    h = state(algo, n0, removals, seed=7)
+    img = h.device_image()
+    got = port.engine_lookup(KEYS, _port_image(img), device="cpu")
+    assert got.dtype == torch.int32 and got.device.type == "cpu"
+    want = np.asarray(ref.engine_lookup(KEYS, img, plane=plane))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[:100].tolist() == [h.lookup(int(k)) for k in KEYS[:100]]
+
+
+@pytest.mark.parametrize("plane", PLANES)
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_every_body_diff_matches_reference(algo, plane):
+    h = state(algo, 200, 60, seed=8)
+    store = RefStore(h)
+    churn_mixed(h, 30, seed=10, p_remove=0.7)
+    store.sync()
+    old_img, new_img = store.previous_image(), store.image()
+    got = port.engine_diff(KEYS, _port_image(old_img), _port_image(new_img), device="cpu")
+    want = ref.engine_diff(KEYS, old_img, new_img, plane=plane)
+    np.testing.assert_array_equal(got.old.numpy(), want.old)
+    np.testing.assert_array_equal(got.new.numpy(), want.new)
+    np.testing.assert_array_equal(got.moved.numpy(), want.moved)
+    assert got.num_moved == want.num_moved > 0
+
+
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_work_counts_of_every_body_match_host_trace(algo):
+    """The plain bodies' lane counts (what chip_smoke.py's bounds read)
+    equal the host's own step counts where the host reports them."""
+    h = state(algo, 300, 250, seed=5)
+    img = _port_image(h.device_image())
+    work: dict = {}
+    port.lookup_plain(algo, port.key_tensor(KEYS, "cpu"), *port.image_operands(img), work)
+    traces = [h.lookup_trace(int(k)) for k in KEYS]
+    first = sum(t[1] for t in traces)
+    second = sum(t[2] for t in traces)
+    if algo in ("memento", "anchor"):
+        assert (work["outer"], work.get("read", 0)) == (first, second)
+    elif algo == "dx":
+        assert work["probe"] == first + len(KEYS)  # the host counts misses
+    elif algo == "power":
+        assert (work.get("draw", 0), work.get("level", 0)) == (first, second)
+    else:
+        assert work["step"] >= len(KEYS)
+
+
+def test_tableless_images_run_where_asked():
+    img = _port_image(state("jump", 50, 3, seed=1).device_image())
+    assert img.arrays == {}
+    assert port.engine_lookup(KEYS, img, device="cpu").device.type == "cpu"
+    with pytest.raises(ValueError):
+        port.engine_lookup(KEYS, _port_image(state("anchor", 50, 3, seed=1).device_image()),
+                           device="meta")
+
+
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_kernel_wrappers_check_operands(algo):
+    img = _port_image(state(algo, 64, 10, seed=2).device_image())
+    tables, scalars = port.image_operands(img)
+    keys = port.key_tensor(KEYS, "cpu")
+    with pytest.raises(ValueError):
+        port.kernel_lookup(algo, keys, tables, [0] + scalars[1:])
+    with pytest.raises(ValueError):
+        port.kernel_lookup(algo, keys.to(torch.int64), tables, scalars)
+    with pytest.raises(ValueError):
+        port.kernel_lookup(algo, keys, tables + [tables[0] if tables else keys], scalars)
+    if tables:
+        with pytest.raises(ValueError):
+            port.kernel_lookup(algo, keys, [t[:1] for t in tables], scalars)
+        with pytest.raises(ValueError):
+            port.kernel_lookup(algo, keys, [t.to(torch.int64) for t in tables], scalars)
+    assert port.kernel_lookup(algo, keys[:0], tables, scalars).shape == (0,)
+    o, n, moved = port.kernel_diff(algo, keys, (tables, scalars), (tables, scalars))
+    assert torch.equal(o, n) and not moved.any()

@@ -1,13 +1,13 @@
 """The port's DeviceImageStore against the reference store on one event
 sequence: after every event the two front images agree word for word
-and the two stores report the same SyncStats."""
+and the two stores report the same SyncStats, for every algorithm."""
 from __future__ import annotations
 
 import numpy as np
 import pytest
 import torch
 
-from conformance import churn_mixed
+from conformance import ALGORITHMS, churn_mixed
 from repro.core import DeviceImageStore as RefStore
 from repro.core import image_fingerprint as ref_fingerprint
 from repro.core import make_hash as ref_make_hash
@@ -15,6 +15,7 @@ from repro.core.image_store import delta_fits as ref_delta_fits
 from repro_torch.core import protocol as pp
 from repro_torch.core.image_store import DeviceImageStore, delta_fits
 from repro_torch.core.memento import MementoHash
+from repro_torch.core.protocol import make_hash
 
 KEYS = np.random.default_rng(41).integers(0, 2**32, size=512, dtype=np.uint32)
 
@@ -24,14 +25,14 @@ class _Stores:
     every event is synced on both sides and compared."""
 
     def __init__(self, n0: int, *, mode: str = "sync", log_cap: int | None = None,
-                 plane: str = "jnp"):
-        self.port_h = MementoHash(n0, variant="32")
-        self.ref_h = ref_make_hash("memento", n0, variant="32")
+                 plane: str = "jnp", algo: str = "memento"):
+        self.port_h = make_hash(algo, n0, capacity=4 * n0, variant="32")
+        self.ref_h = ref_make_hash(algo, n0, capacity=4 * n0, variant="32")
         if log_cap is not None:
             self.port_h._DELTA_LOG_CAP = self.ref_h._DELTA_LOG_CAP = log_cap
         self.port = DeviceImageStore(self.port_h, device="cpu")
         self.ref = RefStore(self.ref_h, plane=plane)
-        self.name = "memento"
+        self.name = algo
         self.mode = mode
         self.stats: list[tuple] = []
         self.every = 1  # sync after every event
@@ -79,7 +80,10 @@ class _Stores:
         self.ref.flush()
         p, r = self.port.image(), self.ref.image()
         assert (p.n, p.epoch, p.scalars) == (r.n, r.epoch, r.scalars)
-        np.testing.assert_array_equal(p.arrays["repl"].numpy(), np.asarray(r.arrays["repl"]))
+        assert sorted(p.arrays) == sorted(r.arrays)
+        for name, arr in r.arrays.items():
+            np.testing.assert_array_equal(p.arrays[name].numpy(),
+                                          np.asarray(arr).view(np.int32))
         assert pp.image_fingerprint(p) == ref_fingerprint(r)
         assert self.port.capacity == self.ref.capacity
         t = self.ref.totals
@@ -164,3 +168,43 @@ def test_delta_fits_matches_reference():
         assert delta_fits(caps, p.device_delta(0)) == ref_delta_fits(caps, h.device_delta(0))
     with pytest.raises(NotImplementedError):
         DeviceImageStore(p, device="cpu", compact=True)
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_every_algorithm_tracks_the_reference_store(algo, mode):
+    """Each churn event synced on both stores: same SyncStats, same front
+    image word for word, same capacity (no headroom for the fixed-capacity
+    AnchorHash and DxHash; none at all for the tableless Jump and Power)."""
+    s = _Stores(40, algo=algo, mode=mode)
+    churn_mixed(s, 70, seed=6, p_remove=0.6)
+    assert {m for m, _ in s.stats} == {"delta"}
+    cap = s.port.capacity
+    if algo in ("anchor", "dx"):
+        assert cap == {k: int(np.asarray(v).shape[0])
+                       for k, v in s.ref_h.device_image().arrays.items()}
+    np.testing.assert_array_equal(s.port.lookup(KEYS).numpy(),
+                                  s.ref.lookup(KEYS, plane="jnp"))
+    got = s.port.migration_diff(KEYS)
+    want = s.ref.migration_diff(KEYS)
+    np.testing.assert_array_equal(got.old.numpy(), want.old)
+    np.testing.assert_array_equal(got.new.numpy(), want.new)
+
+
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_every_algorithm_snapshots_like_the_reference(algo):
+    """A store that falls behind the delta log rebuilds from a snapshot on
+    both sides, with the same words sent."""
+    s = _Stores(60, algo=algo, log_cap=8)
+    s.every = 20
+    churn_mixed(s, 80, seed=7, p_remove=0.6)
+    assert {m for m, _ in s.stats} == {"snapshot"}
+
+
+def test_tableless_delta_carries_only_n():
+    s = _Stores(30, algo="jump")
+    s.remove(29)
+    st = s.port.last_sync
+    assert (st.mode, st.words) == ("delta", 0)
+    assert s.port.image().arrays == {} and s.port.image().n == 29
+    assert s.port.capacity == {}
