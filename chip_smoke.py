@@ -19,14 +19,26 @@
    one-shot 90 % removal, incremental removals) and failover in overlap
    mode, checking every batch against the plain version, and asserts that
    every Memento kernel and the delta apply were launched on that path.
-4. Drives this slice's path, ``repro_torch.sim.replay(plane="device")``,
+4. Drives the second slice's path, ``repro_torch.sim.replay(plane="device")``,
    for all five algorithms over the stable, one-shot and incremental
    scenarios at w = 10^6 with 2^20 keys per lookup and probe batch: no
    checker may report a violation, a sample of every lookup batch must
-   equal the host, and every lookup and diff kernel must be launched.
-   4b replays every scenario but ``session_affinity`` at its default size
-   for every algorithm on the card and on the host: equal fingerprints.
-5. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+   equal the host, and every lookup and diff kernel must be launched;
+   then one ``replica_k = 2`` replay of incremental (Memento, the
+   replica-stability checker on, 2^14 probe keys).  4b replays every
+   scenario at its default size for every algorithm on the card and on
+   the host: equal fingerprints (``session_affinity`` launches every
+   ``{algo}_replica``).
+5. Drives the third slice's path: ``route_batch`` with ``replicas_k = 3``
+   over 10^6 replicas and 2^20 session ids through a marked replica, its
+   removal and its restore; ``bounded_assign`` of 2^20 keys at c = 1.25;
+   and for every algorithm, on phase 2's stable and one-shot states, the
+   k = 3 replica lookup, the bounded k = 2 lookup, the k = 3 epoch diff
+   and a chain-walk step.  Every ``{algo}_replica``, ``{algo}_replica_diff``
+   and ``{algo}_walk`` kernel must be launched on that path; then each
+   result is held against its plain version on the card and 2048 keys
+   against the host, and each kernel is timed beside its bound.
+6. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Any mismatch or error exits non-zero.  Without a GPU, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -45,6 +57,12 @@ N = 10**6                 # buckets: the paper's largest size (§VIII)
 KEYS = 2**20              # keys per batch
 CAPACITY_FACTOR = 4       # a/w of the fixed-capacity algorithms (the traces' default)
 HOST_SAMPLE = 4096        # keys of each replayed lookup batch checked on the host
+KERNEL_SAMPLE = 2048      # keys of each phase-5 kernel result checked on the host
+REPLICAS_K = 3            # phase 5: replica slots of the router and the lookups
+BOUNDED_K = 2             # phase 5: slots of the bounded lookup
+CAP_C = 1.25              # phase 5: bounded-load factor
+ASSIGN_HOST_KEYS = 2**14  # phase 5: keys of the bounded assignment held against the host
+REPLICA_PROBE_KEYS = 2**14  # phase 4: probe keys of the replica_k = 2 replay
 REPLAYED = ("stable", "oneshot", "incremental")  # the paper's §VIII scenarios
 ONESHOT_FRACTION = 0.9    # one-shot scenario: 90 % of the nodes removed
 INCREMENTAL_STAGES = (0.1, 0.3, 0.5)  # growing removal fraction (phase 2)
@@ -93,6 +111,21 @@ ALGO_OPS = {
     "jump": (4, {"step": OPS_PER_STEP}),
     "power": (31, {"draw": 24, "level": 27}),
 }
+# The phase-5 kernels, counted the same way over the plain versions'
+# counters ("lookups", "try", "compare", "walk"):
+#   per salted try:         salt test and increment, loop 3, hash2 18 = 21;
+#                           bounded adds the salt-0 test and the load read
+#                           and compare, 3
+#   per duplicate compare:  read of the earlier slot, compare = 2
+#   per lookup beyond a key's first: the body's per-key ops less the key's
+#                           index, load and store (3)
+#   per slot:               its store, 1
+#   per walk step:          probe increment, bound compare, hash2 18, load
+#                           read and compare 2, loop = 23; per walk lane:
+#                           chain, probe and pending loads, three stores,
+#                           first load read and compare = 8
+OPS_PER_TRY, OPS_PER_BOUNDED_TRY, OPS_PER_COMPARE = 21, 3, 2
+OPS_PER_WALK_STEP, OPS_PER_WALK_LANE = 23, 8
 
 
 def log(msg: str) -> None:
@@ -120,7 +153,8 @@ def main() -> int:
     smoke.phase_main_path(kernels)
     smoke.phase_replay(algo_kernels)
     smoke.phase_host_vs_device()
-    kernels += algo_kernels
+    replica_kernels = smoke.phase_replicas()
+    kernels += algo_kernels + replica_kernels
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -136,6 +170,9 @@ class Smoke:
         self.torch, self.np = torch, np
         self.dev = torch.device("cuda", 0)
         self.rng = np.random.default_rng(SEED)
+        # algo -> (one-shot host state, stable image, one-shot image on the
+        # card), kept from phase 2 for phase 5: no state is built twice
+        self.kept: dict = {}
 
     # -- helpers ---------------------------------------------------------------
     def time_ms(self, fn, reps: int, warmup: int = 3) -> float:
@@ -232,6 +269,8 @@ class Smoke:
             f"took {(time.perf_counter() - t0) * 1e3:.1f} ms")
         states["oneshot"] = one
         images.append(("oneshot", one.device_image()))
+        self.kept["memento"] = (one, self.on_card(states["stable"].device_image()),
+                                self.on_card(one.device_image()))
         images = [(name, img.arrays["repl"].to(self.dev), img.n)
                   for name, img in images]
         lookup = self.check_lookup(states, images)
@@ -403,14 +442,17 @@ class Smoke:
             h.remove(b)
         return (time.perf_counter() - t0) * 1e3
 
+    def on_card(self, img):
+        img.arrays = {k: v.to(self.dev) for k, v in img.arrays.items()}
+        return img
+
     def operands(self, h):
-        """The host state's image as kernel operands on the card."""
+        """The host state's image on the card, and as kernel operands."""
         from repro_torch.kernels.engine import image_operands
 
-        img = h.device_image()
-        img.arrays = {k: v.to(self.dev) for k, v in img.arrays.items()}
+        img = self.on_card(h.device_image())
         tables, scalars = image_operands(img)
-        return tables, scalars, sum(4 * t.numel() for t in tables)
+        return tables, scalars, sum(4 * t.numel() for t in tables), img
 
     @staticmethod
     def algo_ops(algo: str, work: dict, keys: int, n: int) -> int:
@@ -418,6 +460,26 @@ class Smoke:
         if algo == "power":
             per_key += 3 * max(1, (n - 1).bit_length())  # the top-level loop
         return keys * per_key + sum(work.get(k, 0) * v for k, v in per_iter.items())
+
+    def per_key_ops(self, algo: str, n: int) -> int:
+        if algo == "memento":
+            return OPS_PER_KEY
+        return ALGO_OPS[algo][0] + (3 * max(1, (n - 1).bit_length()) if algo == "power" else 0)
+
+    def mode_ops(self, algo: str, work: dict, keys: int, n: int, slots: int = 0,
+                 bounded: bool = False, walk: bool = False) -> int:
+        """32-bit operations of a phase-5 kernel over ``keys`` lanes whose
+        plain run counted ``work``: every lookup's body, the salted tries
+        and duplicate compares of a replica walk writing ``slots`` slots a
+        key, and the steps of a chain walk."""
+        body = (self.lookup_ops(work, keys) if algo == "memento"
+                else self.algo_ops(algo, work, keys, n))
+        more = work.get("lookups", keys) - keys
+        walk = keys * OPS_PER_WALK_LANE if walk else 0
+        return (body + more * (self.per_key_ops(algo, n) - 3) + keys * slots
+                + work.get("try", 0) * (OPS_PER_TRY + (OPS_PER_BOUNDED_TRY if bounded else 0))
+                + work.get("compare", 0) * OPS_PER_COMPARE
+                + work.get("walk", 0) * OPS_PER_WALK_STEP + walk)
 
     def phase_algo_kernels(self) -> list[dict]:
         """``{algo}_lookup`` and ``{algo}_diff`` of every algorithm but
@@ -441,8 +503,8 @@ class Smoke:
             log(f"host {algo}: build {build_ms:.1f} ms, one-shot removal to "
                 f"{h.working} of size {h.size} {remove_ms:.1f} ms")
             by_state = {}
-            for name, (tables, scalars, table_bytes) in (("stable", stable),
-                                                        ("oneshot", oneshot)):
+            for name, (tables, scalars, table_bytes, _) in (("stable", stable),
+                                                           ("oneshot", oneshot)):
                 keys_np, keys = self.keys()
                 out = kernel_lookup(algo, keys, tables, scalars)
                 work: dict = {}
@@ -506,7 +568,7 @@ class Smoke:
                          "launches": None, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                          "library_ms": None, "state": "stable -> oneshot"})
-            del h, stable, oneshot
+            self.kept[algo] = (h, stable[3], oneshot[3])
         torch.cuda.synchronize()
         return rows
 
@@ -716,18 +778,34 @@ class Smoke:
                     f"{summ.get('lookup_keys_total', 0)} keys, host-checked {driver.checked}, "
                     f"syncs (op, events, mode, ms, moved)={syncs}, violations=0, "
                     f"fingerprint {res.fingerprint}, wall {wall:.1f} s")
+        # k-replica sets under churn: the replica-stability checker reads
+        # the k = 2 epoch diff after every removal burst
+        trace = make_trace("incremental", SEED, w=N, n_keys=KEYS)
+        t0 = time.perf_counter()
+        driver = CheckedDriver(trace, algo="memento", plane="device",
+                               probe_keys=REPLICA_PROBE_KEYS, replica_k=2)
+        res = driver.run()
+        if not res.ok:
+            raise AssertionError(f"replay incremental replica_k=2: {res.violations[:3]}")
+        moved = [r.moved for r in res.metrics.records if r.sync_mode]
+        log(f"replay incremental memento replica_k=2: w={N} keys={KEYS} probe keys "
+            f"{REPLICA_PROBE_KEYS}, working {N} -> {res.final_working}, replica-stability "
+            f"checked after {len(moved)} syncs (moved {moved}), host-checked "
+            f"{driver.checked}, violations=0, fingerprint {res.fingerprint}, wall "
+            f"{time.perf_counter() - t0:.1f} s")
         launches = {k: v for c in counters for k, v in c.items()}
         log(f"phase 4 launches: {launches} (a burst longer than the host's "
             f"{DeltaEmitter._DELTA_LOG_CAP}-event delta log syncs as a snapshot)")
         for k in kernels:
             k["launches"] = launches[k["name"]]
-        for name in engine.LAUNCHES:
+        for name in [f"{a}_{m}" for a in ALGORITHMS for m in ("lookup", "diff")]:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the replay path")
+        if launches["memento_replica_diff"] <= 0:
+            raise AssertionError("the replica_k=2 replay never reached memento_replica_diff")
 
     def phase_host_vs_device(self) -> None:
-        """Every scenario but ``session_affinity`` (k-replica failover, not
-        ported) at its default size: card and host replays agree."""
+        """Every scenario at its default size: card and host replays agree."""
         from repro_torch.core.protocol import ALGORITHMS
         from repro_torch.kernels import delta_apply, engine
         from repro_torch.sim import SCENARIOS, make_trace, replay
@@ -739,8 +817,6 @@ class Smoke:
         t0 = time.perf_counter()
         count = 0
         for scenario in SCENARIOS:
-            if scenario == "session_affinity":
-                continue
             for algo in ALGORITHMS:
                 dev = replay(make_trace(scenario, SEED), algo=algo, plane="device")
                 host = replay(make_trace(scenario, SEED), algo=algo, plane="host")
@@ -750,11 +826,372 @@ class Smoke:
                                          f"{dev.violations[:2]} {host.violations[:2]}")
                 count += 1
         launches = {k: v for c in counters for k, v in c.items()}
-        log(f"phase 4b: {count} replays (every scenario but session_affinity x every "
-            f"algorithm) equal on the card and on the host, no violations, "
-            f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+        log(f"phase 4b: {count} replays (every scenario x every algorithm) equal on "
+            f"the card and on the host, no violations, {time.perf_counter() - t0:.1f} s; "
+            f"launches {launches}")
         if launches["delta_apply"] <= 0:
             raise AssertionError("no delta sync reached the delta_apply kernel in 4b")
+        for algo in ALGORITHMS:  # session_affinity's k-replica failover
+            if launches[f"{algo}_replica"] <= 0:
+                raise AssertionError(f"session_affinity never reached {algo}_replica in 4b")
+
+    # -- phase 5: this slice's path --------------------------------------------
+    def phase_replicas(self) -> list[dict]:
+        """k-replica, bounded and chain-walk lookups: the path with the
+        launch counts reset just before it, then every result against its
+        plain version and the host, then the kernels' times."""
+        from repro_torch.core.protocol import ALGORITHMS
+        from repro_torch.kernels import delta_apply, engine
+
+        counters = [engine.LAUNCHES, delta_apply.LAUNCHES]
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        t0 = time.perf_counter()
+        ids = self.replica_route()
+        runs = {algo: self.replica_path(algo) for algo in ALGORITHMS}
+        launches = {k: v for c in counters for k, v in c.items()}
+        log(f"phase 5 path: {time.perf_counter() - t0:.1f} s; launches {launches}")
+        for name in [f"{a}_{m}" for a in ALGORITHMS
+                     for m in ("replica", "replica_diff", "walk")]:
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the phase 5 path")
+        t0 = time.perf_counter()
+        rows = []
+        for algo in ALGORITHMS:
+            rows += self.check_replica_kernels(algo, runs[algo], launches)
+        self.check_assign(runs["memento"])
+        self.replica_breakdown(ids)
+        log(f"phase 5 checks and timing: {time.perf_counter() - t0:.1f} s")
+        return rows
+
+    def replica_route(self):
+        """``route_batch`` with ``replicas_k = 3`` over 10^6 replicas: stable,
+        a replica marked failed (failover before any delta), its removal
+        (one-word delta) and its restore."""
+        from repro_torch.serve.router import SessionRouter
+
+        np, torch = self.np, self.torch
+        router = SessionRouter(N, replicas_k=REPLICAS_K)
+        router.image_store()
+        ids = self.rng.integers(0, 2**63, size=KEYS, dtype=np.uint64)
+        lat: dict = {}
+
+        def batch(what):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = router.route_batch(ids)
+            lat.setdefault(what, []).append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        base = batch("stable")
+        for _ in range(2):
+            if not (batch("stable") == base).all():
+                raise AssertionError("route_batch is not repeatable")
+        victim = int(np.bincount(base).argmax())  # the replica with the most sessions
+        router.mark_failed(victim)
+        for _ in range(5):
+            out = batch("marked")
+            if victim in set(out.tolist()):
+                raise AssertionError("a session was routed to the marked replica")
+            if not (out == base)[base != victim].all():
+                raise AssertionError("a session whose primary was not marked moved")
+        sets = router.replica_set_batch(ids)
+        hit = base == victim
+        if not ((sets[:, 0] == base).all() and (out[hit] == sets[hit, 1]).all()
+                and router.stats.failovers > 0):
+            raise AssertionError("failover did not take the next replica")
+        failovers = router.stats.failovers
+        t0 = time.perf_counter()
+        info = router.fail_replica(victim)
+        torch.cuda.synchronize()
+        fail_ms = (time.perf_counter() - t0) * 1e3
+        if info["control_plane"]["mode"] != "delta":
+            raise AssertionError(f"removal synced as {info['control_plane']}")
+        for _ in range(3):
+            out = batch("removed")
+            if victim in set(out.tolist()) or not (out == base)[~hit].all():
+                raise AssertionError("removal moved more than the victim's sessions")
+        t0 = time.perf_counter()
+        router.restore_replica()
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(3):
+            if not (batch("restored") == base).all():
+                raise AssertionError("the restore did not bring every session back")
+        log(f"route_batch replicas_k={REPLICAS_K}: {KEYS} sessions over {N} replicas; "
+            + "; ".join(f"{w} p50 {np.median(v):.4f} / max {max(v):.4f} ms ({len(v)} batches)"
+                        for w, v in lat.items())
+            + f"; replica {victim} marked: {int(hit.sum())} sessions failed over "
+            f"({failovers} failovers counted), none routed to it, the rest kept their "
+            f"primary; fail_replica {fail_ms:.4f} ms ({info['control_plane']['mode']}, "
+            f"{info['control_plane']['words']} words), restore {restore_ms:.4f} ms, "
+            f"every session back on its primary")
+        self.router_k = (router, victim)
+        return ids
+
+    def replica_path(self, algo: str) -> dict:
+        """One algorithm through the engine's entry points on phase 2's
+        states: k = 3 sets stable and one-shot, a bounded assignment of
+        2^20 keys, the bounded k = 2 lookup under its load, the k = 3 diff
+        and a chain-walk step on a mixed pending mask."""
+        from repro_torch.kernels import engine
+        from repro_torch.sim.checkers import check_cap_invariant
+
+        np, torch = self.np, self.torch
+        h, stable, oneshot = self.kept[algo]
+        keys_np, keys = self.keys()
+        run = {"keys_np": keys_np, "keys": keys,
+               "stable": engine.engine_lookup(keys, stable, k=REPLICAS_K),
+               "oneshot": engine.engine_lookup(keys, oneshot, k=REPLICAS_K)}
+        assign = self.rng.integers(0, 2**32, size=KEYS, dtype=np.uint32)
+        cap = int(np.ceil(CAP_C * KEYS / h.working))
+        load0 = np.zeros(engine.bounded_load_len(oneshot), np.int32)
+        before = engine.LAUNCHES[f"{algo}_walk"]
+        t0 = time.perf_counter()
+        out, load = engine.bounded_assign(assign, oneshot, load0, cap)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        rounds = engine.LAUNCHES[f"{algo}_walk"] - before
+        found = check_cap_invariant(0, out, load, cap)
+        if found or load.sum() != KEYS:
+            raise AssertionError(f"bounded_assign {algo}: {found}")
+        run["assign"] = (assign, load0, cap, out, load, rounds, wall_ms)
+        load_t = torch.from_numpy(load).to(self.dev)
+        run["bounded"] = engine.engine_lookup(keys, oneshot, k=BOUNDED_K, load=load_t, cap=cap)
+        run["diff"] = engine.engine_diff(keys, stable, oneshot, k=REPLICAS_K)
+        pending = self.rng.random(KEYS) < 0.5
+        probe = np.zeros(KEYS, np.int32)
+        run["walk_in"] = (keys_np, probe, pending, load_t, cap)
+        run["walk"] = engine.engine_chain_walk(keys_np, probe, pending, oneshot, load_t, cap)
+        torch.cuda.synchronize()
+        full = float((load >= cap).sum()) / h.working
+        log(f"path {algo}: k={REPLICAS_K} sets stable and one-shot; bounded_assign of "
+            f"{KEYS} keys at c={CAP_C} (cap {cap}, {h.working} working, {full:.2%} of "
+            f"them full): {rounds} rounds = walk launches, {wall_ms:.3f} ms, cap "
+            f"invariant silent; bounded k={BOUNDED_K}; k={REPLICAS_K} diff stable -> "
+            f"one-shot moved {run['diff'].num_moved}; walk step on "
+            f"{int(pending.sum())} pending lanes")
+        return run
+
+    def host_walk(self, h, chain: int, probe: int, pending: bool, load, cap: int):
+        """The host's chain-walk step of one lane."""
+        from repro_torch.core.bounded import walk_probe_bound
+        from repro_torch.core.hashing import hash2_32
+
+        b = h.lookup(chain)
+        if pending:
+            while load[b] >= cap and probe < walk_probe_bound(len(load)):
+                probe += 1
+                chain = hash2_32(chain, probe)
+                b = h.lookup(chain)
+        return b, chain, probe
+
+    def timed_plain(self, fn):
+        """Run a plain version once (it synchronizes inside); its ms."""
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def check_replica_kernels(self, algo: str, run: dict, launches: dict) -> list[dict]:
+        """The path's results against the plain versions on the card (max
+        abs error 0) and 2048 keys against the host; kernel times."""
+        from repro_torch.kernels import engine
+
+        np, torch = self.np, self.torch
+        h, stable, oneshot = self.kept[algo]
+        keys_np, keys = run["keys_np"], run["keys"]
+        sample = np.arange(0, KEYS, KEYS // KERNEL_SAMPLE)
+        ops_of = {"stable": engine.image_operands(stable),
+                  "oneshot": engine.image_operands(oneshot)}
+        tbytes = {k: sum(4 * t.numel() for t in v[0]) for k, v in ops_of.items()}
+
+        def err(a, b):
+            a, b = (torch.as_tensor(x).cpu().long() for x in (a, b))
+            return int((a - b).abs().max()) if a.numel() else 0
+
+        def row(mode, by_state, head):
+            h_ = by_state[head]
+            return {"name": f"{algo}_{mode}", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/engine.cu",
+                    "replaces": "src/repro/kernels/engine.py:526",
+                    "launches": launches[f"{algo}_{mode}"],
+                    "max_abs_err": max(v["max_abs_err"] for v in by_state.values()),
+                    "ms": h_["ms"], "plain_ms": h_["plain_ms"], "bound_ms": h_["bound_ms"],
+                    "bound_by": h_["bound_by"], "library_ms": None, "state": head,
+                    "by_state": by_state}
+
+        def entry(name, e, ms, plain_ms, ops, nbytes, work):
+            bound_ms, bound_by = self.bound(ops, nbytes)
+            log(f"check {algo}_{name}: keys={KEYS} kernel == plain (max abs err {e}); "
+                f"kernel {ms:.6f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
+                f"({bound_by}: {ops / KEYS:.2f} ops/key from "
+                f"{ {k: round(v / KEYS, 3) for k, v in work.items()} } per key), "
+                f"{bound_ms / ms:.1%} of the bound")
+            return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "max_abs_err": e}
+
+        # {algo}_replica, unbounded k = 3, and bounded k = 2 under the load
+        replica, works = {}, {}
+        for name in ("stable", "oneshot"):
+            tables, scalars = ops_of[name]
+            works[name] = {}
+            plain, plain_ms = self.timed_plain(lambda: engine.replica_plain(
+                algo, keys, REPLICAS_K, tables, scalars, work=works[name]))
+            e = err(run[name], plain)
+            if e:
+                raise AssertionError(f"{algo}_replica {name}: kernel != plain ({e})")
+            ms = self.time_ms(lambda: engine.kernel_replica(algo, keys, REPLICAS_K, tables,
+                                                            scalars), reps=10, warmup=1)
+            replica[f"{name} k={REPLICAS_K}"] = entry(
+                f"replica {name} k={REPLICAS_K}", e, ms, plain_ms,
+                self.mode_ops(algo, works[name], KEYS, scalars[0], REPLICAS_K),
+                4 * KEYS * (1 + REPLICAS_K) + tbytes[name], works[name])
+        host = [h.lookup_k(int(x), REPLICAS_K) for x in keys_np[sample]]
+        if host != run["oneshot"][sample].tolist():
+            raise AssertionError(f"{algo}_replica one-shot: kernel != host lookup_k")
+        tables, scalars = ops_of["oneshot"]
+        _, _, _, load_t, cap = run["walk_in"]
+        load_np = load_t.cpu().numpy()
+        work: dict = {}
+        plain, plain_ms = self.timed_plain(lambda: engine.replica_plain(
+            algo, keys, BOUNDED_K, tables, scalars, load_t, cap, work))
+        e = err(run["bounded"], plain)
+        if e:
+            raise AssertionError(f"{algo}_replica bounded: kernel != plain ({e})")
+        want = engine.bounded_replica_sets(h, keys_np[sample], BOUNDED_K, load_np, cap)
+        if not (want == run["bounded"][sample].cpu().numpy()).all():
+            raise AssertionError(f"{algo}_replica bounded: kernel != host")
+        ms = self.time_ms(lambda: engine.kernel_replica(algo, keys, BOUNDED_K, tables, scalars,
+                                                        load_t, cap), reps=10, warmup=1)
+        replica[f"oneshot bounded k={BOUNDED_K} c={CAP_C}"] = entry(
+            f"replica bounded k={BOUNDED_K} cap={cap}", e, ms, plain_ms,
+            self.mode_ops(algo, work, KEYS, scalars[0], BOUNDED_K, bounded=True),
+            4 * KEYS * (1 + BOUNDED_K) + tbytes["oneshot"] + 4 * load_t.numel(), work)
+
+        # {algo}_replica_diff, k = 3, stable -> one-shot
+        d = run["diff"]
+        old, new = ops_of["stable"], ops_of["oneshot"]
+        (p_old, p_new, p_moved), plain_ms = self.timed_plain(
+            lambda: engine.replica_diff_plain(algo, keys, REPLICAS_K, old, new))
+        e = max(err(d.old, p_old), err(d.new, p_new), int((d.moved != p_moved).sum()))
+        if e or not (torch.equal(d.old, run["stable"]) and torch.equal(d.new, run["oneshot"])):
+            raise AssertionError(f"{algo}_replica_diff: kernel != plain / replica sets ({e})")
+        ms = self.time_ms(lambda: engine.kernel_replica_diff(algo, keys, REPLICAS_K, old, new),
+                          reps=10, warmup=1)
+        both = {k: works["stable"].get(k, 0) + works["oneshot"].get(k, 0)
+                for k in set(works["stable"]) | set(works["oneshot"])}
+        ops = (self.mode_ops(algo, works["stable"], KEYS, old[1][0], REPLICAS_K)
+               + self.mode_ops(algo, works["oneshot"], KEYS, new[1][0], REPLICAS_K)
+               + 2 * REPLICAS_K * KEYS)
+        diff = {f"stable -> oneshot k={REPLICAS_K}": entry(
+            f"replica_diff stable -> oneshot, moved {d.num_moved}", e, ms, plain_ms, ops,
+            4 * KEYS * (2 + 2 * REPLICAS_K) + tbytes["stable"] + tbytes["oneshot"], both)}
+
+        # {algo}_walk on a mixed pending mask
+        chain_np, probe_np, pending_np, load_t, cap = run["walk_in"]
+        chain = engine.key_tensor(chain_np, self.dev)
+        probe = torch.from_numpy(probe_np).to(self.dev)
+        pending = torch.from_numpy(pending_np).to(self.dev)
+        work = {}
+        plain, plain_ms = self.timed_plain(lambda: engine.walk_plain(
+            algo, chain, probe, pending, tables, scalars, load_t, cap, work))
+        b, ch, pr = run["walk"]
+        e = max(err(b, plain[0]), err(ch.view(np.int32), plain[1]), err(pr, plain[2]))
+        if e:
+            raise AssertionError(f"{algo}_walk: kernel != plain ({e})")
+        for j in sample:
+            want = self.host_walk(h, int(chain_np[j]), 0, bool(pending_np[j]), load_np, cap)
+            if want != (int(b[j]), int(ch[j]), int(pr[j])):
+                raise AssertionError(f"{algo}_walk lane {j}: kernel != host walk")
+        ms = self.time_ms(lambda: engine.kernel_walk(algo, chain, probe, pending, tables,
+                                                     scalars, load_t, cap), reps=10, warmup=1)
+        walk = {f"oneshot cap={cap}": entry(
+            f"walk ({int(pending_np.sum())} pending, {work.get('walk', 0)} steps)", e, ms,
+            plain_ms, self.mode_ops(algo, work, KEYS, scalars[0], walk=True),
+            21 * KEYS + tbytes["oneshot"] + 4 * load_t.numel(), work)}
+        log(f"check {algo}: {KERNEL_SAMPLE} keys of the replica sets, the bounded sets and "
+            f"the walk equal the host (lookup_k, bounded_replica_sets, the host walk)")
+        return [row("replica", replica, f"oneshot k={REPLICAS_K}"),
+                row("replica_diff", diff, f"stable -> oneshot k={REPLICAS_K}"),
+                row("walk", walk, f"oneshot cap={cap}")]
+
+    def check_assign(self, run: dict) -> None:
+        """The path's Memento ``bounded_assign`` against the same loop
+        through the plain walk on the card, and a 2^14-key batch against
+        the host reference."""
+        from repro_torch.core.bounded import bounded_assign_ref
+        from repro_torch.kernels import engine
+
+        np = self.np
+        h, _, oneshot = self.kept["memento"]
+        assign, load0, cap, out, load, rounds, wall_ms = run["assign"]
+        t0 = time.perf_counter()
+        p_out, p_load = engine.bounded_assign(assign, oneshot, load0, cap,
+                                              walk=engine.walk_plain)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not ((p_out == out).all() and (p_load == load).all()):
+            raise AssertionError("bounded_assign: the walk kernel's run != the plain walk's")
+        small = assign[:ASSIGN_HOST_KEYS]
+        cap_s = int(np.ceil(CAP_C * len(small) / h.working))
+        zeros = np.zeros_like(load0)
+        got = engine.bounded_assign(small, oneshot, zeros, cap_s)
+        want = bounded_assign_ref(h, small, zeros, cap_s)
+        if not all((g == w).all() for g, w in zip(got, want)):
+            raise AssertionError("bounded_assign of 2^14 keys != bounded_assign_ref on the host")
+        log(f"bounded_assign memento one-shot: {KEYS} keys at c={CAP_C}, cap {cap}: "
+            f"{rounds} rounds = {rounds} memento_walk launches, {wall_ms:.3f} ms wall; "
+            f"== the same loop through the plain walk on the card ({plain_ms:.3f} ms), "
+            f"peak load {int(load.max())} <= cap; {ASSIGN_HOST_KEYS} keys (cap {cap_s}) "
+            f"== bounded_assign_ref on the host")
+
+    def replica_breakdown(self, ids) -> None:
+        """Where a failover ``route_batch`` goes: the router of
+        ``replica_route`` with its replica marked again."""
+        from repro_torch.core.hashing import np_key_to_u32
+        from repro_torch.kernels.engine import image_operands, kernel_replica, key_tensor
+
+        np, torch = self.np, self.torch
+        router, victim = self.router_k
+        router.mark_failed(victim)
+        tables, scalars = image_operands(router.image_store().image())
+        rows, lat = [], []
+        for _ in range(10):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            keys = np_key_to_u32(ids)
+            t1 = time.perf_counter()
+            ev[0].record()
+            kt = key_tensor(keys, self.dev)
+            ev[1].record()
+            sets = kernel_replica("memento", kt, REPLICAS_K, tables, scalars)
+            ev[2].record()
+            host = sets.cpu().numpy()
+            ev[3].record()
+            t2 = time.perf_counter()
+            router._failover_pick(host)
+            t3 = time.perf_counter()
+            ev[3].synchronize()
+            rows.append(((t1 - t0) * 1e3, ev[0].elapsed_time(ev[1]),
+                         ev[1].elapsed_time(ev[2]), ev[2].elapsed_time(ev[3]),
+                         (t3 - t2) * 1e3, (t3 - t0) * 1e3))
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            router.route_batch(ids)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        med = np.median(np.asarray(rows), axis=0)
+        p50 = float(np.median(lat))
+        busy = (med[1] + med[2] + med[3]) / p50
+        log(f"failover route_batch breakdown (replicas_k={REPLICAS_K}, {KEYS} ids, one "
+            f"replica marked, medians of 10): route_batch p50 {p50:.4f} ms max "
+            f"{max(lat):.4f} ms; host hashing {med[0]:.4f} ms, host-to-device keys "
+            f"{med[1]:.4f} ms, memento_replica kernel {med[2]:.4f} ms, device-to-host "
+            f"[{KEYS}, {REPLICAS_K}] sets {med[3]:.4f} ms (events), host failover pick "
+            f"{med[4]:.4f} ms; parts end to end {med[5]:.4f} ms; card busy at most "
+            f"{busy:.2%} of route_batch (idle at least {1 - busy:.2%})")
 
     def breakdown(self, router) -> None:
         """Where a ``route_batch`` goes, on the one-shot state."""

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.anchor import AnchorHash
+from repro_torch.core.bounded import BoundedLoad
 from repro_torch.core.dx import DxHash
 from repro_torch.core.jump import JumpHash
 from repro_torch.core.memento import MementoHash
@@ -89,3 +90,15 @@ def power_from_state(n: int, variant: str = "32", epoch: int = 0) -> PowerHash:
     h = PowerHash(int(n), variant=variant)
     h._epoch = int(epoch)
     return h
+
+
+def bounded_from_state(inner, c: float, load, assignment: dict,
+                       epoch: int = 0) -> BoundedLoad:
+    """A port :class:`BoundedLoad` of load factor ``c`` over ``inner`` (a
+    port host state, carried across by the functions above), with the
+    load words ``load`` and the key → bucket ``assignment``."""
+    bl = BoundedLoad(inner, c)
+    bl._load = np.array(load, dtype=np.int32, copy=True)
+    bl.assignment = {int(k): int(b) for k, b in assignment.items()}
+    bl._epoch = int(epoch)
+    return bl

@@ -1,15 +1,20 @@
 """Host control plane and device images of the port: the five algorithms
-of the reference's registry, their epoch deltas, and the device store."""
+of the reference's registry, the bounded-load overlay, their epoch deltas,
+and the device store."""
 from .anchor import AnchorHash
+from .bounded import (BoundedLoad, BoundedLoadMemento, accept_in_index_order,
+                      bounded_assign_ref, walk_probe_bound)
 from .dx import DxHash
 from .image_store import DeviceImageStore, SyncHandle, SyncStats
 from .jump import JumpHash
 from .memento import MementoHash, random_state
 from .power import PowerHash
 from .protocol import (ALGORITHM_REGISTRY, ALGORITHMS, DeviceImage, ImageDelta,
-                       image_fingerprint, make_hash)
+                       image_fingerprint, make_hash, replica_sets)
 
-__all__ = ["ALGORITHMS", "ALGORITHM_REGISTRY", "AnchorHash", "DeviceImage",
-           "DeviceImageStore", "DxHash", "ImageDelta", "JumpHash", "MementoHash",
-           "PowerHash", "SyncHandle", "SyncStats", "image_fingerprint", "make_hash",
-           "random_state"]
+__all__ = ["ALGORITHMS", "ALGORITHM_REGISTRY", "AnchorHash", "BoundedLoad",
+           "BoundedLoadMemento", "DeviceImage", "DeviceImageStore", "DxHash",
+           "ImageDelta", "JumpHash", "MementoHash", "PowerHash", "SyncHandle",
+           "SyncStats", "accept_in_index_order", "bounded_assign_ref",
+           "image_fingerprint", "make_hash", "random_state", "replica_sets",
+           "walk_probe_bound"]

@@ -41,8 +41,12 @@ from .protocol import (ALGORITHM_REGISTRY, DeviceImage, ImageDelta,
 
 def delta_fits(caps: dict[str, int], delta: ImageDelta) -> bool:
     """Do buffers of the given per-array lengths absorb ``delta``?  Every
-    array a lookup at ``delta.n`` may read must be long enough."""
-    needed = required_lengths(delta.algo, delta.n)
+    array a lookup at ``delta.n`` may read must be long enough, and a
+    bounded-load ``load`` overlay, which is bucket-indexed, must cover
+    ``delta.n`` words."""
+    needed = dict(required_lengths(delta.algo, delta.n))
+    if "load" in caps:
+        needed["load"] = delta.n
     return all(caps.get(name, 0) >= need for name, need in needed.items())
 
 
@@ -252,14 +256,19 @@ class DeviceImageStore:
         self.last_sync = stats
 
     # -- data plane ------------------------------------------------------------
-    def lookup(self, keys, *, k: int = 1) -> torch.Tensor:
-        """Bulk lookup against the front image: int32 buckets on the
-        store's device (one ``{algo}_lookup`` launch on CUDA)."""
-        return engine_lookup(keys, self._front, k=k, device=self.device)
+    def lookup(self, keys, *, k: int = 1, load=None,
+               cap: int | None = None) -> torch.Tensor:
+        """Bulk lookup against the front image: int32 buckets [K] (k = 1)
+        or replica sets [K, k] on the store's device, one launch on CUDA
+        (``{algo}_lookup``, or ``{algo}_replica`` for k > 1 or a bounded
+        lookup under ``load``/``cap``)."""
+        return engine_lookup(keys, self._front, k=k, load=load, cap=cap,
+                             device=self.device)
 
     def migration_diff(self, keys, *, k: int = 1):
         """Moved-key mask between the retained epoch and the front epoch
-        (one ``{algo}_diff`` launch on CUDA)."""
+        (one ``{algo}_diff`` launch on CUDA; ``{algo}_replica_diff`` for
+        k > 1, where a key moved if any slot of its replica set did)."""
         if self._prev is None:
             raise ValueError("no previous epoch retained (sync() first)")
         return engine_diff(keys, self._prev, self._front, k=k, device=self.device)

@@ -49,15 +49,19 @@ class ReplicatedLookup:
         return hash2_64(key, salt)
 
     def lookup_k_filtered(self, key: int, k: int, reject,
-                          trace: list | None = None) -> list[int]:
+                          trace: list | None = None,
+                          check_first: bool = False) -> list[int]:
         """The salted walk: ``reject(cand, chosen)`` skips a candidate;
-        slot 0, the plain lookup, is always accepted.  ``trace``, if given,
-        collects every salted lookup's result in walk order."""
+        slot 0, the plain lookup, is accepted unless ``check_first`` (the
+        bounded replica walk applies its load-cap rule to slot 0 too).
+        ``trace``, if given, collects every salted lookup's result in walk
+        order."""
         if k < 1:
             raise ValueError("k must be ≥ 1")
-        out = [self.lookup(key)]
+        first = self.lookup(key)
         if trace is not None:
-            trace.append(out[0])
+            trace.append(first)
+        out = [] if check_first and reject(first, []) else [first]
         salt = 1
         while len(out) < k:
             if salt > REPLICA_SALT_CAP:
@@ -90,6 +94,16 @@ class ReplicatedLookup:
         cands: list[int] = []
         out = self.lookup_k_filtered(key, k, self._reject_duplicate, trace=cands)
         return out, cands
+
+
+def replica_sets(h, keys, k: int) -> np.ndarray:
+    """Numpy oracle: ``lookup_k`` over a key batch → int32 [len(keys), k],
+    the host walk the device's replica lookups are held against."""
+    keys = np.asarray(keys)
+    out = np.empty((len(keys), k), dtype=np.int32)
+    for i, key in enumerate(keys):
+        out[i] = h.lookup_k(int(key), k)
+    return out
 
 
 @dataclass
@@ -239,12 +253,15 @@ def _host_array(a) -> np.ndarray:
 def image_fingerprint(image: DeviceImage) -> str:
     """CRC32 hex digest of every word a lookup can observe: ``n``,
     ``epoch``, the scalars, and each array trimmed to its
-    :func:`required_lengths` prefix.  Capacity padding is excluded, so two
-    images that reached one epoch through different snapshot/delta
-    histories fingerprint equal iff their lookups agree.  Equal to the
-    reference package's fingerprint of the same image."""
+    :func:`required_lengths` prefix (a bounded-load ``load`` overlay to
+    ``n`` words).  Capacity padding is excluded, so two images that
+    reached one epoch through different snapshot/delta histories
+    fingerprint equal iff their lookups agree.  Equal to the reference
+    package's fingerprint of the same image."""
     crc = zlib.crc32(np.asarray([image.n, image.epoch], np.int64).tobytes())
     trim = required_lengths(image.algo, image.n)
+    if "load" in image.arrays:
+        trim = dict(trim, load=image.n)
     for name in sorted(image.arrays):
         arr = np.ascontiguousarray(_host_array(image.arrays[name]))
         if name in trim:

@@ -1,32 +1,44 @@
-// Lookup kernels for Hopper (sm_90a): every algorithm's lookup and k = 1
-// epoch diff, one thread per key.
+// Lookup kernels for Hopper (sm_90a): every algorithm's lookup, k-replica
+// walk (unbounded and bounded), epoch diffs and bounded-load chain walk,
+// one thread per key.
 //
-// Replaces the dense k = 1 configurations of the TPU engine kernel
+// Replaces the dense configurations of the TPU engine kernel
 // src/repro/kernels/engine.py::_engine_pallas (body _engine_kernel_factory,
-// per-algorithm bodies dispatched by algo_body):
-//   memento_lookup / memento_diff  <- memento_body + dense_body   (K1a, K1i)
-//   anchor_lookup  / anchor_diff   <- anchor_body                 (K1c, K1i)
-//   dx_lookup      / dx_diff       <- dx_body                     (K1d, K1i)
-//   power_lookup   / power_diff    <- primitives.power32          (K1e, K1i)
-//   jump_lookup    / jump_diff     <- primitives.jump32           (K1f, K1i)
+// per-algorithm bodies dispatched by algo_body, modes by _mode_outputs):
+//   memento_* <- memento_body + dense_body   (K1a)
+//   anchor_*  <- anchor_body                 (K1c)
+//   dx_*      <- dx_body                     (K1d)
+//   power_*   <- primitives.power32          (K1e)
+//   jump_*    <- primitives.jump32           (K1f)
+// and for each algorithm the modes
+//   {algo}_lookup        k = 1 lookup
+//   {algo}_diff          k = 1 lookup under two epochs + moved    (K1i)
+//   {algo}_replica       replica_body, k slots, optionally bounded (K1h)
+//   {algo}_replica_diff  replica_body under two epochs, k > 1     (K1i)
+//   {algo}_walk          chain_walk_body, one bounded-load step    (K1j)
 //
 // What bounds them on the card: integer issue.  A key costs hashes
 // (murmur3 mixes), integer modulos and, for Memento and Jump, ~ln(n)
 // jump32 steps with a correctly rounded f32 divide each.  Memory is small
-// beside that: 8 bytes of key and bucket per key (16 for a diff), and
-// gathers into tables that at n = 10^6 are a few MB and stay in the 50 MB
-// L2 (Anchor's A and K at a = 4*10^6 are 32 MB; Dx's bitmap 0.5 MB; Jump
-// and Power read no table).  DxHash is the slowest: after a 90 % removal
-// at capacity factor 4 a key needs ~a/w = 40 probes.
+// beside that: 8 bytes of key and bucket per key (16 for a diff, 4 + 4k
+// for a replica set), and gathers into tables that at n = 10^6 are a few
+// MB and stay in the 50 MB L2 (Anchor's A and K at a = 4*10^6 are 32 MB;
+// Dx's bitmap 0.5 MB; Jump and Power read no table; a load-word array is
+// 4 bytes a bucket).  DxHash is the slowest: after a 90 % removal at
+// capacity factor 4 a key needs ~a/w = 40 probes.  A replica set costs
+// about k lookups (plus one per rejected candidate), a walk step one
+// lookup per probe.
 //
 // Design: one thread per key with per-thread loops.  The Pallas kernel runs
 // lane-synchronous masked while_loops over (8, 128) key blocks, so a block
 // settles when its slowest lane does; here a warp waits only for its own
 // 32 keys, and every lane's result is the same either way.  Tables are read
 // straight from global memory (through L2).  Each algorithm's per-key logic
-// is one __device__ function, wrapped in a small operand struct, and the
-// lookup and diff kernels are templates over that struct, so a lookup and
-// a diff of one algorithm cannot disagree.
+// is one __device__ function, wrapped in a small operand struct, and every
+// mode's kernel is a template over that struct, so the modes of one
+// algorithm cannot disagree about a placement.  A replica walk keeps its
+// chosen slots in the lane's own output row and compares each candidate
+// with them there, so k has no limit.
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -42,6 +54,7 @@ constexpr uint32_t kC2 = 0xC2B2AE35u;
 constexpr uint32_t kStepSalt = 0x2545F491u;
 constexpr uint32_t kPowerSalt = 0x506F5748u;  // repro_torch.core.power
 constexpr int32_t kPowerTryCap = 64;
+constexpr int32_t kReplicaSaltCap = 4096;  // repro_torch.core.protocol.REPLICA_SALT_CAP
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -197,6 +210,92 @@ __global__ void diff_kernel(const uint32_t* __restrict__ keys,
   moved[i] = o != w;
 }
 
+// replica_body for one key into row[0, k): the salted walk.  The candidate
+// at salt 0 is the plain lookup `first`, at salt s >= 1 the lookup of
+// hash2(key, s); the salt advances on every try and carries across slots.
+// Unbounded (load == nullptr) slot 0 is `first`, taken outside the loop,
+// and the salt starts at 1; bounded, slot 0 walks too from salt 0 and every
+// slot also rejects load[cand] >= cap.  A candidate equal to an earlier
+// slot of this row is rejected.  A slot whose walk passes the salt cap
+// keeps `first`.
+template <class Body>
+__device__ void replica_row(uint32_t key, int32_t* row, int32_t k, const Body& body,
+                            const int32_t* __restrict__ load, int32_t cap) {
+  const int32_t first = body(key);
+  int32_t j = 0, salt = 0;
+  if (load == nullptr) {
+    row[0] = first;
+    j = salt = 1;
+  }
+  for (; j < k; ++j) {
+    int32_t slot = first;
+    while (salt <= kReplicaSaltCap) {
+      const int32_t cand = salt == 0 ? first : body(hash2(key, static_cast<uint32_t>(salt)));
+      ++salt;
+      bool bad = load != nullptr && load[cand] >= cap;
+      for (int32_t i = 0; i < j && !bad; ++i) bad = row[i] == cand;
+      if (!bad) {
+        slot = cand;
+        break;
+      }
+    }
+    row[j] = slot;
+  }
+}
+
+template <class Body>
+__global__ void replica_kernel(const uint32_t* __restrict__ keys, int32_t* out,
+                               int64_t count, int32_t k, const int32_t* __restrict__ load,
+                               int32_t cap, Body body) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < count) replica_row(keys[i], out + i * k, k, body, load, cap);
+}
+
+template <class Body>
+__global__ void replica_diff_kernel(const uint32_t* __restrict__ keys, int32_t* old_out,
+                                    int32_t* new_out, int32_t* __restrict__ moved,
+                                    int64_t count, int32_t k, Body old_body,
+                                    Body new_body) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const uint32_t key = keys[i];
+  int32_t* o = old_out + i * k;
+  int32_t* w = new_out + i * k;
+  replica_row(key, o, k, old_body, nullptr, 0);
+  replica_row(key, w, k, new_body, nullptr, 0);
+  int32_t m = 0;
+  for (int32_t j = 0; j < k; ++j) m |= o[j] != w[j];
+  moved[i] = m;
+}
+
+// chain_walk_body: b = lookup(chain) for every lane; a pending lane steps
+// probe += 1, chain = hash2(chain, probe), b = lookup(chain) while
+// load[b] >= cap and probe < max_probe (64 * len(load) + 64, below 2^31).
+template <class Body>
+__global__ void walk_kernel(const uint32_t* __restrict__ chain_in,
+                            const int32_t* __restrict__ probe_in,
+                            const uint8_t* __restrict__ pending,
+                            int32_t* __restrict__ b_out, uint32_t* __restrict__ chain_out,
+                            int32_t* __restrict__ probe_out, int64_t count,
+                            const int32_t* __restrict__ load, int32_t cap,
+                            int32_t max_probe, Body body) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  uint32_t chain = chain_in[i];
+  int32_t probe = probe_in[i];
+  int32_t b = body(chain);
+  if (pending[i]) {
+    while (load[b] >= cap && probe < max_probe) {
+      ++probe;
+      chain = hash2(chain, static_cast<uint32_t>(probe));
+      b = body(chain);
+    }
+  }
+  b_out[i] = b;
+  chain_out[i] = chain;
+  probe_out[i] = probe;
+}
+
 unsigned int blocks_for(long long count) {
   return static_cast<unsigned int>((count + kThreads - 1) / kThreads);
 }
@@ -221,6 +320,41 @@ int launch_diff(const void* keys, void* old_out, void* new_out, void* moved,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class Body>
+int launch_replica(const void* keys, void* out, long long count, int k, const void* load,
+                   int cap, Body body, void* stream) {
+  replica_kernel<Body><<<blocks_for(count), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), count, k,
+      static_cast<const int32_t*>(load), cap, body);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Body>
+int launch_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                        long long count, int k, Body old_body, Body new_body,
+                        void* stream) {
+  replica_diff_kernel<Body><<<blocks_for(count), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
+      static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count, k,
+      old_body, new_body);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Body>
+int launch_walk(const void* chain, const void* probe, const void* pending, void* b,
+                void* chain_out, void* probe_out, long long count, const void* load,
+                int cap, int max_probe, Body body, void* stream) {
+  walk_kernel<Body><<<blocks_for(count), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(chain), static_cast<const int32_t*>(probe),
+      static_cast<const uint8_t*>(pending), static_cast<int32_t*>(b),
+      static_cast<uint32_t*>(chain_out), static_cast<int32_t*>(probe_out), count,
+      static_cast<const int32_t*>(load), cap, max_probe, body);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Memento memento(const void* repl, int n) {
   return {static_cast<const int32_t*>(repl), n};
 }
@@ -233,10 +367,17 @@ Dx dx(const void* words, int a, int max_probes, int fallback) {
 
 }  // namespace
 
-// The plain C interface (ctypes): keys uint32 [count]; outputs int32
-// [count] (a diff writes old, new and moved 0/1); then each epoch's tables
-// (int32, or uint32 words for dx) and int scalars in the registry's order;
-// then the stream.  Each returns cudaGetLastError() after its launch.
+// The plain C interface (ctypes): the input and output pointers, the count,
+// the mode's own arguments, then each epoch's tables (int32, or uint32 words
+// for dx) and int scalars in the registry's order, then the stream.  Each
+// returns cudaGetLastError() after its launch.
+//   lookup        keys uint32 [count] -> out int32 [count]
+//   diff          keys -> old, new, moved 0/1, int32 [count] each
+//   replica       keys -> out int32 [count, k]; k, load (int32 words, or
+//                 null for unbounded), cap
+//   replica_diff  keys -> old, new int32 [count, k], moved [count]; k
+//   walk          chain uint32, probe int32, pending uint8 [count] -> b,
+//                 chain, probe [count]; load, cap, max_probe
 extern "C" {
 
 int memento_lookup(const void* keys, void* out, long long count,
@@ -295,6 +436,107 @@ int power_diff(const void* keys, void* old_out, void* new_out, void* moved,
                long long count, int n_old, int n_new, void* stream) {
   return launch_diff(keys, old_out, new_out, moved, count, Power{n_old}, Power{n_new},
                      stream);
+}
+
+int memento_replica(const void* keys, void* out, long long count, int k,
+                    const void* load, int cap, const void* repl, int n, void* stream) {
+  return launch_replica(keys, out, count, k, load, cap, memento(repl, n), stream);
+}
+
+int memento_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                         long long count, int k, const void* repl_old, int n_old,
+                         const void* repl_new, int n_new, void* stream) {
+  return launch_replica_diff(keys, old_out, new_out, moved, count, k,
+                             memento(repl_old, n_old), memento(repl_new, n_new), stream);
+}
+
+int memento_walk(const void* chain, const void* probe, const void* pending, void* b,
+                 void* chain_out, void* probe_out, long long count, const void* load,
+                 int cap, int max_probe, const void* repl, int n, void* stream) {
+  return launch_walk(chain, probe, pending, b, chain_out, probe_out, count, load, cap,
+                     max_probe, memento(repl, n), stream);
+}
+
+int anchor_replica(const void* keys, void* out, long long count, int k, const void* load,
+                   int cap, const void* A, const void* K, int a, void* stream) {
+  return launch_replica(keys, out, count, k, load, cap, anchor(A, K, a), stream);
+}
+
+int anchor_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                        long long count, int k, const void* A_old, const void* K_old,
+                        int a_old, const void* A_new, const void* K_new, int a_new,
+                        void* stream) {
+  return launch_replica_diff(keys, old_out, new_out, moved, count, k,
+                             anchor(A_old, K_old, a_old), anchor(A_new, K_new, a_new),
+                             stream);
+}
+
+int anchor_walk(const void* chain, const void* probe, const void* pending, void* b,
+                void* chain_out, void* probe_out, long long count, const void* load,
+                int cap, int max_probe, const void* A, const void* K, int a,
+                void* stream) {
+  return launch_walk(chain, probe, pending, b, chain_out, probe_out, count, load, cap,
+                     max_probe, anchor(A, K, a), stream);
+}
+
+int dx_replica(const void* keys, void* out, long long count, int k, const void* load,
+               int cap, const void* words, int a, int max_probes, int fallback,
+               void* stream) {
+  return launch_replica(keys, out, count, k, load, cap,
+                        dx(words, a, max_probes, fallback), stream);
+}
+
+int dx_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                    long long count, int k, const void* words_old, int a_old,
+                    int max_probes_old, int fallback_old, const void* words_new,
+                    int a_new, int max_probes_new, int fallback_new, void* stream) {
+  return launch_replica_diff(keys, old_out, new_out, moved, count, k,
+                             dx(words_old, a_old, max_probes_old, fallback_old),
+                             dx(words_new, a_new, max_probes_new, fallback_new), stream);
+}
+
+int dx_walk(const void* chain, const void* probe, const void* pending, void* b,
+            void* chain_out, void* probe_out, long long count, const void* load, int cap,
+            int max_probe, const void* words, int a, int max_probes, int fallback,
+            void* stream) {
+  return launch_walk(chain, probe, pending, b, chain_out, probe_out, count, load, cap,
+                     max_probe, dx(words, a, max_probes, fallback), stream);
+}
+
+int jump_replica(const void* keys, void* out, long long count, int k, const void* load,
+                 int cap, int n, void* stream) {
+  return launch_replica(keys, out, count, k, load, cap, Jump{n}, stream);
+}
+
+int jump_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                      long long count, int k, int n_old, int n_new, void* stream) {
+  return launch_replica_diff(keys, old_out, new_out, moved, count, k, Jump{n_old},
+                             Jump{n_new}, stream);
+}
+
+int jump_walk(const void* chain, const void* probe, const void* pending, void* b,
+              void* chain_out, void* probe_out, long long count, const void* load,
+              int cap, int max_probe, int n, void* stream) {
+  return launch_walk(chain, probe, pending, b, chain_out, probe_out, count, load, cap,
+                     max_probe, Jump{n}, stream);
+}
+
+int power_replica(const void* keys, void* out, long long count, int k, const void* load,
+                  int cap, int n, void* stream) {
+  return launch_replica(keys, out, count, k, load, cap, Power{n}, stream);
+}
+
+int power_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                       long long count, int k, int n_old, int n_new, void* stream) {
+  return launch_replica_diff(keys, old_out, new_out, moved, count, k, Power{n_old},
+                             Power{n_new}, stream);
+}
+
+int power_walk(const void* chain, const void* probe, const void* pending, void* b,
+               void* chain_out, void* probe_out, long long count, const void* load,
+               int cap, int max_probe, int n, void* stream) {
+  return launch_walk(chain, probe, pending, b, chain_out, probe_out, count, load, cap,
+                     max_probe, Power{n}, stream);
 }
 
 const char* error_string(int code) {

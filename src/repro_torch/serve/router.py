@@ -6,11 +6,13 @@ a failed replica remaps only its own sessions, and a restored one takes
 back only the sessions that were its.  Bulk routing runs on the device
 through a :class:`~repro_torch.core.image_store.DeviceImageStore`:
 ``fail_replica``/``restore_replica`` push O(changed-words) epoch deltas,
-and ``route_batch`` is one ``{algo}_lookup`` launch.
+and ``route_batch`` is one ``{algo}_lookup`` launch, or, with
+``replicas_k > 1`` and a replica marked failed, one ``{algo}_replica``
+launch whose k-replica sets the failover rule picks from.
 
 Session ids are hashed to uint32 keys on the host, as in the reference.
-Not yet ported: k-replica batch sets (``ROADMAP.md`` Queue 2, K1h) and the
-sharded streaming plane (Queue 1, item 8).
+Not yet ported: the sharded streaming plane (``ROADMAP.md`` Queue 1,
+item 8).
 """
 from __future__ import annotations
 
@@ -113,14 +115,38 @@ class SessionRouter:
             self._store = DeviceImageStore(self.ch, device=self.device)
         return self._store
 
+    def _failover_pick(self, sets: np.ndarray) -> np.ndarray:
+        """The failover rule of every batch path: per row of k candidate
+        replicas, the first not marked failed (all marked → keep the
+        primary); counts the failovers.  Accepts 1-D input (k clamped to
+        1 by a collapsed fleet)."""
+        sets = np.asarray(sets)
+        if sets.ndim == 1:
+            sets = sets.reshape(-1, 1)
+        ok = ~np.isin(sets, sorted(self._failed))
+        ok[:, 0] |= ~ok.any(axis=1)  # all failed → keep the primary
+        col = ok.argmax(axis=1)
+        self.stats.failovers += int((col > 0).sum())
+        return sets[np.arange(len(sets)), col]
+
     def route_batch(self, session_ids: np.ndarray) -> np.ndarray:
-        """Session ids → int32 replicas, one device lookup."""
+        """Session ids → int32 replicas, one device lookup; with
+        ``replicas_k > 1`` and a replica marked failed, the k-replica sets
+        in one launch and the same failover rule as :meth:`route`."""
         self._poll_store()
-        keys = np_key_to_u32(np.asarray(session_ids))
         if self.replicas_k > 1 and self._failed:
-            raise NotImplementedError(
-                "k-replica batch failover: ROADMAP.md Queue 2, K1h")
+            return self._failover_pick(self.replica_set_batch(session_ids))
+        keys = np_key_to_u32(np.asarray(session_ids))
         return self.image_store().lookup(keys).cpu().numpy()
+
+    def replica_set_batch(self, session_ids: np.ndarray) -> np.ndarray:
+        """k-replica sets of a session batch in one device launch: int32
+        [len(ids), k], column 0 the plain placement; k clamped to the
+        surviving fleet."""
+        keys = np_key_to_u32(np.asarray(session_ids))
+        k = min(self.replicas_k, self.ch.working)
+        out = self.image_store().lookup(keys, k=k).cpu().numpy()
+        return out.reshape(-1, k)
 
     def sharded_plane(self, *args, **kwargs):
         raise NotImplementedError("sharded plane: ROADMAP.md Queue 1, item 8")

@@ -9,13 +9,18 @@ event by event through the objects that serve traffic:
 * every sync drains ``device_delta()`` into the driver's
   :class:`~repro_torch.core.image_store.DeviceImageStore` (``delta_apply``
   kernel, double-buffered epoch flip),
-* traffic runs ``store.lookup`` (the ``{algo}_lookup`` kernel), or the
-  scalar host state on ``plane="host"``; session traffic runs a
+* traffic runs ``store.lookup`` (the ``{algo}_lookup`` kernel, or
+  ``{algo}_replica`` for k > 1), or the scalar host state on
+  ``plane="host"``; bounded assignment runs
+  :func:`~repro_torch.kernels.engine.bounded_assign` (the ``{algo}_walk``
+  kernel), or ``bounded_assign_ref`` on the host; session traffic runs a
   :class:`~repro_torch.serve.router.SessionRouter` sharing the driver's
   store,
 * after each synced membership event the guarantee checkers
   (:mod:`repro_torch.sim.checkers`) read ``store.migration_diff`` (the
-  ``{algo}_diff`` kernel) over a fixed probe batch, as numpy.
+  ``{algo}_diff`` kernel, and ``{algo}_replica_diff`` for the
+  replica-stability check when ``replica_k > 1``) over a fixed probe
+  batch, as numpy.
 
 Planes: ``"host"`` answers traffic from the host state; ``"device"`` from
 the store on ``device`` — the CUDA kernels on ``"cuda"`` (the default),
@@ -29,9 +34,8 @@ resolved trace draws identical traffic and reproduces every placement;
 ``result.fingerprint`` equals the reference's on the same trace.
 
 Not ported yet (each raises ``NotImplementedError``): ``sharded=True``
-(``ROADMAP.md`` Queue 1, item 8), ``followers`` (item 12), ``telemetry``
-(item 13), ``assign`` events (Queue 2, K1j), and ``replica_k > 1`` or any
-k > 1 lookup (Queue 2, K1h).
+(``ROADMAP.md`` Queue 1, item 8), ``followers`` (item 12) and
+``telemetry`` (item 13).
 """
 from __future__ import annotations
 
@@ -40,17 +44,18 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.core.bounded import bounded_assign_ref
 from repro_torch.core.hashing import np_fmix32
 from repro_torch.core.image_store import DeviceImageStore
-from repro_torch.core.protocol import ALGORITHM_REGISTRY, make_hash
+from repro_torch.core.protocol import ALGORITHM_REGISTRY, make_hash, replica_sets
+from repro_torch.kernels.engine import bounded_assign, bounded_load_len
 
-from .checkers import Violation, check_balance, check_minimal_disruption
+from .checkers import (Violation, candidate_hits, check_balance, check_cap_invariant,
+                       check_minimal_disruption, check_replica_stability)
 from .metrics import EventRecord, ScenarioMetrics
 from .traces import Trace, TraceEvent
 
 PLANES = ("host", "device")
-
-_K1H = "k-replica lookups: ROADMAP.md Queue 2, K1h"
 
 
 def _numpy(x) -> np.ndarray:
@@ -153,12 +158,11 @@ class ScenarioDriver:
             raise NotImplementedError("follower replication: ROADMAP.md Queue 1, item 12")
         if telemetry:
             raise NotImplementedError("telemetry: ROADMAP.md Queue 1, item 13")
-        if replica_k > 1:
-            raise NotImplementedError(_K1H)
         self.trace = trace
         self.algo = algo
         self.plane = plane
         self.check = check
+        self.replica_k = replica_k
         self.balance_tol = balance_tol
         # "overlap": membership syncs dispatch with sync_async() and the
         # driver commits at the checker boundary — dispatch_us is what the
@@ -182,6 +186,7 @@ class ScenarioDriver:
         # membership applied since the last sync (checker comparands)
         self._pending_removed: set[int] = set()
         self._pending_added: set[int] = set()
+        self._pending_hits: np.ndarray | None = None
         self._resolved_events: list[TraceEvent] = []
         self._route_prev: np.ndarray | None = None
 
@@ -207,11 +212,12 @@ class ScenarioDriver:
                                           dtype=np.uint32)
 
     def _lookup(self, keys: np.ndarray, k: int = 1) -> np.ndarray:
-        if min(k, self.h.working) > 1:
-            raise NotImplementedError(_K1H)
+        k = min(k, self.h.working)
         if self.plane == "host":
-            return np.asarray([self.h.lookup(int(x)) for x in keys], dtype=np.int32)
-        return _numpy(self.store.lookup(keys))
+            if k == 1:
+                return np.asarray([self.h.lookup(int(x)) for x in keys], dtype=np.int32)
+            return replica_sets(self.h, keys, k)
+        return _numpy(self.store.lookup(keys, k=k))
 
     # -- the event loop ------------------------------------------------------
     def run(self) -> ScenarioResult:
@@ -234,6 +240,7 @@ class ScenarioDriver:
     def _do_remove(self, i: int, ev: TraceEvent) -> None:
         victims = resolve_victims(self.h, ev, self._rng_member,
                                   self.trace.num_domains)
+        self._pre_membership(set(victims))
         for j, b in enumerate(victims):
             self.h.remove(b)
             self._resolved_events.append(TraceEvent(
@@ -263,6 +270,7 @@ class ScenarioDriver:
 
     def _do_fail(self, i: int, ev: TraceEvent) -> None:
         b = pick_victim(self.h, ev.select, self._rng_member, ev.bucket)
+        self._pre_membership({b})
         t0 = time.perf_counter()  # the flip happens inside fail_replica
         self.router.fail_replica(b)  # removes and syncs the shared store
         self._resolved_events.append(TraceEvent("fail", bucket=b))
@@ -289,6 +297,15 @@ class ScenarioDriver:
         self.router.mark_failed(b)
         self._resolved_events.append(TraceEvent("mark_failed", bucket=b, sync=False))
         self.metrics.add_record(EventRecord(i, "mark_failed", buckets=[b]))
+
+    def _pre_membership(self, victims: set[int]) -> None:
+        """Walk the replica-stability candidates on the pre-event state."""
+        if self.check and self.replica_k > 1 and not self._pending_added:
+            hits = candidate_hits(self.h, self.probe, self.replica_k, victims)
+            if self._pending_hits is None:
+                self._pending_hits = hits
+            else:
+                self._pending_hits |= hits
 
     def _finish_membership(self, i: int, op: str, buckets: list[int],
                            sync: bool, synced: bool = False,
@@ -318,6 +335,7 @@ class ScenarioDriver:
             self._degradation_point()
             self._pending_removed.clear()
             self._pending_added.clear()
+            self._pending_hits = None
         self.metrics.add_record(rec)
 
     def _wait_for_device(self) -> None:
@@ -341,6 +359,11 @@ class ScenarioDriver:
                                          self._pending_added)
         found += check_balance(i, new, sorted(self.h.working_set()),
                                tol_sigma=self.balance_tol)
+        if (self.replica_k > 1 and self._pending_hits is not None
+                and not self._pending_added
+                and self.h.working >= self.replica_k):
+            dk = self.store.migration_diff(self.probe, k=self.replica_k)
+            found += check_replica_stability(i, _numpy(dk.moved), self._pending_hits)
         self.violations.extend(found)
         return found
 
@@ -365,7 +388,22 @@ class ScenarioDriver:
                                             us_per_key=us))
 
     def _do_assign(self, i: int, ev: TraceEvent) -> None:
-        raise NotImplementedError("bounded assignment: ROADMAP.md Queue 2, K1j")
+        keys = self._draw_keys(ev)
+        cap = int(np.ceil(ev.cap_c * len(keys) / self.h.working))
+        image = self.store.image()
+        load0 = np.zeros(bounded_load_len(image), np.int32)
+        t0 = time.perf_counter()
+        if self.plane == "host":
+            out, load = bounded_assign_ref(self.h, keys, load0, cap)
+        else:
+            out, load = bounded_assign(keys, image, load0, cap, device=self.store.device)
+        us = (time.perf_counter() - t0) / max(len(keys), 1) * 1e6
+        self.metrics.fingerprint_update(out)
+        found = check_cap_invariant(i, out, load, cap) if self.check else []
+        self.violations.extend(found)
+        self._resolved_events.append(ev)
+        self.metrics.add_record(EventRecord(i, "assign", keys=len(keys),
+                                            us_per_key=us, violations=len(found)))
 
     def _do_route(self, i: int, ev: TraceEvent) -> None:
         ids = np.arange(ev.n_keys, dtype=np.uint64)  # fixed session fleet

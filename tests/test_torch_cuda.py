@@ -194,3 +194,121 @@ def test_replay_on_cuda_matches_host_plane(dev, algo):
         host = replay(make_trace(scenario, 0), algo=algo, plane="host")
         assert on_card.ok and host.ok
         assert on_card.fingerprint == host.fingerprint
+
+
+def _load(img, seed: int, high: int = 4) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, high, size=engine.bounded_load_len(img)).astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 3, 129, 2**16 + 1])
+@pytest.mark.parametrize("removed", [0.0, 0.9])
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_replica_kernel_matches_plain_and_host(dev, algo, n, removed):
+    h = _algo_state(algo, n, removed, seed=n)
+    tables, scalars = _operands(h, dev)
+    keys = engine.key_tensor(KEYS[:4000], dev)
+    k = min(3, h.working)
+    before = engine.LAUNCHES[f"{algo}_replica"]
+    out = engine.kernel_replica(algo, keys, k, tables, scalars)
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES[f"{algo}_replica"] == before + 1
+    assert torch.equal(out, engine.replica_plain(algo, keys, k, tables, scalars))
+    assert out[:200].cpu().tolist() == [h.lookup_k(int(x), k) for x in KEYS[:200]]
+    if h.working < 100:
+        return  # too few buckets below a cap: the exhausted walk is tested below
+    for cap in (1, 3):
+        load = torch.from_numpy(_load(h.device_image(), seed=cap)).to(dev)
+        got = engine.kernel_replica(algo, keys, 2, tables, scalars, load, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, engine.replica_plain(algo, keys, 2, tables, scalars, load, cap))
+
+
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_exhausted_replica_walk_keeps_the_plain_lookup(dev, algo):
+    """k above the working buckets, and every bucket at the cap: the lanes
+    run out of salts and keep their plain lookup, as the plain version
+    does."""
+    h = _algo_state(algo, 3, 0.0, seed=1)
+    tables, scalars = _operands(h, dev)
+    keys = engine.key_tensor(KEYS[:64], dev)
+    out = engine.kernel_replica(algo, keys, 5, tables, scalars)
+    torch.cuda.synchronize()
+    assert torch.equal(out, engine.replica_plain(algo, keys, 5, tables, scalars))
+    load = torch.ones(engine.bounded_load_len(h.device_image()), dtype=torch.int32,
+                      device=dev)
+    out = engine.kernel_replica(algo, keys, 2, tables, scalars, load, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, engine.replica_plain(algo, keys, 2, tables, scalars, load, 1))
+    first = engine.kernel_lookup(algo, keys, tables, scalars)
+    assert torch.equal(out, torch.stack([first, first], dim=1))
+
+
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_replica_diff_kernel_matches_plain(dev, algo):
+    a = _algo_state(algo, 3000, 0.0, seed=1)
+    b = _algo_state(algo, 3000, 0.5, seed=1)
+    keys = engine.key_tensor(KEYS, dev)
+    old, new = _operands(a, dev), _operands(b, dev)
+    got = engine.kernel_replica_diff(algo, keys, 3, old, new)
+    torch.cuda.synchronize()
+    want = engine.replica_diff_plain(algo, keys, 3, old, new)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2].any() and not got[2].all()
+
+
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_walk_kernel_matches_plain(dev, algo):
+    h = _algo_state(algo, 3000, 0.5, seed=2)
+    tables, scalars = _operands(h, dev)
+    rng = np.random.default_rng(3)
+    chain = engine.key_tensor(KEYS, dev)
+    probe = torch.from_numpy(rng.integers(0, 9, size=len(KEYS)).astype(np.int32)).to(dev)
+    pending = torch.from_numpy(rng.random(len(KEYS)) < 0.6).to(dev)
+    load = torch.from_numpy(_load(h.device_image(), seed=4)).to(dev)
+    for cap in (1, 3):
+        got = engine.kernel_walk(algo, chain, probe, pending, tables, scalars, load, cap)
+        torch.cuda.synchronize()
+        want = engine.walk_plain(algo, chain, probe, pending, tables, scalars, load, cap)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_bounded_assign_on_cuda_matches_host(dev, algo):
+    from repro_torch.core.bounded import bounded_assign_ref
+
+    h = _algo_state(algo, 500, 0.5, seed=5)
+    img = h.device_image()
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    keys = KEYS[:3000]
+    cap = -(-5 * len(keys) // (4 * h.working))
+    load0 = np.zeros(engine.bounded_load_len(img), np.int32)
+    got = engine.bounded_assign(keys, img, load0, cap, device=dev)
+    plain = engine.bounded_assign(keys, img, load0, cap, device=dev, walk=engine.walk_plain)
+    host = bounded_assign_ref(h, keys, load0, cap)
+    for g, p, w in zip(got, plain, host):
+        assert (g == p).all() and (g == w).all()
+    bounded = engine.engine_lookup(KEYS, img, k=2, load=got[1], cap=cap + 1)
+    assert bounded.cpu().numpy().tolist()[:100] == engine.bounded_replica_sets(
+        h, KEYS[:100], 2, got[1], cap + 1).tolist()
+
+
+def test_router_k_replica_failover_on_cuda(dev):
+    router = SessionRouter(500, replicas_k=3)
+    ids = np.random.default_rng(6).integers(0, 2**63, size=4000, dtype=np.uint64)
+    base = router.route_batch(ids)
+    victim = int(np.bincount(base).argmax())
+    router.mark_failed(victim)
+    after = router.route_batch(ids)
+    assert victim not in set(after.tolist())
+    assert (after != base).sum() == (base == victim).sum() == router.stats.failovers
+    assert after.tolist() == [router.route(int(s)) for s in ids]
+
+
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_session_affinity_replay_on_cuda_matches_host(dev, algo):
+    on_card = replay(make_trace("session_affinity", 0), algo=algo)
+    host = replay(make_trace("session_affinity", 0), algo=algo, plane="host")
+    assert on_card.ok and host.ok and on_card.fingerprint == host.fingerprint

@@ -122,9 +122,10 @@ CONFIGS = [dict(algo=a) for a in ("memento", "anchor", "cuckoo")] + [
 @pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_engine_op_checks_match_reference(cfg):
     """A configuration the reference rejects raises the same ValueError;
-    one it accepts either builds or is not ported yet."""
+    one it accepts builds the same configuration, or (packed and compact
+    tables) is not ported yet."""
     try:
-        ref.EngineOp(**cfg)
+        want = ref.EngineOp(**cfg)
     except ValueError as err:
         with pytest.raises(ValueError, match=str(err).replace("(", r"\(").replace(")", r"\)")):
             port.EngineOp(**cfg)
@@ -132,17 +133,30 @@ def test_engine_op_checks_match_reference(cfg):
     try:
         op = port.EngineOp(**cfg)
     except NotImplementedError as err:
-        assert "ROADMAP.md" in str(err)
+        assert "K1b/K1g" in str(err) and cfg.get("table") in ("compact", "packed")
         return
-    assert (op.mode, op.k, op.bounded, op.table) == ("lookup", 1, False, "dense")
+    fields = ("algo", "mode", "k", "bounded", "diff", "table")
+    assert [getattr(op, f) for f in fields] == [getattr(want, f) for f in fields]
 
 
 def test_unported_configurations_raise_at_entry_points():
-    img = _port_image(state("memento", 40, 5, seed=0).device_image())
-    with pytest.raises(NotImplementedError):
-        port.engine_lookup(KEYS, img, k=2)
-    with pytest.raises(NotImplementedError):
-        port.engine_diff(KEYS, img, img, k=3)
+    """k > 1 lookups and diffs are served as the reference serves them;
+    only the packed and compact tables remain unported."""
+    h = state("memento", 40, 5, seed=0)
+    ref_img = h.device_image()
+    churn(h, 3, seed=1)
+    new_img = h.device_image()
+    img, img2 = _port_image(ref_img), _port_image(new_img)
+    np.testing.assert_array_equal(port.engine_lookup(KEYS, img, k=2).numpy(),
+                                  np.asarray(ref.engine_lookup(KEYS, ref_img, k=2, plane="jnp")))
+    got = port.engine_diff(KEYS, img, img2, k=3)
+    want = ref.engine_diff(KEYS, ref_img, new_img, k=3, plane="jnp")
+    np.testing.assert_array_equal(got.old.numpy(), want.old)
+    np.testing.assert_array_equal(got.new.numpy(), want.new)
+    np.testing.assert_array_equal(got.moved.numpy(), want.moved)
+    for table in ("packed", "compact"):
+        with pytest.raises(NotImplementedError, match="K1b/K1g"):
+            port.EngineOp("memento", table=table)
 
 
 ALGO_STATES = {

@@ -57,8 +57,51 @@ def test_route_fails_over_on_marked_replicas():
     assert port.stats.failovers == ref.stats.failovers > 0
     assert [port.replica_set(int(s)) for s in IDS[:50]] == \
         [ref.replica_set(int(s)) for s in IDS[:50]]
-    with pytest.raises(NotImplementedError, match="K1h"):
-        port.route_batch(IDS)
+    _same_batch(port, ref)  # the k-replica batch failover
+    assert port.stats.failovers == ref.stats.failovers
+
+
+@pytest.mark.parametrize("algo", ["memento", "dx"])
+@pytest.mark.parametrize("sync_mode", ["block", "overlap"])
+def test_k_replica_batch_failover_matches_reference(algo, sync_mode):
+    """``route_batch`` with ``replicas_k = 3`` and marked replicas equals
+    the reference's, before and after the marked replica's removal lands;
+    only the marked replicas' sessions fail over, to their next replica."""
+    port, ref = _routers(40, algo=algo, capacity=160, replicas_k=3, sync_mode=sync_mode)
+    base = port.route_batch(IDS)
+    sets = port.replica_set_batch(IDS)
+    np.testing.assert_array_equal(sets, np.asarray(ref.replica_set_batch(IDS)))
+    np.testing.assert_array_equal(sets[:, 0], base)
+    victims = [int(np.bincount(base).argmax()), int(base[7])]
+    for v in victims:
+        port.mark_failed(v)
+        ref.mark_failed(v)
+    after = port.route_batch(IDS)
+    np.testing.assert_array_equal(after, np.asarray(ref.route_batch(IDS)))
+    assert not set(victims) & set(after.tolist())
+    moved = after != base
+    assert moved.sum() == np.isin(base, victims).sum()
+    assert port.stats.failovers == ref.stats.failovers > 0
+    for v in victims:
+        assert port.fail_replica(v) == ref.fail_replica(v)
+        _same_batch(port, ref)
+    assert port.restore_replica() == ref.restore_replica()
+    port.mark_failed(sorted(port.replicas)[0])
+    ref.mark_failed(sorted(ref.replicas)[0])
+    _same_batch(port, ref)
+    assert port.stats.as_dict() == ref.stats.as_dict()
+
+
+def test_all_marked_keeps_the_primary():
+    port, ref = _routers(4, replicas_k=2)
+    for rep in list(port.replicas):
+        port.mark_failed(rep)
+        ref.mark_failed(rep)
+    got = port.route_batch(IDS[:200])
+    np.testing.assert_array_equal(got, port.replica_set_batch(IDS[:200])[:, 0])
+    _same_batch(port, ref, IDS[:200])
+    assert port.route(7) == port.replica_set(7)[0] == ref.route(7)
+    assert port.stats.failovers == 0
 
 
 def _as_ids(assigned):

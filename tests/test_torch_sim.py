@@ -1,8 +1,8 @@
 """The port's scenario engine against the reference's: every built-in
-scenario (but ``session_affinity``, which needs k-replica batches, and the
-fleet-scale ``churn_storm_xl``) × every algorithm replays to the
-reference's fingerprint on the port's device plane (the plain torch
-versions, on the CPU) and host plane, with every checker silent; the
+scenario (but the fleet-scale ``churn_storm_xl``) × every algorithm
+replays to the reference's fingerprint on the port's device plane (the
+plain torch versions, on the CPU) and host plane, with every checker
+silent, and so do ``replica_k = 2`` replays and bounded assignment; the
 resolved trace replays bit for bit; traces, checkers and metrics match
 the reference's copies; every cut feature raises ``NotImplementedError``."""
 from __future__ import annotations
@@ -18,13 +18,14 @@ from repro.sim import checkers as ref_checkers
 from repro.sim import make_trace as ref_make_trace
 from repro.sim import replay as ref_replay
 from repro.sim import resolve_victims as ref_resolve_victims
+from repro.sim.traces import Trace as RefTrace
 from repro.sim.metrics import ScenarioMetrics as RefMetrics
 from repro_torch.core.protocol import make_hash
 from repro_torch.sim import (SCENARIOS, ScenarioDriver, Trace, TraceEvent, checkers,
                              make_trace, replay, resolve_victims)
 from repro_torch.sim.metrics import ScenarioMetrics
 
-REPLAYED = sorted(set(SCENARIOS) - {"session_affinity", "churn_storm_xl"})
+REPLAYED = sorted(set(SCENARIOS) - {"churn_storm_xl"})
 #: summary keys that hold host-clock times or name the plane
 UNTIMED = ("plane", "us_per_key", "us_mean")
 
@@ -46,6 +47,36 @@ def test_replay_matches_reference(scenario, algo):
     again = replay(Trace.from_json(dev.resolved.to_json()), algo=algo, plane="device",
                    device="cpu")
     assert again.fingerprint == dev.fingerprint and again.ok
+
+
+def _assign_trace(seed: int = 5) -> Trace:
+    """Bounded assignment and k-replica lookups across removals and a join."""
+    ev = [TraceEvent("lookup", n_keys=300, k=3),
+          TraceEvent("assign", n_keys=400, cap_c=1.25),
+          TraceEvent("remove", count=6),
+          TraceEvent("lookup", n_keys=300, k=2),
+          TraceEvent("assign", n_keys=250, cap_c=1.1),
+          TraceEvent("add", count=2),
+          TraceEvent("assign", n_keys=300, cap_c=1.5)]
+    return Trace("assign", seed, 48, ev)
+
+
+@pytest.mark.parametrize("scenario", ["stable", "oneshot", "incremental", "assign"])
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_replica_and_assign_replays_match_reference(algo, scenario):
+    """``replica_k = 2`` (the replica-stability checker on) over the
+    paper's scenarios and a bounded-assignment trace: the port's device
+    and host planes replay to the reference's fingerprint, silently."""
+    trace = (_assign_trace() if scenario == "assign"
+             else make_trace(scenario, 0, w=48, n_keys=600))
+    want = ref_replay(RefTrace.from_json(trace.to_json()), algo=algo, plane="jnp",
+                      replica_k=2, probe_keys=600)
+    dev = replay(trace, algo=algo, plane="device", device="cpu", replica_k=2, probe_keys=600)
+    host = replay(trace, algo=algo, plane="host", device="cpu", replica_k=2, probe_keys=600)
+    assert want.ok and dev.ok and host.ok, (dev.violations, host.violations)
+    assert dev.fingerprint == want.fingerprint == host.fingerprint
+    assert _untimed(dev.summary()) == _untimed(want.summary()) == _untimed(host.summary())
+    assert dev.resolved.to_dict() == want.resolved.to_dict()
 
 
 @pytest.mark.parametrize("scenario", sorted(SCENARIOS))
@@ -151,18 +182,22 @@ def test_overlapped_syncs_replay_to_the_same_fingerprint():
 
 
 def test_cut_features_raise():
+    """The sharded plane, followers and telemetry raise; k-replica
+    lookups, ``replica_k > 1``, ``assign`` events and ``session_affinity``
+    replay as the reference replays them."""
     trace = make_trace("stable", 0, w=16, batches=1, n_keys=8)
     for kw, item in ((dict(sharded=True), "item 8"), (dict(followers=2), "item 12"),
-                     (dict(telemetry=True), "item 13"), (dict(replica_k=2), "K1h")):
+                     (dict(telemetry=True), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             ScenarioDriver(trace, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="K1h"):
-        replay(make_trace("stable", 0, w=16, batches=1, n_keys=8, k=2), device="cpu")
     assign = Trace("assign", 0, 16, [TraceEvent("assign", n_keys=8, cap_c=1.5)])
-    with pytest.raises(NotImplementedError, match="K1j"):
-        replay(assign, device="cpu")
-    with pytest.raises(NotImplementedError, match="K1h"):
-        replay(make_trace("session_affinity", 0), device="cpu")
+    for trace, kw in ((make_trace("stable", 0, w=16, batches=1, n_keys=8), dict(replica_k=2)),
+                      (make_trace("stable", 0, w=16, batches=1, n_keys=8, k=2), {}),
+                      (assign, {}), (make_trace("session_affinity", 0), {})):
+        want = ref_replay(RefTrace.from_json(trace.to_json()), plane="jnp", **kw)
+        got = replay(trace, device="cpu", **kw)
+        assert got.ok and want.ok and got.fingerprint == want.fingerprint
+    trace = make_trace("stable", 0, w=16, batches=1, n_keys=8)
     with pytest.raises(ValueError):
         ScenarioDriver(trace, plane="jnp", device="cpu")
     with pytest.raises(ValueError):
