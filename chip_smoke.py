@@ -38,7 +38,23 @@
    and ``{algo}_walk`` kernel must be launched on that path; then each
    result is held against its plain version on the card and 2048 keys
    against the host, and each kernel is timed beside its bound.
-6. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+6. Drives the fourth slice's path, the packed and compact layouts:
+   ``SessionRouter(10^6, compact_images=True).route_batch`` on 2^20 ids
+   through stable, 1024 removals (one sync), 128 single removals (one
+   packed delta each), 64 restores (tombstones) and a one-shot 90 %
+   removal (a snapshot), each batch equal over the whole batch to a dense
+   store on the same state and 4096 ids to the host; ``migration_diff``
+   between packed epochs; ``replicas_k = 3`` failover on a packed store;
+   ``bounded_assign`` of 2^20 keys, the bounded k = 2 lookup, the k = 3
+   diff and a walk step on the packed one-shot state;
+   ``ops.memento_lookup(table="compact")``; Memento at n = 10^4 and
+   AnchorHash at a = 32000 (int16 tables) through their own packed
+   routers; hand-built int8 images through a packed delta and every
+   mode.  Every ``{memento,anchor}_packed_*`` kernel,
+   ``memento_compact_lookup`` and the int16 and int8 delta applies must
+   be launched on that path; then each is held against its plain version
+   on the card at every width and timed beside its bound.
+7. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Any mismatch or error exits non-zero.  Without a GPU, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -126,6 +142,23 @@ ALGO_OPS = {
 #                           first load read and compare = 8
 OPS_PER_TRY, OPS_PER_BOUNDED_TRY, OPS_PER_COMPARE = 21, 3, 2
 OPS_PER_WALK_STEP, OPS_PER_WALK_LANE = 23, 8
+# The packed and compact readers (phase 6), over the plain readers'
+# counters ("bit", "start", "slot"), on top of the dense read's load and
+# test counted above:
+#   per bitmap read:   word index shift, bit index and, shift, and = 4
+#   per probe started: multiply-add, fmix32 8, mask = 11 (Memento packed:
+#                      only a removed bucket's read probes; compact: all)
+#   per slot read:     slot load, compare with the bucket, sentinel test,
+#                      advance, mask, loop test = 6
+OPS_PER_BIT, OPS_PER_START, OPS_PER_SLOT = 4, 11, 6
+PACKED_REMOVALS = 1024    # phase 6: the removals of the bench_compact state
+PACKED_RESTORES = 64      # phase 6: restores after the single removals (tombstones)
+SMALL_N = 10**4           # phase 6: Memento with int16 slots
+ANCHOR_A, ANCHOR_W = 32000, 8000  # phase 6: AnchorHash with int16 A/K
+TINY_N = 100              # phase 6: the hand-built int8 images
+SMALL_EVENTS = (20, 5)    # phase 6: removals, then restores, on the small routers
+BREAKDOWN_REPS = 5        # phase 6: iterations of each state's breakdown
+BATCH_EVERY = 8           # phase 6: a batch after every 8th single removal or restore
 
 
 def log(msg: str) -> None:
@@ -154,13 +187,31 @@ def main() -> int:
     smoke.phase_replay(algo_kernels)
     smoke.phase_host_vs_device()
     replica_kernels = smoke.phase_replicas()
-    kernels += algo_kernels + replica_kernels
+    packed_kernels = smoke.phase_packed()
+    kernels += algo_kernels + replica_kernels + packed_kernels
+    log_rule2_order(kernels)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def log_rule2_order(kernels: list[dict]) -> None:
+    """The order in which to redesign the kernels: first those slower
+    than the PyTorch call that computes the same function, then the rest
+    by launches on their path x (time - bound), largest first."""
+    def slower(k):
+        return k["library_ms"] is not None and k["ms"] > k["library_ms"]
+
+    order = sorted(kernels, key=lambda k: (not slower(k),
+                                           -k["launches"] * (k["ms"] - k["bound_ms"])))
+    log("redesign order (slower than a library call first, then launches x "
+        "(ms - bound_ms)): " + ", ".join(
+            f"{k['name']} ({'slower than library, ' if slower(k) else ''}"
+            f"{k['launches']} x ({k['ms']:.6f} - {k['bound_ms']:.6f}) = "
+            f"{k['launches'] * (k['ms'] - k['bound_ms']):.6f} ms)" for k in order))
 
 
 class Smoke:
@@ -220,7 +271,9 @@ class Smoke:
         plain-version lane counts are ``work``."""
         return (keys * OPS_PER_KEY + work.get("step", 0) * OPS_PER_STEP
                 + work.get("outer", 0) * OPS_PER_OUTER
-                + work.get("read", 0) * OPS_PER_READ)
+                + work.get("read", 0) * OPS_PER_READ
+                + work.get("bit", 0) * OPS_PER_BIT + work.get("start", 0) * OPS_PER_START
+                + work.get("slot", 0) * OPS_PER_SLOT)
 
     @staticmethod
     def bound(ops: int, nbytes: int) -> tuple[float, str]:
@@ -1238,6 +1291,651 @@ class Smoke:
             f"device-to-host buckets {med[3]:.4f} ms (events); parts end to end "
             f"{med[4]:.4f} ms; card busy at most {busy:.2%} of route_batch "
             f"(idle at least {1 - busy:.2%}), kernel {med[2] / p50:.2%}")
+
+    # -- phase 6: this slice's path --------------------------------------------
+    def phase_packed(self) -> list[dict]:
+        """Packed and compact layouts: the path with the launch counts reset
+        just before it, then every new kernel against its plain version on
+        the card at every width, timed beside its bound."""
+        from repro_torch.kernels import delta_apply, engine
+
+        counters = [engine.LAUNCHES, delta_apply.LAUNCHES]
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        t0 = time.perf_counter()
+        main = self.packed_route()
+        self.packed_failover()
+        self.packed_modes(main)
+        sets = {"memento": [main["set"]], "anchor": []}
+        for algo in ("memento", "anchor"):
+            sets[algo] += [self.packed_small(algo), self.packed_tiny(algo)]
+        launches = {k: v for c in counters for k, v in c.items()}
+        log(f"phase 6 path: {time.perf_counter() - t0:.1f} s; launches {launches}")
+        new = [n for n, (_, _, t) in engine.KERNELS.items() if t != "dense"]
+        for name in new + ["delta_apply_int16", "delta_apply_int8"]:
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the phase 6 path")
+        t0 = time.perf_counter()
+        rows = []
+        for algo in ("memento", "anchor"):
+            rows += self.check_packed_kernels(algo, sets[algo], launches)
+        rows.append(self.check_compact(main, launches))
+        rows += self.check_narrow_apply(sets, launches)
+        log(f"phase 6 checks and timing: {time.perf_counter() - t0:.1f} s")
+        return rows
+
+    def packed_batches(self, router, dense, batches: int, what: str, lat: list) -> None:
+        """``route_batch`` on 2^20 ids against the dense store on the same
+        host state (the whole batch) and 4096 ids against the host."""
+        from repro_torch.core.hashing import np_key_to_u32
+
+        np, torch = self.np, self.torch
+        for _ in range(batches):
+            ids = self.rng.integers(0, 2**63, size=KEYS, dtype=np.uint64)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = router.route_batch(ids)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            keys = np_key_to_u32(ids)
+            want = dense.lookup(keys).cpu().numpy()
+            if out.shape != (len(ids),) or out.dtype != np.int32 or not (out == want).all():
+                raise AssertionError(f"packed {what}: route_batch != the dense store")
+            idx = np.linspace(0, KEYS - 1, HOST_SAMPLE).astype(np.int64)
+            if [router.ch.lookup(int(keys[j])) for j in idx] != out[idx].tolist():
+                raise AssertionError(f"packed {what}: route_batch != host")
+
+    def packed_breakdown(self, router, what: str, p50: float) -> None:
+        """Where a packed ``route_batch`` goes (medians of a few)."""
+        from repro_torch.core.hashing import np_key_to_u32
+        from repro_torch.kernels.engine import image_operands, kernel_lookup, key_tensor
+
+        np, torch = self.np, self.torch
+        tables, scalars = image_operands(router.image_store().image())
+        rows = []
+        for _ in range(BREAKDOWN_REPS):
+            ids = self.rng.integers(0, 2**63, size=KEYS, dtype=np.uint64)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            keys = np_key_to_u32(ids)
+            t1 = time.perf_counter()
+            ev[0].record()
+            kt = key_tensor(keys, self.dev)
+            ev[1].record()
+            out = kernel_lookup("memento", kt, tables, scalars, table="packed")
+            ev[2].record()
+            out.cpu()
+            ev[3].record()
+            ev[3].synchronize()
+            rows.append(((t1 - t0) * 1e3, ev[0].elapsed_time(ev[1]),
+                         ev[1].elapsed_time(ev[2]), ev[2].elapsed_time(ev[3])))
+        med = np.median(np.asarray(rows), axis=0)
+        busy = (med[1] + med[2] + med[3]) / p50
+        log(f"packed route_batch breakdown ({what}, {KEYS} ids, medians of "
+            f"{BREAKDOWN_REPS}): p50 {p50:.4f} ms; host hashing {med[0]:.4f} ms, "
+            f"host-to-device keys {med[1]:.4f} ms, memento_packed_lookup {med[2]:.4f} ms, "
+            f"device-to-host buckets {med[3]:.4f} ms (events); card busy at most "
+            f"{busy:.2%} (idle at least {1 - busy:.2%})")
+
+    def packed_route(self) -> dict:
+        """Memento at n = 10^6 with packed images through the router: stable,
+        1024 removals, 128 single removals, 64 restores, one-shot 90 %."""
+        from repro_torch.core.image_store import DeviceImageStore
+        from repro_torch.core.packing import TOMBSTONE, image_table_bytes
+        from repro_torch.serve.router import SessionRouter
+
+        np, torch = self.np, self.torch
+        router = SessionRouter(N, compact_images=True)
+        t0 = time.perf_counter()
+        store = router.image_store()
+        torch.cuda.synchronize()
+        log(f"packed store build (n={N}): {(time.perf_counter() - t0) * 1e3:.3f} ms, "
+            f"tables {store.capacity}")
+        dense = DeviceImageStore(router.ch)
+        kept = {"stable": store.image()}
+
+        def sync(what):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = store.sync()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            dst = dense.sync()
+            return (ms, st.mode, st.words, dst.words)
+
+        def state(what, lat, syncs):
+            p50 = float(np.median(lat))
+            dbytes, pbytes = image_table_bytes(dense.image()), image_table_bytes(store.image())
+            modes: dict = {}
+            for _, m, _, _ in syncs:
+                modes[m] = modes.get(m, 0) + 1
+            sync_ms = [x[0] for x in syncs]
+            log(f"scenario packed {what}: batches={len(lat)} of {KEYS} ids, keys/s="
+                f"{KEYS * len(lat) / (sum(lat) / 1e3):.6g}, p50_lookup_ms={p50:.4f} "
+                f"max_lookup_ms={max(lat):.4f}, syncs={len(syncs)} modes={modes}"
+                + (f" p50_sync_ms={np.median(sync_ms):.4f} max_sync_ms={max(sync_ms):.4f}"
+                   f" words packed/dense per sync (median) "
+                   f"{np.median([x[2] for x in syncs]):.0f}/"
+                   f"{np.median([x[3] for x in syncs]):.0f}" if syncs else "")
+                + f"; table bytes dense {dbytes}, packed {pbytes} "
+                f"({pbytes / dbytes:.4%}), removed {router.ch.n - router.ch.working}, "
+                f"slots {store.capacity['slot_b']} x {store.image().arrays['slot_b'].dtype}; "
+                f"every batch == the dense store, {HOST_SAMPLE} ids a batch == host")
+            self.packed_breakdown(router, what, p50)
+
+        lat: list = []
+        self.packed_batches(router, dense, 10, "stable", lat)
+        state("stable", lat, [])
+
+        self.remove_random(router.ch, PACKED_REMOVALS)
+        syncs = [sync("r1024")]
+        keys = self.rng.integers(0, 2**32, size=KEYS, dtype=np.uint32)
+        diff, want = store.migration_diff(keys), dense.migration_diff(keys)
+        if not all(self.torch.equal(getattr(diff, f), getattr(want, f))
+                   for f in ("old", "new", "moved")):
+            raise AssertionError("packed migration_diff != the dense store's")
+        log(f"packed migration_diff stable -> {PACKED_REMOVALS} removals: "
+            f"{diff.num_moved} of {KEYS} keys moved == the dense store")
+        lat = []
+        self.packed_batches(router, dense, 10, f"{PACKED_REMOVALS} removals", lat)
+        state(f"{PACKED_REMOVALS} removals", lat, syncs)
+        kept["r1024"] = (dense.image().arrays["repl"], dense.image().n, router.ch.working)
+        kept["lookups"] = [("stable", kept["stable"]),
+                           (f"{PACKED_REMOVALS} removals", store.image())]
+
+        lat, syncs = [], []
+        for _ in range(INCREMENTAL_EVENTS):
+            victim = self.working_victim(router.ch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            info = router.fail_replica(victim)
+            torch.cuda.synchronize()
+            cp = info["control_plane"]
+            syncs.append(((time.perf_counter() - t0) * 1e3, cp["mode"], cp["words"],
+                          dense.sync().words))
+            if len(syncs) % BATCH_EVERY == 0:
+                self.packed_batches(router, dense, 1, "incremental", lat)
+        if any(m != "delta" for _, m, _, _ in syncs):
+            raise AssertionError("a single removal did not ride a packed delta")
+        diff, want = store.migration_diff(keys), dense.migration_diff(keys)
+        if not self.torch.equal(diff.new, want.new) or not self.torch.equal(diff.moved, want.moved):
+            raise AssertionError("packed migration_diff != the dense store's")
+        state(f"incremental, {INCREMENTAL_EVENTS} removals", lat, syncs)
+
+        lat, syncs = [], []
+        for _ in range(PACKED_RESTORES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            router.restore_replica()
+            torch.cuda.synchronize()
+            st = store.last_sync
+            syncs.append(((time.perf_counter() - t0) * 1e3, st.mode, st.words,
+                          dense.sync().words))
+            if len(syncs) % BATCH_EVERY == 0:
+                self.packed_batches(router, dense, 1, "restores", lat)
+        tombs = int((store._mirror["slot_b"] == TOMBSTONE).sum())
+        if any(m != "delta" for _, m, _, _ in syncs) or not tombs:
+            raise AssertionError("restores did not ride packed deltas leaving tombstones")
+        log(f"packed restores: {tombs} tombstones in the slot table")
+        state(f"{PACKED_RESTORES} restores", lat, syncs)
+
+        t0 = time.perf_counter()
+        self.remove_random(router.ch, int(ONESHOT_FRACTION * N) - (N - router.ch.working))
+        log(f"host: one-shot removal, {router.ch.working} of {N} working, "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        syncs = [sync("oneshot")]
+        if syncs[0][1] != "snapshot":
+            raise AssertionError(f"one-shot packed sync was {syncs[0][1]}, expected snapshot")
+        lat = []
+        self.packed_batches(router, dense, 10, "oneshot", lat)
+        state("one-shot 90 %", lat, syncs)
+        kept["oneshot"] = store.image()
+        kept["oneshot_dense"] = (dense.image().arrays["repl"], dense.image().n)
+        kept["router"] = router
+        width = str(kept["oneshot"].arrays["slot_b"].dtype).replace("torch.", "")
+        kept["set"] = {"label": f"{width}, n={N} one-shot", "h": router.ch,
+                       "old": kept["stable"], "new": kept["oneshot"],
+                       "lookups": kept["lookups"]}
+        return kept
+
+    def packed_failover(self) -> None:
+        """``route_batch`` with ``replicas_k = 3`` on a packed store over 10^6
+        replicas: a replica marked, removed (a delta) and restored."""
+        from repro_torch.serve.router import SessionRouter
+
+        np, torch = self.np, self.torch
+        router = SessionRouter(N, replicas_k=REPLICAS_K, compact_images=True)
+        ids = self.rng.integers(0, 2**63, size=KEYS, dtype=np.uint64)
+        lat: dict = {}
+
+        def batch(what):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = router.route_batch(ids)
+            lat.setdefault(what, []).append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        base = batch("stable")
+        victim = int(np.bincount(base).argmax())
+        router.mark_failed(victim)
+        hit = base == victim
+        for _ in range(3):
+            out = batch("marked")
+            if victim in set(out.tolist()) or not (out == base)[~hit].all():
+                raise AssertionError("packed failover routed to the marked replica or "
+                                     "moved another session")
+        sets = router.replica_set_batch(ids)
+        if not ((sets[:, 0] == base).all() and (out[hit] == sets[hit, 1]).all()):
+            raise AssertionError("packed failover did not take the next replica")
+        info = router.fail_replica(victim)
+        if info["control_plane"]["mode"] != "delta":
+            raise AssertionError(f"packed removal synced as {info['control_plane']}")
+        out = batch("removed")
+        if victim in set(out.tolist()) or not (out == base)[~hit].all():
+            raise AssertionError("packed removal moved more than the victim's sessions")
+        router.restore_replica()
+        if not (batch("restored") == base).all():
+            raise AssertionError("the packed restore did not bring every session back")
+        log(f"packed route_batch replicas_k={REPLICAS_K}: {KEYS} sessions over {N} replicas; "
+            + "; ".join(f"{w} p50 {np.median(v):.4f} ms ({len(v)})" for w, v in lat.items())
+            + f"; replica {victim} marked: {int(hit.sum())} sessions failed over, the rest "
+            f"kept their primary; removal {info['control_plane']['words']} words (delta); "
+            f"restore brought every session back")
+
+    def packed_modes(self, main: dict) -> None:
+        """Bounded assignment, the bounded k = 2 lookup, the k = 3 diff and a
+        walk step on the packed one-shot state; the compact table through
+        ``ops.memento_lookup``."""
+        from repro_torch.kernels import engine, ops
+        from repro_torch.sim.checkers import check_cap_invariant
+
+        np, torch = self.np, self.torch
+        h, stable, oneshot = main["router"].ch, main["stable"], main["oneshot"]
+        assign = self.rng.integers(0, 2**32, size=KEYS, dtype=np.uint32)
+        cap = int(np.ceil(CAP_C * KEYS / h.working))
+        load0 = np.zeros(engine.bounded_load_len(oneshot), np.int32)
+        before = engine.LAUNCHES["memento_packed_walk"]
+        t0 = time.perf_counter()
+        out, load = engine.bounded_assign(assign, oneshot, load0, cap)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        rounds = engine.LAUNCHES["memento_packed_walk"] - before
+        found = check_cap_invariant(0, out, load, cap)
+        if found or load.sum() != KEYS:
+            raise AssertionError(f"packed bounded_assign: {found}")
+        repl, n = main["oneshot_dense"]
+        dense_img = type(oneshot)("memento", n, {"repl": repl}, epoch=oneshot.epoch)
+        d_out, d_load = engine.bounded_assign(assign, dense_img, load0[:repl.numel()], cap)
+        if not ((d_out == out).all() and (d_load == load[:repl.numel()]).all()):
+            raise AssertionError("packed bounded_assign != the dense image's")
+        load_t = torch.from_numpy(load).to(self.dev)
+        keys_np, keys = self.keys()
+        bounded = engine.engine_lookup(keys, oneshot, k=BOUNDED_K, load=load_t, cap=cap)
+        diff = engine.engine_diff(keys, stable, oneshot, k=REPLICAS_K)
+        pending = self.rng.random(KEYS) < 0.5
+        walk = engine.engine_chain_walk(keys_np, np.zeros(KEYS, np.int32), pending, oneshot,
+                                        load_t, cap)
+        want = engine.engine_lookup(keys, dense_img, k=BOUNDED_K,
+                                    load=load_t[:repl.numel()].contiguous(), cap=cap)
+        if not torch.equal(bounded, want):
+            raise AssertionError("packed bounded lookup != the dense image's")
+        main["set"]["load"] = (load_t, cap)
+        r1024, n1024, _ = main["r1024"]
+        compact = {}
+        for name, (rp, nn) in ((f"{PACKED_REMOVALS} removals", (r1024, n1024)),
+                               ("one-shot", (repl, n))):
+            got = ops.memento_lookup(keys, rp, nn, table="compact")
+            if not torch.equal(got, engine.memento_lookup(keys, rp, nn)):
+                raise AssertionError(f"compact lookup {name} != memento_lookup")
+            compact[name] = got
+        torch.cuda.synchronize()
+        log(f"packed modes: bounded_assign of {KEYS} keys at c={CAP_C} (cap {cap}): "
+            f"{rounds} rounds = memento_packed_walk launches, {wall_ms:.3f} ms, cap "
+            f"invariant silent, == the dense image's; bounded k={BOUNDED_K} == dense; "
+            f"k={REPLICAS_K} diff stable -> one-shot moved {diff.num_moved}; walk step on "
+            f"{int(pending.sum())} pending lanes; ops.memento_lookup(table='compact') on "
+            f"{sorted(compact)} == memento_lookup on the dense table")
+
+    def packed_small(self, algo: str) -> dict:
+        """A packed router whose tables narrow to int16 (Memento at
+        n = 10^4, AnchorHash at a = 32000): removals and restores as
+        deltas, a marked replica, diffs and a bounded assignment."""
+        from repro_torch.core.image_store import DeviceImageStore
+        from repro_torch.kernels import engine
+        from repro_torch.serve.router import SessionRouter
+
+        np, torch = self.np, self.torch
+        t0 = time.perf_counter()
+        if algo == "memento":
+            router = SessionRouter(SMALL_N, compact_images=True, replicas_k=REPLICAS_K)
+        else:
+            router = SessionRouter(ANCHOR_W, algo="anchor", capacity=ANCHOR_A,
+                                   compact_images=True, replicas_k=REPLICAS_K)
+        store, h = router.image_store(), router.ch
+        dense = DeviceImageStore(h)
+        lat: list = []
+        self.packed_batches(router, dense, 1, f"{algo} small", lat)
+        first = store.image()
+        removals, restores = SMALL_EVENTS
+        for _ in range(removals):
+            victim = int(self.rng.permutation(sorted(h.working_set()))[0])
+            if router.fail_replica(victim)["control_plane"]["mode"] != "delta":
+                raise AssertionError(f"packed {algo} removal was not a delta")
+            dense.sync()
+        for _ in range(restores):
+            router.restore_replica()
+            dense.sync()
+        if store.last_sync.mode != "delta":
+            raise AssertionError(f"packed {algo} restore was not a delta")
+        self.packed_batches(router, dense, 1, f"{algo} small", lat)
+        ids = self.rng.integers(0, 2**63, size=KEYS, dtype=np.uint64)
+        base = router.route_batch(ids)
+        victim = int(np.bincount(base).argmax())
+        router.mark_failed(victim)
+        out = router.route_batch(ids)
+        if victim in set(out.tolist()):
+            raise AssertionError(f"packed {algo} failover routed to the marked replica")
+        keys_np, keys = self.keys()
+        img = store.image()
+        d1 = engine.engine_diff(keys, first, img)
+        d3 = engine.engine_diff(keys, first, img, k=REPLICAS_K)
+        cap = int(np.ceil(CAP_C * KEYS / h.working))
+        load0 = np.zeros(engine.bounded_load_len(img), np.int32)
+        _, load = engine.bounded_assign(keys_np, img, load0, cap)
+        dtypes = sorted({str(t.dtype) for t in img.arrays.values()})
+        log(f"packed {algo} small: {h.working} working of {h.size}, tables {dtypes}, "
+            f"{removals} removals and {restores} restores as deltas, every batch == the "
+            f"dense store, failover around replica {victim}; diff moved {d1.num_moved} "
+            f"(k={REPLICAS_K}: {d3.num_moved}); bounded_assign cap {cap}; "
+            f"{(time.perf_counter() - t0):.1f} s")
+        width = str(img.arrays[engine.table_names(algo, "packed")[-1]].dtype)
+        return {"label": f"{width.replace('torch.', '')}, {'n' if algo == 'memento' else 'a'}"
+                         f"={img.n}",
+                "h": h, "old": first, "new": img,
+                "load": (torch.from_numpy(load).to(self.dev), cap)}
+
+    def packed_tiny(self, algo: str) -> dict:
+        """A hand-built int8 image (``pack_image`` pads every table to 128
+        entries, so it never narrows to int8): a host removal as a packed
+        delta through ``scatter_update``, then every mode."""
+        from repro_torch.core.packing import host_arrays, pack_image, packed_delta_updates
+        from repro_torch.core.protocol import DeviceImage, make_hash
+        from repro_torch.kernels import engine
+        from repro_torch.kernels.delta_apply import apply_updates
+
+        np, torch = self.np, self.torch
+        h = make_hash(algo, TINY_N, capacity=TINY_N, variant="32")
+        for b in self.rng.permutation(TINY_N)[: TINY_N // 2].tolist():
+            h.remove(int(b))
+        img = pack_image(h.device_image())
+        narrow = ("slot_b", "slot_c") if algo == "memento" else ("A", "K")
+        old = DeviceImage(algo, img.n, {k: (v.to(torch.int8) if k in narrow else v).to(self.dev)
+                                        for k, v in img.arrays.items()},
+                          dict(img.scalars), img.epoch, packed=True)
+        mirror = host_arrays(old)
+        victim = sorted(h.working_set())[3]
+        h.remove(victim)
+        delta = h.device_delta(old.epoch)
+        updates = packed_delta_updates(mirror, delta)
+        new = DeviceImage(algo, delta.n, apply_updates(old.arrays, updates),
+                          dict(delta.scalars), delta.epoch, packed=True)
+        keys_np, keys = self.keys()
+        out = engine.engine_lookup(keys, new)
+        sample = np.arange(0, KEYS, KEYS // KERNEL_SAMPLE)
+        if [h.lookup(int(k)) for k in keys_np[sample]] != out.cpu().numpy()[sample].tolist():
+            raise AssertionError(f"int8 {algo} lookup after a packed delta != host")
+        engine.engine_lookup(keys, new, k=REPLICAS_K)
+        engine.engine_diff(keys, old, new)
+        engine.engine_diff(keys, old, new, k=REPLICAS_K)
+        cap = int(np.ceil(CAP_C * KEYS / h.working))
+        load0 = np.zeros(engine.bounded_load_len(new), np.int32)
+        _, load = engine.bounded_assign(keys_np, new, load0, cap)
+        log(f"int8 {algo}: {h.working} working of {TINY_N}, a removal as a packed delta "
+            f"({ {k: len(v[0]) for k, v in updates.items()} } words scattered), lookup "
+            f"== host, k={REPLICAS_K}, diffs and bounded_assign (cap {cap}) on the card")
+        return {"label": f"int8, {'n' if algo == 'memento' else 'a'}={new.n}", "h": h,
+                "old": old, "new": new, "load": (torch.from_numpy(load).to(self.dev), cap),
+                "updates": updates}
+
+    def packed_entry(self, name: str, e: int, ms: float, plain_ms: float, ops: int,
+                     nbytes: int, work: dict) -> dict:
+        bound_ms, bound_by = self.bound(ops, nbytes)
+        log(f"check {name}: keys={KEYS} kernel == plain (max abs err {e}); kernel "
+            f"{ms:.6f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
+            f"{ops / KEYS:.2f} ops/key from "
+            f"{ {k: round(v / KEYS, 3) for k, v in work.items()} } per key), "
+            f"{bound_ms / ms:.1%} of the bound")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": e}
+
+    def check_packed_kernels(self, algo: str, sets: list, launches: dict) -> list[dict]:
+        """Every ``{algo}_packed_*`` kernel against its plain version on the
+        card on each of ``sets`` (one table width each), 2048 keys of each
+        lookup against the host; times and bounds."""
+        from repro_torch.kernels import engine
+
+        np, torch = self.np, self.torch
+        kw = {"table": "packed"}
+        by_mode: dict = {m: {} for m in ("lookup", "diff", "replica", "replica_diff", "walk")}
+
+        def err(a, b):
+            a, b = (torch.as_tensor(x).long() for x in (a, b))
+            return int((a - b).abs().max()) if a.numel() else 0
+
+        def nbytes(tables):
+            return sum(t.numel() * t.element_size() for t in tables)
+
+        for st in sets:
+            label, h = st["label"], st["h"]
+            keys_np, keys = self.keys()
+            new, old = engine.image_operands(st["new"]), engine.image_operands(st["old"])
+            tables, scalars = new
+            tb, ob = nbytes(tables), nbytes(old[0])
+            n = scalars[0]
+            load_t, cap = st["load"]
+
+            work: dict = {}
+            out = engine.kernel_lookup(algo, keys, tables, scalars, **kw)
+            plain, plain_ms = self.timed_plain(lambda: engine.lookup_plain(
+                algo, keys, tables, scalars, work, **kw))
+            e = err(out, plain)
+            sample = np.arange(0, KEYS, KEYS // KERNEL_SAMPLE)
+            if e or [h.lookup(int(k)) for k in keys_np[sample]] != out.cpu().numpy()[sample].tolist():
+                raise AssertionError(f"{algo}_packed_lookup {label}: kernel != plain / host ({e})")
+            ms = self.time_ms(lambda: engine.kernel_lookup(algo, keys, tables, scalars, **kw),
+                              reps=30)
+            ops = (self.lookup_ops(work, KEYS) if algo == "memento"
+                   else self.algo_ops(algo, work, KEYS, n))
+            by_mode["lookup"][label] = self.packed_entry(
+                f"{algo}_packed_lookup {label}", e, ms, plain_ms, ops, 8 * KEYS + tb, work)
+            for name, img in st.get("lookups", []):  # earlier states of the path
+                t, sc = engine.image_operands(img)
+                work = {}
+                out = engine.kernel_lookup(algo, keys, t, sc, **kw)
+                plain, p_ms = self.timed_plain(lambda: engine.lookup_plain(
+                    algo, keys, t, sc, work, **kw))
+                e = err(out, plain)
+                if e:
+                    raise AssertionError(f"{algo}_packed_lookup {name}: kernel != plain ({e})")
+                ms = self.time_ms(lambda: engine.kernel_lookup(algo, keys, t, sc, **kw), reps=30)
+                by_mode["lookup"][f"{label.split(',')[0]}, n={N} {name}"] = self.packed_entry(
+                    f"{algo}_packed_lookup {name}", e, ms, p_ms, self.lookup_ops(work, KEYS),
+                    8 * KEYS + nbytes(t), work)
+
+            both: dict = {}  # both epochs' lookups; their ops depend on no scalar
+            got = engine.kernel_diff(algo, keys, old, new, **kw)
+            want, plain_ms = self.timed_plain(lambda: engine.diff_plain(
+                algo, keys, old, new, both, **kw))
+            e = max(err(g, w) for g, w in zip(got, want))
+            if e:
+                raise AssertionError(f"{algo}_packed_diff {label}: kernel != plain ({e})")
+            ms = self.time_ms(lambda: engine.kernel_diff(algo, keys, old, new, **kw), reps=20)
+            ops = (self.lookup_ops(both, 2 * KEYS) if algo == "memento"
+                   else self.algo_ops(algo, both, 2 * KEYS, n)) + KEYS
+            by_mode["diff"][label] = self.packed_entry(
+                f"{algo}_packed_diff {label}, moved {int(got[2].sum())}", e, ms, plain_ms, ops,
+                16 * KEYS + tb + ob, both)
+
+            work = {}
+            got = engine.kernel_replica(algo, keys, REPLICAS_K, tables, scalars, **kw)
+            want, plain_ms = self.timed_plain(lambda: engine.replica_plain(
+                algo, keys, REPLICAS_K, tables, scalars, work=work, **kw))
+            e = err(got, want)
+            if e or [h.lookup_k(int(k), REPLICAS_K) for k in keys_np[sample[:256]]] != \
+                    got.cpu().numpy()[sample[:256]].tolist():
+                raise AssertionError(f"{algo}_packed_replica {label}: kernel != plain / host")
+            ms = self.time_ms(lambda: engine.kernel_replica(algo, keys, REPLICAS_K, tables,
+                                                            scalars, **kw), reps=10, warmup=1)
+            entry = self.packed_entry(
+                f"{algo}_packed_replica {label} k={REPLICAS_K}", e, ms, plain_ms,
+                self.mode_ops(algo, work, KEYS, n, REPLICAS_K),
+                4 * KEYS * (1 + REPLICAS_K) + tb, work)
+            by_mode["replica"][f"{label} k={REPLICAS_K}"] = entry
+            work = {}
+            got = engine.kernel_replica(algo, keys, BOUNDED_K, tables, scalars, load_t, cap, **kw)
+            want, plain_ms = self.timed_plain(lambda: engine.replica_plain(
+                algo, keys, BOUNDED_K, tables, scalars, load_t, cap, work, **kw))
+            e = err(got, want)
+            if e:
+                raise AssertionError(f"{algo}_packed_replica bounded {label}: kernel != plain")
+            ms = self.time_ms(lambda: engine.kernel_replica(algo, keys, BOUNDED_K, tables,
+                                                            scalars, load_t, cap, **kw),
+                              reps=10, warmup=1)
+            by_mode["replica"][f"{label} bounded k={BOUNDED_K}"] = self.packed_entry(
+                f"{algo}_packed_replica {label} bounded k={BOUNDED_K} cap={cap}", e, ms,
+                plain_ms, self.mode_ops(algo, work, KEYS, n, BOUNDED_K, bounded=True),
+                4 * KEYS * (1 + BOUNDED_K) + tb + 4 * load_t.numel(), work)
+
+            both = {}
+            got = engine.kernel_replica_diff(algo, keys, REPLICAS_K, old, new, **kw)
+            want, plain_ms = self.timed_plain(lambda: engine.replica_diff_plain(
+                algo, keys, REPLICAS_K, old, new, both, **kw))
+            e = max(err(g, w) for g, w in zip(got, want))
+            if e:
+                raise AssertionError(f"{algo}_packed_replica_diff {label}: kernel != plain")
+            ms = self.time_ms(lambda: engine.kernel_replica_diff(algo, keys, REPLICAS_K, old,
+                                                                 new, **kw), reps=10, warmup=1)
+            ops = (self.mode_ops(algo, both, 2 * KEYS, n, REPLICAS_K)
+                   + 2 * REPLICAS_K * KEYS)
+            by_mode["replica_diff"][f"{label} k={REPLICAS_K}"] = self.packed_entry(
+                f"{algo}_packed_replica_diff {label} k={REPLICAS_K}, moved "
+                f"{int(got[2].sum())}", e, ms, plain_ms, ops,
+                4 * KEYS * (2 + 2 * REPLICAS_K) + tb + ob, both)
+
+            chain = keys
+            probe = torch.zeros(KEYS, dtype=torch.int32, device=self.dev)
+            pending = torch.from_numpy(self.rng.random(KEYS) < 0.5).to(self.dev)
+            work = {}
+            got = engine.kernel_walk(algo, chain, probe, pending, tables, scalars, load_t, cap, **kw)
+            want, plain_ms = self.timed_plain(lambda: engine.walk_plain(
+                algo, chain, probe, pending, tables, scalars, load_t, cap, work, **kw))
+            e = max(err(g, w) for g, w in zip(got, want))
+            if e:
+                raise AssertionError(f"{algo}_packed_walk {label}: kernel != plain ({e})")
+            ms = self.time_ms(lambda: engine.kernel_walk(algo, chain, probe, pending, tables,
+                                                         scalars, load_t, cap, **kw),
+                              reps=10, warmup=1)
+            by_mode["walk"][f"{label} cap={cap}"] = self.packed_entry(
+                f"{algo}_packed_walk {label} ({int(pending.sum())} pending, "
+                f"{work.get('walk', 0)} steps)", e, ms, plain_ms,
+                self.mode_ops(algo, work, KEYS, n, walk=True),
+                21 * KEYS + tb + 4 * load_t.numel(), work)
+        rows = []
+        for mode, by_state in by_mode.items():
+            head = next(iter(by_state))
+            h_ = by_state[head]
+            rows.append({"name": f"{algo}_packed_{mode}", "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/engine.cu",
+                         "replaces": "src/repro/kernels/engine.py:526",
+                         "launches": launches[f"{algo}_packed_{mode}"],
+                         "max_abs_err": max(v["max_abs_err"] for v in by_state.values()),
+                         "ms": h_["ms"], "plain_ms": h_["plain_ms"],
+                         "bound_ms": h_["bound_ms"], "bound_by": h_["bound_by"],
+                         "library_ms": None, "state": head, "by_state": by_state})
+        return rows
+
+    def check_compact(self, main: dict, launches: dict) -> dict:
+        """``memento_compact_lookup`` on the 1024-removal and one-shot states
+        against its plain version and ``memento_lookup`` on the dense
+        table."""
+        from repro_torch.kernels import engine
+
+        torch = self.torch
+        by_state = {}
+        r1024, n1024, _ = main["r1024"]
+        for name, (repl, n) in ((f"{PACKED_REMOVALS} removals", (r1024, n1024)),
+                                ("one-shot", main["oneshot_dense"])):
+            _, keys = self.keys()
+            t0 = time.perf_counter()
+            slot_b, slot_c = engine.build_compact_table(repl)
+            build_ms = (time.perf_counter() - t0) * 1e3
+            out = engine.compact_lookup(keys, slot_b, slot_c, n)
+            work: dict = {}
+            plain, plain_ms = self.timed_plain(lambda: engine.lookup_plain(
+                "memento", keys, [slot_b, slot_c], [n], work, table="compact"))
+            e = int((out.long() - plain.long()).abs().max())
+            if e or not torch.equal(out, engine.memento_lookup(keys, repl, n)):
+                raise AssertionError(f"memento_compact_lookup {name}: != plain / dense")
+            ms = self.time_ms(lambda: engine.compact_lookup(keys, slot_b, slot_c, n), reps=30)
+            dense_ms = self.time_ms(lambda: engine.memento_lookup(keys, repl, n), reps=30)
+            by_state[name] = self.packed_entry(
+                f"memento_compact_lookup {name} ({slot_b.numel()} slots, built on the host "
+                f"in {build_ms:.1f} ms; memento_lookup on the dense table {dense_ms:.6f} ms, "
+                f"equal)", e, ms, plain_ms, self.lookup_ops(work, KEYS),
+                8 * KEYS + 8 * slot_b.numel(), work)
+        head = by_state["one-shot"]
+        return {"name": "memento_compact_lookup", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/engine.cu",
+                "replaces": "src/repro/kernels/engine.py:526",
+                "launches": launches["memento_compact_lookup"],
+                "max_abs_err": max(v["max_abs_err"] for v in by_state.values()),
+                "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": None, "state": "one-shot",
+                "by_state": by_state}
+
+    def check_narrow_apply(self, sets: dict, launches: dict) -> list[dict]:
+        """The int16 and int8 delta applies at the path's shapes (a small
+        store's int16 slot table, an int8 image's table) against the plain
+        version and ``index_put``."""
+        from repro_torch.kernels.delta_apply import (KERNELS, _pad_updates, dedup_last,
+                                                     delta_apply, delta_apply_plain)
+
+        np, torch = self.np, self.torch
+        rows = []
+        for dtype, st in ((torch.int16, sets["memento"][1]), (torch.int8, sets["memento"][2])):
+            name = KERNELS[dtype]
+            table = st["new"].arrays["slot_b"]
+            if table.dtype != dtype:
+                raise AssertionError(f"{name}: the path's slot table is {table.dtype}")
+            idx = self.rng.integers(0, table.numel(), size=8)
+            vals = self.rng.integers(-2, TINY_N, size=8).astype(np.int32)
+            uidx, uvals = dedup_last(idx, vals)
+            pidx, pval, count = _pad_updates(uidx, uvals, sentinel=-1)
+            meta = torch.from_numpy(np.concatenate([pidx, pval])).to(self.dev)
+            out = delta_apply(table, meta, count)
+            plain = delta_apply_plain(table, meta, count)
+            ti = torch.from_numpy(uidx).to(self.dev)
+            tv = torch.from_numpy(uvals).to(dtype).to(self.dev)
+            lib = table.index_put((ti,), tv)
+            e = int((out.long() - plain.long()).abs().max())
+            if e or not torch.equal(out, lib):
+                raise AssertionError(f"{name}: kernel != plain / index_put")
+            ms = self.time_ms(lambda: delta_apply(table, meta, count), reps=100)
+            plain_ms = self.time_ms(lambda: delta_apply_plain(table, meta, count), reps=100)
+            library_ms = self.time_ms(lambda: table.index_put((ti,), tv), reps=100)
+            nbytes = 2 * table.numel() * table.element_size() + 8 * count
+            bound_ms, bound_by = self.bound(0, nbytes)
+            log(f"check {name}: {count} updates into {table.numel()} {dtype} ({st['label']}): "
+                f"kernel == plain == index_put; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+                f"index_put {library_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes: {nbytes}), "
+                f"{bound_ms / ms:.1%} of the bound")
+            rows.append({"name": name, "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/delta_apply.cu",
+                         "replaces": "src/repro/kernels/delta_apply.py:169",
+                         "launches": launches[name], "max_abs_err": e, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms, "state": st["label"]})
+        return rows
 
 
 if __name__ == "__main__":

@@ -31,14 +31,15 @@ def _table(a) -> torch.Tensor:
 
 def image_from_arrays(algo: str, n: int, arrays: dict[str, np.ndarray],
                       scalars: dict[str, int] | None = None, epoch: int = 0,
-                      device="cpu") -> DeviceImage:
+                      device="cpu", packed: bool = False) -> DeviceImage:
     """A port :class:`DeviceImage` holding copies of ``arrays`` on
-    ``device``."""
+    ``device``, each in its own dtype (a packed image's int16 or int8
+    tables stay narrow; uint32 words become int32 bit patterns)."""
     return DeviceImage(
         algo=algo, n=int(n),
         arrays={name: _table(a).to(device) for name, a in arrays.items()},
         scalars={k: int(v) for k, v in (scalars or {}).items()},
-        epoch=int(epoch))
+        epoch=int(epoch), packed=bool(packed))
 
 
 def memento_from_state(n: int, l: int, R: dict, variant: str = "32",

@@ -20,6 +20,13 @@ A store wraps one host consistent-hash state and keeps its
 A snapshot is rebuilt only when the host's bounded delta log no longer
 covers the store's epoch, or when growth outruns the padded capacity.
 
+``compact=True`` keeps the packed layout (:mod:`repro_torch.core.packing`)
+on the device instead: for Memento a bitmap plus a Θ(r) slot table, for
+AnchorHash narrowed A/K.  A numpy mirror of the packed arrays stays on the
+host; each delta edits it (:func:`packed_delta_updates`) and ships the
+touched words, and a delta the packed buffers cannot absorb (bitmap
+outgrown, slots full, a value too wide) rebuilds a snapshot.
+
 ``sync()`` prepares and flips in one call; ``sync_async()`` dispatches the
 scatter and returns a :class:`SyncHandle` without flipping.  The flip
 lands on ``handle.commit()``, the store's ``poll()`` (only once a CUDA
@@ -33,18 +40,24 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.delta_apply import apply_updates
+from repro_torch.kernels.delta_apply import apply_updates, scatter_update
 from repro_torch.kernels.engine import engine_diff, engine_lookup
+from .packing import host_arrays, pack_image, packed_delta_updates
 from .protocol import (ALGORITHM_REGISTRY, DeviceImage, ImageDelta,
                        required_lengths, round_up)
 
 
-def delta_fits(caps: dict[str, int], delta: ImageDelta) -> bool:
+def delta_fits(caps: dict[str, int], delta: ImageDelta, *,
+               compact: bool = False) -> bool:
     """Do buffers of the given per-array lengths absorb ``delta``?  Every
-    array a lookup at ``delta.n`` may read must be long enough, and a
+    array a lookup at ``delta.n`` may read must be long enough (with
+    ``compact``, Memento's bitmap: 32 buckets a ``state`` word), and a
     bounded-load ``load`` overlay, which is bucket-indexed, must cover
     ``delta.n`` words."""
-    needed = dict(required_lengths(delta.algo, delta.n))
+    if compact and delta.algo == "memento":
+        needed = {"state": -(-delta.n // 32)}
+    else:
+        needed = dict(required_lengths(delta.algo, delta.n))
     if "load" in caps:
         needed["load"] = delta.n
     return all(caps.get(name, 0) >= need for name, need in needed.items())
@@ -76,10 +89,12 @@ class SyncHandle:
 
     def __init__(self, store: "DeviceImageStore", stats: SyncStats,
                  new_front: DeviceImage | None,
-                 event: torch.cuda.Event | None = None):
+                 event: torch.cuda.Event | None = None,
+                 new_mirror: dict | None = None):
         self._store = store
         self._stats = stats
         self._new = new_front           # None → noop: nothing to flip
+        self._new_mirror = new_mirror   # the packed host mirror of new_front
         self._event = event             # None → the work ran on the host
         self._done = new_front is None
         if self._done:
@@ -112,7 +127,7 @@ class SyncHandle:
                 return self._stats
             if self._event is not None:
                 self._event.synchronize()
-            self._store._flip(self._new, self._stats)
+            self._store._flip(self._new, self._new_mirror, self._stats)
             self._done = True
             if self._store._pending is self:
                 self._store._pending = None
@@ -121,37 +136,44 @@ class SyncHandle:
 
 class DeviceImageStore:
     """Double-buffered device image of a consistent-hash state, updated by
-    deltas.  ``device`` defaults to ``"cuda"``; with no GPU the constructor
-    raises unless the caller passes ``device="cpu"``."""
+    deltas; packed with ``compact=True``.  ``device`` defaults to
+    ``"cuda"``; with no GPU the constructor raises unless the caller
+    passes ``device="cpu"``."""
 
     def __init__(self, ch, *, device=None, headroom: int = 2,
                  compact: bool = False):
-        if compact:
-            raise NotImplementedError("packed images: ROADMAP.md Queue 2, K1b")
         self.device = resolve_device(device)
         self._ch = ch
         self.headroom = max(1, headroom)
+        self.compact = compact
         self.totals = SyncTotals()
         self.last_sync: SyncStats | None = None
         self._prev: DeviceImage | None = None
         self._lock = threading.RLock()
         self._pending: SyncHandle | None = None
-        self._front = self._snapshot()
+        self._front, self._mirror = self._snapshot()
 
     # -- buffers ---------------------------------------------------------------
-    def _snapshot(self) -> DeviceImage:
+    def _snapshot(self) -> tuple[DeviceImage, dict | None]:
         """Build (do not install) a full snapshot image on the device, with
         ``headroom×`` the current size for a growable algorithm so growth
-        can ride deltas."""
+        can ride deltas, and with ``compact`` its packed layout (slot
+        headroom 2: a load factor ≤ 0.25 after the rebuild, so deltas
+        insert in place) and the host mirror of the packed arrays."""
         if ALGORITHM_REGISTRY[self._ch.image_algo].fixed_capacity:
             cap = None  # the overall capacity a is fixed
         else:
             cap = round_up(max(self.headroom * self._ch.size, 128))
         img = self._ch.device_image(capacity=cap)
-        return DeviceImage(
+        mirror = None
+        if self.compact:
+            img = pack_image(img, slot_headroom=2)
+            mirror = host_arrays(img)
+        front = DeviceImage(
             algo=img.algo, n=img.n,
             arrays={k: v.to(self.device) for k, v in img.arrays.items()},
-            scalars=dict(img.scalars), epoch=img.epoch)
+            scalars=dict(img.scalars), epoch=img.epoch, packed=img.packed)
+        return front, mirror
 
     @property
     def epoch(self) -> int:
@@ -176,10 +198,10 @@ class DeviceImageStore:
         capacity suffices, else a full snapshot.  The old front is kept as
         ``previous_image()``.  A pending async epoch is committed first."""
         self.flush()
-        new, stats, _event = self._prepare()
+        new, mirror, stats, _event = self._prepare()
         with self._lock:
             if new is not None:
-                self._flip(new, stats)
+                self._flip(new, mirror, stats)
             else:
                 self._account(stats)
         return stats
@@ -189,8 +211,8 @@ class DeviceImageStore:
         device.  The front keeps serving epoch N until the handle commits
         (``handle.commit()``, ``poll()``, ``flush()``, or the next sync)."""
         self.flush()
-        new, stats, event = self._prepare()
-        handle = SyncHandle(self, stats, new, event)
+        new, mirror, stats, event = self._prepare()
+        handle = SyncHandle(self, stats, new, event, mirror)
         if not handle.done:
             self._pending = handle
         return handle
@@ -213,24 +235,46 @@ class DeviceImageStore:
 
     def _prepare(self):
         """Drain the host delta and dispatch (not install) the next-epoch
-        image.  Returns ``(new_front | None, stats, event | None)``."""
+        image.  Returns ``(new_front | None, new_mirror, stats, event |
+        None)``.  A packed delta edits the host mirror in place: the
+        mirror runs ahead of the front until the flip."""
         delta = self._ch.device_delta(self._front.epoch)
         if delta is not None and delta.events == 0:
-            return None, SyncStats("noop", 0, 0, self.epoch), None
-        if delta is not None and delta_fits(self.capacity, delta):
-            arrays = self._apply(delta.updates)
-            new = DeviceImage(algo=delta.algo, n=delta.n, arrays=arrays,
-                              scalars=dict(delta.scalars), epoch=delta.epoch)
-            stats = SyncStats("delta", delta.events, delta.num_words(), new.epoch)
-        else:
-            events = self._ch.epoch - self._front.epoch
-            new = self._snapshot()
-            words = sum(int(v.numel()) for v in new.arrays.values()) + 1
-            stats = SyncStats("snapshot", events, words, new.epoch)
-        return new, stats, self._record_event()
+            return None, None, SyncStats("noop", 0, 0, self.epoch), None
+        applied = None
+        if delta is not None and delta_fits(self.capacity, delta, compact=self.compact):
+            applied = (self._apply_packed(delta) if self.compact
+                       else (self._apply(delta), delta.num_words()))
+        if applied is not None:
+            new, words = applied
+            return (new, self._mirror, SyncStats("delta", delta.events, words, new.epoch),
+                    self._record_event())
+        events = self._ch.epoch - self._front.epoch
+        new, mirror = self._snapshot()
+        words = sum(int(v.numel()) for v in new.arrays.values()) + 1
+        return (new, mirror, SyncStats("snapshot", events, words, new.epoch),
+                self._record_event())
 
-    def _apply(self, updates: dict) -> dict:
-        return apply_updates(self._front.arrays, updates)
+    def _apply(self, delta: ImageDelta) -> DeviceImage:
+        return DeviceImage(algo=delta.algo, n=delta.n,
+                           arrays=apply_updates(self._front.arrays, delta.updates),
+                           scalars=dict(delta.scalars), epoch=delta.epoch)
+
+    def _apply_packed(self, delta: ImageDelta) -> tuple[DeviceImage, int] | None:
+        """The delta as scatters on the packed layout, or ``None`` (→ a
+        snapshot) when the packed buffers cannot absorb it."""
+        updates = packed_delta_updates(self._mirror, delta)
+        if updates is None:
+            return None
+        arrays = dict(self._front.arrays)
+        words = 0
+        for name, (idx, vals) in updates.items():
+            if len(idx):
+                arrays[name] = scatter_update(arrays[name], idx, vals)
+                words += 2 * len(idx)
+        return DeviceImage(algo=delta.algo, n=delta.n, arrays=arrays,
+                           scalars=dict(delta.scalars), epoch=delta.epoch,
+                           packed=True), words
 
     def _record_event(self) -> torch.cuda.Event | None:
         if self.device.type != "cuda":
@@ -239,10 +283,11 @@ class DeviceImageStore:
         event.record(torch.cuda.current_stream(self.device))
         return event
 
-    def _flip(self, new: DeviceImage, stats: SyncStats) -> None:
-        """Install epoch N+1 (caller holds ``_lock``)."""
+    def _flip(self, new: DeviceImage, mirror: dict | None, stats: SyncStats) -> None:
+        """Install epoch N+1 and its host mirror (caller holds ``_lock``)."""
         self._prev = self._front
         self._front = new
+        self._mirror = mirror
         self._account(stats)
 
     def _account(self, stats: SyncStats) -> None:
@@ -260,15 +305,16 @@ class DeviceImageStore:
                cap: int | None = None) -> torch.Tensor:
         """Bulk lookup against the front image: int32 buckets [K] (k = 1)
         or replica sets [K, k] on the store's device, one launch on CUDA
-        (``{algo}_lookup``, or ``{algo}_replica`` for k > 1 or a bounded
-        lookup under ``load``/``cap``)."""
+        (the layout's ``lookup`` kernel, or its ``replica`` kernel for
+        k > 1 or a bounded lookup under ``load``/``cap``)."""
         return engine_lookup(keys, self._front, k=k, load=load, cap=cap,
                              device=self.device)
 
     def migration_diff(self, keys, *, k: int = 1):
         """Moved-key mask between the retained epoch and the front epoch
-        (one ``{algo}_diff`` launch on CUDA; ``{algo}_replica_diff`` for
-        k > 1, where a key moved if any slot of its replica set did)."""
+        (one ``diff`` launch of the layout on CUDA; ``replica_diff`` for
+        k > 1, where a key moved if any slot of its replica set did).
+        Across a snapshot both epochs are of the store's one layout."""
         if self._prev is None:
             raise ValueError("no previous epoch retained (sync() first)")
         return engine_diff(keys, self._prev, self._front, k=k, device=self.device)

@@ -117,7 +117,11 @@ class DeviceImage:
       int32), lengths 128-padded, all on one device; empty for the
       tableless Jump and Power,
     * ``scalars`` — extra dynamic int scalars,
-    * ``epoch``   — the membership epoch this image snapshots.
+    * ``epoch``   — the membership epoch this image snapshots,
+    * ``packed``  — True when ``arrays`` hold the packed layout of
+      :mod:`repro_torch.core.packing` (a bitmap of working buckets plus
+      narrowed words) instead of the dense one.  The engine dispatches on
+      this flag, so both layouts share every lookup entry point.
     """
 
     algo: str
@@ -125,6 +129,7 @@ class DeviceImage:
     arrays: dict[str, torch.Tensor] = field(default_factory=dict)
     scalars: dict[str, int] = field(default_factory=dict)
     epoch: int = 0
+    packed: bool = False
 
 
 @dataclass
@@ -167,6 +172,7 @@ class AlgoInfo:
     required: object
     lifo_only: bool = False
     fixed_capacity: bool = False
+    packed_tables: tuple[str, ...] | None = None
 
 
 def _memento_factory(n0: int, capacity, variant: str):
@@ -204,7 +210,8 @@ def _power_factory(n0: int, capacity, variant: str):
 ALGORITHM_REGISTRY: dict[str, AlgoInfo] = {
     info.name: info for info in (
         AlgoInfo("memento", _memento_factory, ("n",), ("repl",),
-                 lambda n: {"repl": n}),
+                 lambda n: {"repl": n},
+                 packed_tables=("state", "slot_b", "slot_c")),
         AlgoInfo("anchor", _anchor_factory, ("n",), ("A", "K"),
                  lambda n: {"A": n, "K": n}, fixed_capacity=True),
         AlgoInfo("dx", _dx_factory, ("n", "max_probes", "fallback"),
@@ -256,10 +263,11 @@ def image_fingerprint(image: DeviceImage) -> str:
     :func:`required_lengths` prefix (a bounded-load ``load`` overlay to
     ``n`` words).  Capacity padding is excluded, so two images that
     reached one epoch through different snapshot/delta histories
-    fingerprint equal iff their lookups agree.  Equal to the reference
-    package's fingerprint of the same image."""
+    fingerprint equal iff their lookups agree.  A packed image hashes its
+    whole arrays, each in its own dtype.  Equal to the reference package's
+    fingerprint of the same image."""
     crc = zlib.crc32(np.asarray([image.n, image.epoch], np.int64).tobytes())
-    trim = required_lengths(image.algo, image.n)
+    trim = {} if image.packed else required_lengths(image.algo, image.n)
     if "load" in image.arrays:
         trim = dict(trim, load=image.n)
     for name in sorted(image.arrays):

@@ -2,15 +2,19 @@
 // walk (unbounded and bounded), epoch diffs and bounded-load chain walk,
 // one thread per key.
 //
-// Replaces the dense configurations of the TPU engine kernel
+// Replaces every configuration of the TPU engine kernel
 // src/repro/kernels/engine.py::_engine_pallas (body _engine_kernel_factory,
 // per-algorithm bodies dispatched by algo_body, modes by _mode_outputs):
-//   memento_* <- memento_body + dense_body   (K1a)
+//   memento_*         <- memento_body + dense_body        (K1a)
+//   memento_packed_*  <- memento_body + packed_reader     (K1b)
+//   anchor_packed_*   <- anchor_body over narrowed A/K    (K1b)
+//   memento_compact_lookup <- memento_body + compact_reader (K1g)
 //   anchor_*  <- anchor_body                 (K1c)
 //   dx_*      <- dx_body                     (K1d)
 //   power_*   <- primitives.power32          (K1e)
 //   jump_*    <- primitives.jump32           (K1f)
-// and for each algorithm the modes
+// (DxHash, JumpHash and PowerHash images have one layout: their packed
+// images run the dense entries.)  For each algorithm the modes
 //   {algo}_lookup        k = 1 lookup
 //   {algo}_diff          k = 1 lookup under two epochs + moved    (K1i)
 //   {algo}_replica       replica_body, k slots, optionally bounded (K1h)
@@ -29,6 +33,12 @@
 // about k lookups (plus one per rejected candidate), a walk step one
 // lookup per probe.
 //
+// The packed Memento layout reads a bitmap word per table read and, for a
+// removed bucket only, probes an open-addressing slot table (load factor
+// <= 0.5, so ~1.5 slots); the compact table probes on every read.  Both
+// tables are Theta(r) and sit in L2 next to the bitmap (125 KB at 10^6
+// buckets).
+//
 // Design: one thread per key with per-thread loops.  The Pallas kernel runs
 // lane-synchronous masked while_loops over (8, 128) key blocks, so a block
 // settles when its slowest lane does; here a warp waits only for its own
@@ -39,6 +49,17 @@
 // algorithm cannot disagree about a placement.  A replica walk keeps its
 // chosen slots in the lane's own output row and compares each candidate
 // with them there, so k has no limit.
+//
+// Memento's table is read through a reader functor (DenseRepl, PackedRepl<T>,
+// CompactRepl) and AnchorHash's A/K through their element type T, so the
+// packed layouts reuse every mode's kernel template unchanged.  Narrow
+// slots and A/K words are signed: they are sign-extended to int32 before
+// any compare, so EMPTY (-1) and TOMBSTONE (-2) stay negative.  A probe
+// stops after as many slots as the table has: the reference's loop has no
+// bound and relies on an empty slot, which every valid image has, so the
+// bound changes no answer and keeps a broken table from hanging the card.
+// The `width` argument of a packed entry (1, 2 or 4 bytes) picks the
+// template instance; each epoch of a diff has its own.
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -56,6 +77,7 @@ constexpr uint32_t kPowerSalt = 0x506F5748u;  // repro_torch.core.power
 constexpr int32_t kPowerTryCap = 64;
 constexpr int32_t kReplicaSaltCap = 4096;  // repro_torch.core.protocol.REPLICA_SALT_CAP
 constexpr int kThreads = 256;
+constexpr int32_t kEmpty = -1;  // repro_torch.core.packing.EMPTY
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
@@ -86,38 +108,87 @@ __device__ __forceinline__ int32_t jump32(uint32_t key, int32_t n) {
   return b;
 }
 
-// Paper Alg. 4 over the dense table: repl[b] = |W_b| if b was removed,
-// else -1.  A chain is followed only while repl[d] >= w_b.
-__device__ __forceinline__ int32_t memento_one(uint32_t key,
-                                               const int32_t* __restrict__ repl,
-                                               int32_t n) {
+// Paper Alg. 4 over a table reader: repl(b) = |W_b| if b was removed,
+// else -1.  A chain is followed only while repl(d) >= w_b.
+template <class Read>
+__device__ __forceinline__ int32_t memento_one(uint32_t key, const Read& repl, int32_t n) {
   int32_t b = jump32(key, n);
   int32_t c;
-  while ((c = repl[b]) >= 0) {
+  while ((c = repl(b)) >= 0) {
     const int32_t wb = c > 0 ? c : 1;  // a valid image never holds 0
     int32_t d = static_cast<int32_t>(hash2(key, static_cast<uint32_t>(b)) %
                                      static_cast<uint32_t>(wb));
     int32_t u;
-    while ((u = repl[d]) >= wb) d = u;
+    while ((u = repl(d)) >= wb) d = u;
     b = d;
   }
   return b;
 }
 
+// The dense table: one int32 word per bucket.
+struct DenseRepl {
+  const int32_t* repl;
+  __device__ int32_t operator()(int32_t i) const { return repl[i]; }
+};
+
+// repl(i) from an open-addressing table of mask + 1 slots: linear probing
+// from fmix32(i * golden + 5) & mask until slot_b holds i (-> slot_c), or
+// a slot ends the chain: EMPTY only (kEmptyOnly, the packed layout, whose
+// TOMBSTONEs keep a chain going) or any negative slot (the compact table);
+// a bucket not found is working (-1).
+template <class T, bool kEmptyOnly>
+__device__ __forceinline__ int32_t probe(const T* __restrict__ slot_b,
+                                         const T* __restrict__ slot_c, uint32_t mask,
+                                         int32_t i) {
+  uint32_t pos = fmix32(static_cast<uint32_t>(i) * kGolden32 + 5u) & mask;
+  for (uint32_t s = 0; s <= mask; ++s) {
+    const int32_t sb = static_cast<int32_t>(slot_b[pos]);  // sign-extended
+    if (sb == i) return static_cast<int32_t>(slot_c[pos]);
+    if (kEmptyOnly ? sb == kEmpty : sb < 0) return -1;
+    pos = (pos + 1u) & mask;
+  }
+  return -1;
+}
+
+// The packed layout (K1b): bit i & 31 of state word i >> 5 set means
+// working, with no probe; a removed bucket probes its T-wide slots.
+template <class T>
+struct PackedRepl {
+  const uint32_t* state;
+  const T* slot_b;
+  const T* slot_c;
+  uint32_t mask;
+  __device__ int32_t operator()(int32_t i) const {
+    if ((state[i >> 5] >> (static_cast<uint32_t>(i) & 31u)) & 1u) return -1;
+    return probe<T, true>(slot_b, slot_c, mask, i);
+  }
+};
+
+// The compact table (K1g): every read probes.
+struct CompactRepl {
+  const int32_t* slot_b;
+  const int32_t* slot_c;
+  uint32_t mask;
+  __device__ int32_t operator()(int32_t i) const {
+    return probe<int32_t, false>(slot_b, slot_c, mask, i);
+  }
+};
+
 // AnchorHash: A[b] = 0 for a working bucket, else the working-set size
 // right after b was removed; K[b] the bucket that replaced b.  Start at
 // fmix32(key) % a; at a removed bucket draw h = hash2(key, b) % A[b] and
 // step back through K while h was removed at or after b (A[h] >= A[b]).
-__device__ __forceinline__ int32_t anchor_one(uint32_t key,
-                                              const int32_t* __restrict__ A,
-                                              const int32_t* __restrict__ K,
-                                              int32_t a) {
+// T is int32 for the dense layout, int8/int16/int32 for the packed one:
+// every word is widened to int32 as it is read.
+template <class T>
+__device__ __forceinline__ int32_t anchor_one(uint32_t key, const T* __restrict__ A,
+                                              const T* __restrict__ K, int32_t a) {
   int32_t b = static_cast<int32_t>(fmix32(key) % static_cast<uint32_t>(a));
   int32_t ab;
   while ((ab = A[b]) > 0) {
     int32_t h = static_cast<int32_t>(hash2(key, static_cast<uint32_t>(b)) %
                                      static_cast<uint32_t>(ab));
-    while (A[h] >= ab) h = K[h];
+    while (static_cast<int32_t>(A[h]) >= ab) h = K[h];
     b = h;
   }
   return b;
@@ -160,14 +231,16 @@ __device__ __forceinline__ int32_t power_one(uint32_t key, int32_t n) {
 }
 
 // One epoch's operands per algorithm; operator() is that epoch's lookup.
-struct Memento {
-  const int32_t* repl;
+template <class Read>
+struct MementoT {
+  Read repl;
   int32_t n;
   __device__ int32_t operator()(uint32_t key) const { return memento_one(key, repl, n); }
 };
-struct Anchor {
-  const int32_t* A;
-  const int32_t* K;
+template <class T>
+struct AnchorT {
+  const T* A;
+  const T* K;
   int32_t a;
   __device__ int32_t operator()(uint32_t key) const { return anchor_one(key, A, K, a); }
 };
@@ -194,12 +267,14 @@ __global__ void lookup_kernel(const uint32_t* __restrict__ keys,
   if (i < count) out[i] = body(keys[i]);
 }
 
-template <class Body>
+// The two epochs of a diff may differ in type (packed slots of another
+// width after a snapshot grew the table).
+template <class Old, class New>
 __global__ void diff_kernel(const uint32_t* __restrict__ keys,
                             int32_t* __restrict__ old_out,
                             int32_t* __restrict__ new_out,
                             int32_t* __restrict__ moved, int64_t count,
-                            Body old_body, Body new_body) {
+                            Old old_body, New new_body) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= count) return;
   const uint32_t key = keys[i];
@@ -251,11 +326,11 @@ __global__ void replica_kernel(const uint32_t* __restrict__ keys, int32_t* out,
   if (i < count) replica_row(keys[i], out + i * k, k, body, load, cap);
 }
 
-template <class Body>
+template <class Old, class New>
 __global__ void replica_diff_kernel(const uint32_t* __restrict__ keys, int32_t* old_out,
                                     int32_t* new_out, int32_t* __restrict__ moved,
-                                    int64_t count, int32_t k, Body old_body,
-                                    Body new_body) {
+                                    int64_t count, int32_t k, Old old_body,
+                                    New new_body) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= count) return;
   const uint32_t key = keys[i];
@@ -309,11 +384,11 @@ int launch_lookup(const void* keys, void* out, long long count, Body body,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Body>
+template <class Old, class New>
 int launch_diff(const void* keys, void* old_out, void* new_out, void* moved,
-                long long count, Body old_body, Body new_body, void* stream) {
-  diff_kernel<Body><<<blocks_for(count), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+                long long count, Old old_body, New new_body, void* stream) {
+  diff_kernel<Old, New><<<blocks_for(count), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
       static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count,
       old_body, new_body);
@@ -330,12 +405,12 @@ int launch_replica(const void* keys, void* out, long long count, int k, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class Body>
+template <class Old, class New>
 int launch_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
-                        long long count, int k, Body old_body, Body new_body,
+                        long long count, int k, Old old_body, New new_body,
                         void* stream) {
-  replica_diff_kernel<Body><<<blocks_for(count), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  replica_diff_kernel<Old, New><<<blocks_for(count), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
       static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count, k,
       old_body, new_body);
@@ -355,14 +430,40 @@ int launch_walk(const void* chain, const void* probe, const void* pending, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-Memento memento(const void* repl, int n) {
-  return {static_cast<const int32_t*>(repl), n};
+MementoT<DenseRepl> memento(const void* repl, int n) {
+  return {{static_cast<const int32_t*>(repl)}, n};
 }
-Anchor anchor(const void* A, const void* K, int a) {
-  return {static_cast<const int32_t*>(A), static_cast<const int32_t*>(K), a};
+template <class T>
+MementoT<PackedRepl<T>> memento_packed(const void* state, const void* slot_b,
+                                       const void* slot_c, int nslots, int n) {
+  return {{static_cast<const uint32_t*>(state), static_cast<const T*>(slot_b),
+           static_cast<const T*>(slot_c), static_cast<uint32_t>(nslots) - 1u},
+          n};
+}
+MementoT<CompactRepl> memento_compact(const void* slot_b, const void* slot_c, int nslots,
+                                      int n) {
+  return {{static_cast<const int32_t*>(slot_b), static_cast<const int32_t*>(slot_c),
+           static_cast<uint32_t>(nslots) - 1u},
+          n};
+}
+template <class T = int32_t>
+AnchorT<T> anchor(const void* A, const void* K, int a) {
+  return {static_cast<const T*>(A), static_cast<const T*>(K), a};
 }
 Dx dx(const void* words, int a, int max_probes, int fallback) {
   return {static_cast<const uint32_t*>(words), a, max_probes, fallback};
+}
+
+// Calls f with a value of the signed integer type `width` bytes wide: the
+// element type of a packed table.
+template <class F>
+int with_width(int width, F&& f) {
+  switch (width) {
+    case 1: return f(int8_t{0});
+    case 2: return f(int16_t{0});
+    case 4: return f(int32_t{0});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -378,6 +479,10 @@ Dx dx(const void* words, int a, int max_probes, int fallback) {
 //   replica_diff  keys -> old, new int32 [count, k], moved [count]; k
 //   walk          chain uint32, probe int32, pending uint8 [count] -> b,
 //                 chain, probe [count]; load, cap, max_probe
+// A packed Memento epoch is state (uint32 words), slot_b, slot_c, the
+// slots' width in bytes, the slot count (a power of two) and n; a packed
+// AnchorHash epoch A, K, their width and a; a compact epoch slot_b, slot_c
+// (int32), the slot count and n.
 extern "C" {
 
 int memento_lookup(const void* keys, void* out, long long count,
@@ -537,6 +642,131 @@ int power_walk(const void* chain, const void* probe, const void* pending, void* 
                int cap, int max_probe, int n, void* stream) {
   return launch_walk(chain, probe, pending, b, chain_out, probe_out, count, load, cap,
                      max_probe, Power{n}, stream);
+}
+
+int memento_packed_lookup(const void* keys, void* out, long long count, const void* state,
+                          const void* slot_b, const void* slot_c, int width, int nslots,
+                          int n, void* stream) {
+  return with_width(width, [&](auto t) {
+    return launch_lookup(keys, out, count,
+                         memento_packed<decltype(t)>(state, slot_b, slot_c, nslots, n),
+                         stream);
+  });
+}
+
+int memento_packed_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                        long long count, const void* state_old, const void* slot_b_old,
+                        const void* slot_c_old, int width_old, int nslots_old, int n_old,
+                        const void* state_new, const void* slot_b_new,
+                        const void* slot_c_new, int width_new, int nslots_new, int n_new,
+                        void* stream) {
+  return with_width(width_old, [&](auto to) {
+    return with_width(width_new, [&](auto tn) {
+      return launch_diff(
+          keys, old_out, new_out, moved, count,
+          memento_packed<decltype(to)>(state_old, slot_b_old, slot_c_old, nslots_old, n_old),
+          memento_packed<decltype(tn)>(state_new, slot_b_new, slot_c_new, nslots_new, n_new),
+          stream);
+    });
+  });
+}
+
+int memento_packed_replica(const void* keys, void* out, long long count, int k,
+                           const void* load, int cap, const void* state, const void* slot_b,
+                           const void* slot_c, int width, int nslots, int n, void* stream) {
+  return with_width(width, [&](auto t) {
+    return launch_replica(keys, out, count, k, load, cap,
+                          memento_packed<decltype(t)>(state, slot_b, slot_c, nslots, n),
+                          stream);
+  });
+}
+
+int memento_packed_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                                long long count, int k, const void* state_old,
+                                const void* slot_b_old, const void* slot_c_old,
+                                int width_old, int nslots_old, int n_old,
+                                const void* state_new, const void* slot_b_new,
+                                const void* slot_c_new, int width_new, int nslots_new,
+                                int n_new, void* stream) {
+  return with_width(width_old, [&](auto to) {
+    return with_width(width_new, [&](auto tn) {
+      return launch_replica_diff(
+          keys, old_out, new_out, moved, count, k,
+          memento_packed<decltype(to)>(state_old, slot_b_old, slot_c_old, nslots_old, n_old),
+          memento_packed<decltype(tn)>(state_new, slot_b_new, slot_c_new, nslots_new, n_new),
+          stream);
+    });
+  });
+}
+
+int memento_packed_walk(const void* chain, const void* probe, const void* pending, void* b,
+                        void* chain_out, void* probe_out, long long count, const void* load,
+                        int cap, int max_probe, const void* state, const void* slot_b,
+                        const void* slot_c, int width, int nslots, int n, void* stream) {
+  return with_width(width, [&](auto t) {
+    return launch_walk(chain, probe, pending, b, chain_out, probe_out, count, load, cap,
+                       max_probe,
+                       memento_packed<decltype(t)>(state, slot_b, slot_c, nslots, n),
+                       stream);
+  });
+}
+
+int anchor_packed_lookup(const void* keys, void* out, long long count, const void* A,
+                         const void* K, int width, int a, void* stream) {
+  return with_width(width, [&](auto t) {
+    return launch_lookup(keys, out, count, anchor<decltype(t)>(A, K, a), stream);
+  });
+}
+
+int anchor_packed_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                       long long count, const void* A_old, const void* K_old, int width_old,
+                       int a_old, const void* A_new, const void* K_new, int width_new,
+                       int a_new, void* stream) {
+  return with_width(width_old, [&](auto to) {
+    return with_width(width_new, [&](auto tn) {
+      return launch_diff(keys, old_out, new_out, moved, count,
+                         anchor<decltype(to)>(A_old, K_old, a_old),
+                         anchor<decltype(tn)>(A_new, K_new, a_new), stream);
+    });
+  });
+}
+
+int anchor_packed_replica(const void* keys, void* out, long long count, int k,
+                          const void* load, int cap, const void* A, const void* K, int width,
+                          int a, void* stream) {
+  return with_width(width, [&](auto t) {
+    return launch_replica(keys, out, count, k, load, cap, anchor<decltype(t)>(A, K, a),
+                          stream);
+  });
+}
+
+int anchor_packed_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                               long long count, int k, const void* A_old, const void* K_old,
+                               int width_old, int a_old, const void* A_new,
+                               const void* K_new, int width_new, int a_new, void* stream) {
+  return with_width(width_old, [&](auto to) {
+    return with_width(width_new, [&](auto tn) {
+      return launch_replica_diff(keys, old_out, new_out, moved, count, k,
+                                 anchor<decltype(to)>(A_old, K_old, a_old),
+                                 anchor<decltype(tn)>(A_new, K_new, a_new), stream);
+    });
+  });
+}
+
+int anchor_packed_walk(const void* chain, const void* probe, const void* pending, void* b,
+                       void* chain_out, void* probe_out, long long count, const void* load,
+                       int cap, int max_probe, const void* A, const void* K, int width, int a,
+                       void* stream) {
+  return with_width(width, [&](auto t) {
+    return launch_walk(chain, probe, pending, b, chain_out, probe_out, count, load, cap,
+                       max_probe, anchor<decltype(t)>(A, K, a), stream);
+  });
+}
+
+int memento_compact_lookup(const void* keys, void* out, long long count,
+                           const void* slot_b, const void* slot_c, int nslots, int n,
+                           void* stream) {
+  return launch_lookup(keys, out, count, memento_compact(slot_b, slot_c, nslots, n), stream);
 }
 
 const char* error_string(int code) {

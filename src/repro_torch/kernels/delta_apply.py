@@ -7,12 +7,15 @@ table.  Out of place on purpose: the image store double-buffers epochs,
 so the epoch-N table must stay intact (and keep serving lookups) while
 epoch N+1 is materialized.
 
-The kernel (``csrc/delta_apply.cu``, :func:`delta_apply`) replaces the
-reference's Pallas kernel ``_apply_scatter_i32``: a device-to-device copy,
-then one thread per update.  Its plain torch version is
-:func:`delta_apply_plain`.  The Pallas loop applies updates in order, so
-the last write wins on a duplicate index; :func:`scatter_update` keeps
-that rule by deduplicating keep-last on the host before either runs.
+The kernels (``csrc/delta_apply.cu``, :func:`delta_apply`) replace the
+reference's Pallas kernel ``_apply_scatter_i32`` and, for the int16 and
+int8 tables of packed images, its functional scatter: a device-to-device
+copy, then one thread per update, one entry per element width
+(``delta_apply``, ``delta_apply_int16``, ``delta_apply_int8``).  Their
+plain torch version is :func:`delta_apply_plain` (an ``index_put`` into a
+copy).  The Pallas loop applies updates in order, so the last write wins
+on a duplicate index; :func:`scatter_update` keeps that rule by
+deduplicating keep-last on the host before either runs.
 """
 from __future__ import annotations
 
@@ -23,12 +26,17 @@ import torch
 
 from . import build
 
-#: kernel launches since the last reset (set the value to 0)
-LAUNCHES: dict[str, int] = {"delta_apply": 0}
+#: the kernel of each table element type
+KERNELS = {torch.int32: "delta_apply", torch.int16: "delta_apply_int16",
+           torch.int8: "delta_apply_int8"}
+
+#: kernel launches since the last reset (set the values to 0)
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS.values()}
 
 _SIGNATURES = {
-    "delta_apply": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    name: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+           ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for name in KERNELS.values()
 }
 
 
@@ -76,23 +84,23 @@ def dedup_last(idx, vals) -> tuple[np.ndarray, np.ndarray]:
 
 def delta_apply_plain(table: torch.Tensor, meta: torch.Tensor,
                       count: int) -> torch.Tensor:
-    """Plain version of the ``delta_apply`` kernel: a copy of the int32
-    ``table`` with ``meta = [idx ×P, val ×P]``'s first ``count`` pairs
-    written in; indices outside the table never write."""
+    """Plain version of the ``delta_apply`` kernels: a copy of ``table``
+    with ``meta = [idx ×P, val ×P]``'s first ``count`` pairs written in,
+    values narrowed to the table's dtype; indices outside the table never
+    write."""
     pad = meta.numel() // 2
     idx = meta[:count].to(torch.int64)
-    vals = meta[pad:pad + count]
+    vals = meta[pad:pad + count].to(table.dtype)
     ok = (idx >= 0) & (idx < table.numel())
-    out = table.clone()
-    out[idx[ok]] = vals[ok]
-    return out
+    return table.index_put((idx[ok],), vals[ok])
 
 
 def delta_apply(table: torch.Tensor, meta: torch.Tensor, count: int) -> torch.Tensor:
-    """The ``delta_apply`` kernel on CUDA tensors (the plain version on CPU
-    tensors).  The indices among ``meta``'s first ``count`` must be unique."""
-    if table.dtype != torch.int32 or table.dim() != 1 or not table.is_contiguous():
-        raise ValueError("table must be a contiguous 1-D int32 tensor")
+    """The ``delta_apply`` kernel of the table's element type (int32,
+    int16 or int8) on CUDA tensors (the plain version on CPU tensors).
+    The indices among ``meta``'s first ``count`` must be unique."""
+    if table.dtype not in KERNELS or table.dim() != 1 or not table.is_contiguous():
+        raise ValueError("table must be a contiguous 1-D int32, int16 or int8 tensor")
     if (meta.dtype != torch.int32 or meta.dim() != 1 or meta.numel() % 2
             or not meta.is_contiguous()):
         raise ValueError("meta must be a contiguous 1-D int32 [idx ×P, val ×P] tensor")
@@ -104,14 +112,15 @@ def delta_apply(table: torch.Tensor, meta: torch.Tensor, count: int) -> torch.Te
         return delta_apply_plain(table, meta, count)
     if table.device.type != "cuda":
         raise ValueError(f"no kernel for device {table.device}")
+    name = KERNELS[table.dtype]
     out = torch.empty_like(table)
     lib = build.load("delta_apply", _SIGNATURES)
     with torch.cuda.device(table.device):
-        rc = lib.delta_apply(table.data_ptr(), out.data_ptr(), table.numel(),
-                             meta.data_ptr(), meta.numel() // 2,
-                             count, torch.cuda.current_stream().cuda_stream)
-    build.check(lib, rc, "delta_apply")
-    LAUNCHES["delta_apply"] += 1
+        rc = getattr(lib, name)(table.data_ptr(), out.data_ptr(), table.numel(),
+                                meta.data_ptr(), meta.numel() // 2,
+                                count, torch.cuda.current_stream().cuda_stream)
+    build.check(lib, rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -119,17 +128,18 @@ def scatter_update(table: torch.Tensor, idx, vals) -> torch.Tensor:
     """Out-of-place ``table[idx] = vals`` → new tensor on the table's
     device, applied in order (last write wins).  The input is preserved:
     the caller keeps it as the previous-epoch half of its double buffer.
-    int32 and uint32 tables only (narrow dtypes are the packed layout,
-    ``ROADMAP.md`` Queue 2, K1b)."""
-    if table.dtype not in (torch.int32, torch.uint32):
-        raise NotImplementedError(
-            f"{table.dtype} tables are the packed layout: ROADMAP.md Queue 2, K1b")
+    32-bit tables (uint32 words as int32 bit patterns) and the int16 and
+    int8 tables of packed images; values are given as their int32 bit
+    patterns (numpy uint32 words ≥ 2**31 included)."""
+    if table.dtype not in (torch.int32, torch.uint32, torch.int16, torch.int8):
+        raise ValueError(f"no scatter for {table.dtype} tables")
     idx, vals = dedup_last(idx, vals)
     pidx, pval, k = _pad_updates(idx, vals, sentinel=-1)
     # the whole delta rides one host→device copy
     meta = torch.from_numpy(np.concatenate([pidx, pval])).to(table.device)
-    out = delta_apply(table.view(torch.int32), meta, k)
-    return out.view(table.dtype)
+    if table.element_size() == 4:
+        return delta_apply(table.view(torch.int32), meta, k).view(table.dtype)
+    return delta_apply(table, meta, k)
 
 
 def apply_updates(arrays: dict, updates: dict) -> dict:

@@ -3,8 +3,8 @@ bounded-load walks and epoch diffs of every algorithm on the device.
 
 The reference runs every lookup-shaped operation as one configuration of
 one Pallas kernel (``src/repro/kernels/engine.py``, :class:`EngineOp`).
-This port serves every configuration over the dense tables, for all five
-algorithms, each as a CUDA kernel in ``csrc/engine.cu``:
+This port serves every configuration, for all five algorithms and every
+table layout, each as a CUDA kernel in ``csrc/engine.cu``:
 
   =========================================== ===========================
   configuration                               kernel
@@ -29,8 +29,15 @@ algorithms, each as a CUDA kernel in ``csrc/engine.cu``:
                                               :func:`bounded_assign`
   =========================================== ===========================
 
-Packed and compact tables raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that holds them (K1b, K1g).
+Table layouts (``EngineOp.table``): ``"dense"``; ``"packed"``, the layout
+of a ``packed=True`` image (:mod:`repro_torch.core.packing`), served in
+every mode: Memento's bitmap and open-addressing slots by
+``memento_packed_{mode}``, AnchorHash's narrowed A/K by
+``anchor_packed_{mode}`` (both with a ``width`` argument of 1, 2 or 4
+bytes), and DxHash, JumpHash and PowerHash, whose packed layout is their
+dense one, by their dense kernels; and ``"compact"``, Memento's Θ(r)
+open-addressing table built per call from a dense image, served by
+``memento_compact_lookup`` (k = 1 lookups only).
 
 Each kernel has a plain torch version beside it (:func:`lookup_plain`,
 :func:`diff_plain`, :func:`replica_plain`, :func:`replica_diff_plain`,
@@ -48,7 +55,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.bounded import accept_in_index_order, walk_probe_bound
-from repro_torch.core.hashing import MASK32
+from repro_torch.core.hashing import GOLDEN32, MASK32
+from repro_torch.core.packing import EMPTY, PACKED_LAYOUT, build_slots
 from repro_torch.core.protocol import (ALGORITHM_REGISTRY, ALGORITHMS,
                                       IMAGE_LAYOUT, REPLICA_SALT_CAP,
                                       image_scalar_vec, required_lengths,
@@ -67,28 +75,68 @@ _MODES = {
     "walk": (6, [ctypes.c_void_p, ctypes.c_int, ctypes.c_int], 1),  # load, cap, max_probe
 }
 
-#: kernel launches per kernel since the last reset (set the values to 0)
-LAUNCHES: dict[str, int] = {f"{algo}_{mode}": 0 for algo in ALGORITHMS for mode in _MODES}
+#: algorithms whose packed tables differ from their dense ones, so their
+#: packed images run kernels of their own (``{algo}_packed_{mode}``)
+PACKED_KERNELS = ("memento", "anchor")
 
-_P, _N = ctypes.c_void_p, ctypes.c_longlong
+#: every kernel: its C entry → (algo, mode, table layout)
+KERNELS: dict[str, tuple[str, str, str]] = {
+    **{f"{a}_{m}": (a, m, "dense") for a in ALGORITHMS for m in _MODES},
+    **{f"{a}_packed_{m}": (a, m, "packed") for a in PACKED_KERNELS for m in _MODES},
+    "memento_compact_lookup": ("memento", "lookup", "compact"),
+}
+
+#: kernel launches per kernel since the last reset (set the values to 0)
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+
+_P, _N, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 #: the walk's probe bound 64·L + 64 stays below 2**31 for loads shorter
 #: than this
 MAX_WALK_LOAD = 2**25
 
+#: element types of narrowed tables (packed slots, packed A/K)
+_NARROW = (torch.int8, torch.int16, torch.int32)
 
-def _signature(algo: str, mode: str) -> list:
+
+def table_names(algo: str, table: str = "dense") -> tuple[str, ...]:
+    """An epoch's kernel tables in operand order, for a table layout."""
+    if table == "compact":
+        return ("slot_b", "slot_c")
+    return (PACKED_LAYOUT if table == "packed" else IMAGE_LAYOUT)[algo][1]
+
+
+def kernel_name(algo: str, mode: str, table: str = "dense") -> str:
+    """The C entry serving ``algo`` in ``mode`` over a table layout."""
+    if table == "compact":
+        return f"memento_compact_{mode}"
+    if table == "packed" and algo in PACKED_KERNELS:
+        return f"{algo}_packed_{mode}"
+    return f"{algo}_{mode}"
+
+
+def _layout_ints(algo: str, table: str) -> tuple[str, ...]:
+    """The ints that follow an epoch's table pointers before its scalars:
+    the slot count of a compact table; the element width in bytes and the
+    slot count of packed Memento slots; the width of packed A/K."""
+    if table == "compact":
+        return ("nslots",)
+    if table == "packed" and algo in PACKED_KERNELS:
+        return ("width", "nslots") if algo == "memento" else ("width",)
+    return ()
+
+
+def _signature(algo: str, mode: str, table: str) -> list:
     """The C entry's argtypes: the tensors, the count, the mode's own
-    arguments, then each epoch's tables and scalars in registry order,
-    then the stream."""
-    info = ALGORITHM_REGISTRY[algo]
-    epoch = [_P] * len(info.tables) + [ctypes.c_int] * len(info.scalars)
+    arguments, then each epoch's table pointers, layout ints and scalars
+    in registry order, then the stream."""
+    epoch = ([_P] * len(table_names(algo, table)) + [_I] * len(_layout_ints(algo, table))
+             + [_I] * len(ALGORITHM_REGISTRY[algo].scalars))
     ptrs, extra, epochs = _MODES[mode]
     return [_P] * ptrs + [_N] + extra + epoch * epochs + [_P]
 
 
-_SIGNATURES = {f"{algo}_{mode}": _signature(algo, mode)
-               for algo in ALGORITHMS for mode in _MODES}
+_SIGNATURES = {name: _signature(*entry) for name, entry in KERNELS.items()}
 
 
 @dataclass(frozen=True)
@@ -100,11 +148,10 @@ class EngineOp:
     * ``k``       — replica slots per key,
     * ``bounded`` — lookup mode: skip buckets at or above a load cap,
     * ``diff``    — lookup mode: run under two epoch images at once,
-    * ``table``   — "dense", "compact" (Memento only) or "packed".
+    * ``table``   — "dense", "packed" (a ``packed=True`` image; any
+      algorithm, any mode) or "compact" (Memento only, lookup mode).
 
-    A configuration the reference rejects raises ``ValueError``; packed
-    and compact tables, which this port does not serve yet, raise
-    ``NotImplementedError``.
+    A configuration the reference rejects raises ``ValueError``.
     """
 
     algo: str
@@ -129,9 +176,10 @@ class EngineOp:
             raise ValueError("compact tables are Memento-only")
         if self.table == "compact" and (self.diff or self.mode == "walk"):
             raise ValueError("compact tables serve lookup mode only")
-        if self.table != "dense":
-            raise NotImplementedError(
-                f"{self.table} tables: ROADMAP.md Queue 2, K1b/K1g")
+
+    @property
+    def table_names(self) -> tuple[str, ...]:
+        return table_names(self.algo, self.table)
 
 
 # ---------------------------------------------------------------------------
@@ -141,30 +189,36 @@ class EngineOp:
 # chip_smoke.py's bounds read).
 # ---------------------------------------------------------------------------
 
+def _count(work: dict | None, name: str, lanes) -> None:
+    if work is not None:
+        work[name] = work.get(name, 0) + int(lanes)
+
+
 def memento_body(keys: torch.Tensor, read, n: int,
                  work: dict | None = None) -> torch.Tensor:
     """Paper Alg. 4 over a table reader ``read(idx) -> repl[idx]`` (−1 =
-    working).  ``work`` gains ``"step"`` (jump32 steps), ``"outer"``
-    (Alg. 4 iterations) and ``"read"`` (chain reads)."""
+    working).  Lanes are evaluated only while they walk, so ``read`` sees
+    the reads the kernel makes.  ``work`` gains ``"step"`` (jump32
+    steps), ``"outer"`` (Alg. 4 iterations) and ``"read"`` (chain
+    reads)."""
     b = jump32(keys, n, work)
     c = read(b)
-    active = c >= 0
-    while bool(active.any()):
-        wb = torch.where(active, c, 1).clamp_min(1)  # a valid image never holds 0
-        d = hash2(keys, b) % wb
+    act = torch.nonzero(c >= 0).reshape(-1)
+    wb = c[act].clamp_min(1)  # a valid image never holds 0
+    while act.numel():
+        _count(work, "outer", act.numel())
+        d = hash2(keys[act], b[act]) % wb
         u = read(d)
-        follow = active & (u >= wb)  # follow only while u ≥ w_b
-        if work is not None:
-            work["outer"] = work.get("outer", 0) + int(active.sum())
-        while bool(follow.any()):
-            if work is not None:
-                work["read"] = work.get("read", 0) + int(follow.sum())
-            d = torch.where(follow, u, d)
-            u = read(d)
-            follow = active & (u >= wb)
-        b = torch.where(active, d, b)
-        c = read(b)
-        active = c >= 0
+        follow = torch.nonzero(u >= wb).reshape(-1)  # follow only while u ≥ w_b
+        while follow.numel():
+            _count(work, "read", follow.numel())
+            d[follow] = u[follow]
+            u[follow] = read(d[follow])
+            follow = follow[u[follow] >= wb[follow]]
+        b[act] = d
+        c = read(d)
+        keep = c >= 0
+        act, wb = act[keep], c[keep].clamp_min(1)
     return b
 
 
@@ -172,6 +226,59 @@ def dense_body(keys: torch.Tensor, repl: torch.Tensor, n: int,
                work: dict | None = None) -> torch.Tensor:
     """Memento over the dense repl table."""
     return memento_body(keys, lambda idx: gather1d(repl, idx), n, work)
+
+
+def _probe(idx: torch.Tensor, lanes: torch.Tensor, slot_b: torch.Tensor,
+           slot_c: torch.Tensor, stop, work: dict | None) -> torch.Tensor:
+    """``repl[idx]`` read from an open-addressing table for the ``lanes``
+    of ``idx`` (−1, working, for every other lane): linear probing from
+    ``fmix32(idx·GOLDEN32 + 5) & mask`` until ``slot_b`` holds idx (→
+    ``slot_c``) or ``stop(slot_b)``, at most ``len(slot_b)`` slots (a
+    valid image has an empty slot long before).  Slot words of any width
+    widen at the gather.  ``work`` gains ``"start"`` (probes started) and
+    ``"slot"`` (slots read)."""
+    val = torch.full_like(idx, -1)
+    mask = slot_b.numel() - 1
+    want = idx[lanes]
+    pos = fmix32(want * GOLDEN32 + 5) & mask
+    _count(work, "start", lanes.numel())
+    for _ in range(slot_b.numel()):
+        if not lanes.numel():
+            break
+        _count(work, "slot", lanes.numel())
+        sb = gather1d(slot_b, pos)
+        hit = sb == want
+        val[lanes[hit]] = gather1d(slot_c, pos[hit])
+        go = ~(hit | stop(sb))
+        lanes, want, pos = lanes[go], want[go], (pos[go] + 1) & mask
+    return val
+
+
+def compact_reader(slot_b: torch.Tensor, slot_c: torch.Tensor,
+                   work: dict | None = None):
+    """``read(idx)`` over the Θ(r) open-addressing table: every read
+    probes, and any negative slot ends the probe (K1g)."""
+    def read(idx):
+        lanes = torch.arange(idx.numel(), device=idx.device)
+        return _probe(idx, lanes, slot_b, slot_c, lambda sb: sb < 0, work)
+
+    return read
+
+
+def packed_reader(state: torch.Tensor, slot_b: torch.Tensor, slot_c: torch.Tensor,
+                  work: dict | None = None):
+    """``read(idx)`` over the packed Memento image (K1b): a set bit of the
+    ``state`` bitmap (int32 bit patterns of uint32 words) means working,
+    with no probe; a removed bucket probes the slots and stops only on
+    EMPTY, so the TOMBSTONEs that restores leave keep a chain going.
+    ``work`` gains ``"bit"`` (bitmap words read)."""
+    def read(idx):
+        _count(work, "bit", idx.numel())
+        word = gather1d(state, idx >> 5) & MASK32
+        lanes = torch.nonzero(((word >> (idx & 31)) & 1) == 0).reshape(-1)
+        return _probe(idx, lanes, slot_b, slot_c, lambda sb: sb == EMPTY, work)
+
+    return read
 
 
 def anchor_body(keys: torch.Tensor, A: torch.Tensor, K: torch.Tensor, a: int,
@@ -229,24 +336,33 @@ _BODIES = {
 }
 
 
+def _body(algo: str, table: str = "dense"):
+    """The plain body of ``algo`` over a table layout.  Packed AnchorHash
+    needs no body of its own: ``gather1d`` widens narrowed A/K."""
+    if algo == "memento" and table == "packed":
+        return lambda k, t, s, w: memento_body(k, packed_reader(t[0], t[1], t[2], w), s[0], w)
+    if algo == "memento" and table == "compact":
+        return lambda k, t, s, w: memento_body(k, compact_reader(t[0], t[1], w), s[0], w)
+    return _BODIES[algo]
+
+
 def lookup_plain(algo: str, keys: torch.Tensor, tables, scalars,
-                 work: dict | None = None) -> torch.Tensor:
-    """Plain version of the ``{algo}_lookup`` kernel: int32 keys (uint32
-    bit patterns) → int32 buckets, on the keys' device."""
-    return _BODIES[algo](as_u32(keys), list(tables), list(scalars), work).to(torch.int32)
+                 work: dict | None = None, *, table: str = "dense") -> torch.Tensor:
+    """Plain version of the ``{algo}_lookup`` kernel (of
+    ``kernel_name(algo, "lookup", table)``): int32 keys (uint32 bit
+    patterns) → int32 buckets, on the keys' device."""
+    return _body(algo, table)(as_u32(keys), list(tables), list(scalars),
+                              work).to(torch.int32)
 
 
-def diff_plain(algo: str, keys: torch.Tensor, old, new):
+def diff_plain(algo: str, keys: torch.Tensor, old, new, work: dict | None = None, *,
+               table: str = "dense"):
     """Plain version of the ``{algo}_diff`` kernel: ``old``/``new`` are
-    ``(tables, scalars)`` of the two epochs → (old, new, moved)."""
-    o = lookup_plain(algo, keys, *old)
-    n = lookup_plain(algo, keys, *new)
+    ``(tables, scalars)`` of the two epochs → (old, new, moved).  ``work``
+    counts both lookups."""
+    o = lookup_plain(algo, keys, *old, work, table=table)
+    n = lookup_plain(algo, keys, *new, work, table=table)
     return o, n, o != n
-
-
-def _count(work: dict | None, name: str, lanes) -> None:
-    if work is not None:
-        work[name] = work.get(name, 0) + int(lanes)
 
 
 def replica_body(keys: torch.Tensor, k: int, single_lookup, load=None, cap=None,
@@ -331,34 +447,34 @@ def _as_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def replica_plain(algo: str, keys: torch.Tensor, k: int, tables, scalars, load=None,
-                  cap=None, work: dict | None = None) -> torch.Tensor:
+                  cap=None, work: dict | None = None, *, table: str = "dense") -> torch.Tensor:
     """Plain version of the ``{algo}_replica`` kernel: int32 keys → int32
     replica sets [K, k], column 0 the plain lookup (unbounded)."""
-    tables, scalars = list(tables), list(scalars)
-    outs = replica_body(as_u32(keys), k,
-                        lambda kk: _BODIES[algo](kk, tables, scalars, work),
+    tables, scalars, body = list(tables), list(scalars), _body(algo, table)
+    outs = replica_body(as_u32(keys), k, lambda kk: body(kk, tables, scalars, work),
                         load, cap, work)
     return torch.stack(outs, dim=1).to(torch.int32)
 
 
-def replica_diff_plain(algo: str, keys: torch.Tensor, k: int, old, new):
+def replica_diff_plain(algo: str, keys: torch.Tensor, k: int, old, new,
+                       work: dict | None = None, *, table: str = "dense"):
     """Plain version of the ``{algo}_replica_diff`` kernel: replica sets
     under the epochs ``old`` and ``new`` (each ``(tables, scalars)``) →
-    (old [K, k], new [K, k], moved: any slot differs)."""
-    o = replica_plain(algo, keys, k, *old)
-    n = replica_plain(algo, keys, k, *new)
+    (old [K, k], new [K, k], moved: any slot differs).  ``work`` counts
+    both epochs."""
+    o = replica_plain(algo, keys, k, *old, work=work, table=table)
+    n = replica_plain(algo, keys, k, *new, work=work, table=table)
     return o, n, (o != n).any(dim=1)
 
 
 def walk_plain(algo: str, chain: torch.Tensor, probe: torch.Tensor,
                pending: torch.Tensor, tables, scalars, load: torch.Tensor, cap: int,
-               work: dict | None = None):
+               work: dict | None = None, *, table: str = "dense"):
     """Plain version of the ``{algo}_walk`` kernel: int32 chain (uint32
     bit patterns), int32 probe, bool pending → int32 (b, chain, probe)."""
-    tables, scalars = list(tables), list(scalars)
+    tables, scalars, body = list(tables), list(scalars), _body(algo, table)
     b, ch, pr = chain_walk_body(as_u32(chain), probe.to(torch.int64), pending, load,
-                                cap, lambda kk: _BODIES[algo](kk, tables, scalars, work),
-                                work)
+                                cap, lambda kk: body(kk, tables, scalars, work), work)
     return b.to(torch.int32), _as_i32(ch), pr.to(torch.int32)
 
 
@@ -390,62 +506,112 @@ def _check_vector(t: torch.Tensor, like: torch.Tensor, dtype, what: str,
         raise ValueError(f"{what} has {t.numel()} elements, not {length}")
 
 
-def _check_operands(algo: str, keys: torch.Tensor, epochs) -> None:
-    """Raise on what the kernels do not take: keys must be contiguous 1-D
-    int32; each epoch's tables contiguous 1-D int32 on the keys' device
-    and long enough for its ``n``; scalars in range."""
-    if keys.dtype != torch.int32 or keys.dim() != 1 or not keys.is_contiguous():
-        raise ValueError("keys must be a contiguous 1-D int32 tensor")
-    if keys.numel() >= 2**31:
-        raise ValueError("at most 2**31 - 1 keys per launch")
-    names = ALGORITHM_REGISTRY[algo].tables
-    for tables, scalars in epochs:
-        n = scalars[0]
-        if not 1 <= n < 2**31:
-            raise ValueError(f"n={n} outside [1, 2**31)")
-        if len(tables) != len(names) or len(scalars) != len(ALGORITHM_REGISTRY[algo].scalars):
-            raise ValueError(f"{algo} takes tables {names} and scalars "
-                             f"{ALGORITHM_REGISTRY[algo].scalars}")
+def _check_layout(algo: str, table: str, keys: torch.Tensor, tables, n: int) -> None:
+    """Raise unless an epoch's tables are what the layout's kernel reads:
+    int32 dense tables long enough for ``n``; compact slots int32 and
+    packed slots int8/int16/int32, a power of two in length, the two of
+    one dtype and length, behind a ``state`` bitmap of at least ⌈n/32⌉
+    int32 words; packed A/K of one dtype, int8/int16/int32, at least
+    ``n`` long."""
+    names = table_names(algo, table)
+    if table == "dense" or (table == "packed" and algo not in PACKED_KERNELS):
         need = required_lengths(algo, n)
         for name, t in zip(names, tables):
             _check_vector(t, keys, torch.int32, name)
             if t.numel() < need[name]:
                 raise ValueError(f"n={n} needs {name} of {need[name]} words, "
                                  f"not {t.numel()}")
+        return
+    if table == "packed" and algo == "memento":
+        _check_vector(tables[0], keys, torch.int32, "state")
+        if tables[0].numel() < -(-n // 32):
+            raise ValueError(f"n={n} needs {-(-n // 32)} state words, "
+                             f"not {tables[0].numel()}")
+        tables = tables[1:]
+    dtype = tables[0].dtype
+    if dtype not in ((torch.int32,) if table == "compact" else _NARROW):
+        raise ValueError(f"{names[-1]} of {dtype}: the {table} layout takes "
+                         f"{'int32' if table == 'compact' else 'int8, int16 or int32'}")
+    for name, t in zip(names[-2:], tables):
+        _check_vector(t, keys, dtype, name, tables[0].numel())
+    count = tables[0].numel()
+    if algo == "anchor" and count < n:
+        raise ValueError(f"n={n} needs A and K of {n} words, not {count}")
+    if algo == "memento" and (count < 1 or count & (count - 1)):
+        raise ValueError(f"{count} slots: not a power of two")
+
+
+def _check_operands(algo: str, keys: torch.Tensor, epochs, table: str = "dense") -> None:
+    """Raise on what the kernels do not take: keys must be contiguous 1-D
+    int32; each epoch's tables contiguous 1-D tensors on the keys' device
+    that the layout's kernel reads (:func:`_check_layout`); scalars in
+    range."""
+    if keys.dtype != torch.int32 or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError("keys must be a contiguous 1-D int32 tensor")
+    if keys.numel() >= 2**31:
+        raise ValueError("at most 2**31 - 1 keys per launch")
+    if table not in ("dense", "packed", "compact") or (
+            table == "compact" and algo != "memento"):
+        raise ValueError(f"no {table!r} table layout for {algo!r}")
+    names = table_names(algo, table)
+    scalar_names = ALGORITHM_REGISTRY[algo].scalars
+    for tables, scalars in epochs:
+        n = scalars[0]
+        if not 1 <= n < 2**31:
+            raise ValueError(f"n={n} outside [1, 2**31)")
+        if len(tables) != len(names) or len(scalars) != len(scalar_names):
+            raise ValueError(f"{algo} ({table}) takes tables {names} and scalars "
+                             f"{scalar_names}")
+        _check_layout(algo, table, keys, tables, n)
         if algo == "dx" and not (scalars[1] >= 0 and 0 <= scalars[2] < n):
             raise ValueError(f"dx scalars max_probes={scalars[1]}, "
                              f"fallback={scalars[2]} out of range")
 
 
-def _load_len(algo: str, tables, n: int) -> int:
+def _load_len(algo: str, tables, n: int, table: str = "dense") -> int:
     """Load words that cover ``algo``'s bucket ids: the length of the
-    bucket-indexed table for Memento and AnchorHash, the 128-padded id
-    space for the others (Dx packs bits, Jump and Power have no table)."""
+    bucket-indexed table for Memento and AnchorHash (32 ids a bitmap word
+    for packed Memento), the 128-padded id space for the others (Dx packs
+    bits, Jump and Power have no table)."""
+    if algo == "memento" and table == "packed":
+        return 32 * int(tables[0].numel())
     if algo in ("memento", "anchor"):
         return int(tables[0].numel())
     return round_up(n)
 
 
 def _check_load(algo: str, keys: torch.Tensor, tables, scalars, load: torch.Tensor,
-                cap) -> None:
+                cap, table: str = "dense") -> None:
     """Raise unless ``load`` is a contiguous 1-D int32 tensor on the keys'
     device covering every bucket id (a short one would be read out of
     bounds on the card) and ``cap`` an int32."""
     _check_vector(load, keys, torch.int32, "load")
-    need = _load_len(algo, tables, scalars[0])
+    need = _load_len(algo, tables, scalars[0], table)
     if load.numel() < need:
         raise ValueError(f"load has {load.numel()} words, the image needs {need}")
     if cap is None or not -2**31 <= int(cap) < 2**31:
         raise ValueError(f"cap={cap} is not an int32")
 
 
-def _launch(name: str, tensors, count: int, mode_args, epochs) -> None:
-    """Launch kernel ``name`` on the stream of the first tensor's device
-    and count it."""
+def _epoch_args(algo: str, table: str, tables, scalars) -> list[int]:
+    """One epoch's kernel arguments: table pointers, the layout's ints
+    (:func:`_layout_ints`, read off the last table: ``slot_c`` or ``K``),
+    then the scalars."""
+    ints = {"width": lambda t: t.element_size(), "nslots": lambda t: t.numel()}
+    return ([t.data_ptr() for t in tables]
+            + [ints[name](tables[-1]) for name in _layout_ints(algo, table)]
+            + [int(s) for s in scalars])
+
+
+def _launch(algo: str, mode: str, table: str, tensors, count: int, mode_args,
+            epochs) -> None:
+    """Launch the kernel of ``algo``/``mode`` over a table layout on the
+    stream of the first tensor's device, and count it."""
+    name = kernel_name(algo, mode, table)
     lib = build.load("engine", _SIGNATURES)
     args = [t.data_ptr() for t in tensors] + [count] + list(mode_args)
     for tables, scalars in epochs:
-        args += [t.data_ptr() for t in tables] + [int(s) for s in scalars]
+        args += _epoch_args(algo, table, tables, scalars)
     with torch.cuda.device(tensors[0].device):
         rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     build.check(lib, rc, name)
@@ -462,30 +628,39 @@ def _on_card(t: torch.Tensor) -> bool:
     return True
 
 
-def kernel_lookup(algo: str, keys: torch.Tensor, tables, scalars) -> torch.Tensor:
+def kernel_lookup(algo: str, keys: torch.Tensor, tables, scalars, *,
+                  table: str = "dense") -> torch.Tensor:
     """Lookup of int32 keys (uint32 bit patterns) → int32 buckets under
-    one epoch's ``tables`` and ``scalars`` (registry order).  CPU tensors
-    take the plain version; CUDA tensors launch ``{algo}_lookup``."""
+    one epoch's ``tables`` (in the layout ``table``) and ``scalars``
+    (registry order).  CPU tensors take the plain version; CUDA tensors
+    launch ``kernel_name(algo, "lookup", table)``."""
     tables, scalars = list(tables), [int(s) for s in scalars]
-    _check_operands(algo, keys, [(tables, scalars)])
+    _check_operands(algo, keys, [(tables, scalars)], table)
     if not _on_card(keys):
-        return lookup_plain(algo, keys, tables, scalars)
+        return lookup_plain(algo, keys, tables, scalars, table=table)
     out = torch.empty_like(keys)
     if keys.numel():
-        _launch(f"{algo}_lookup", [keys, out], keys.numel(), [], [(tables, scalars)])
+        _launch(algo, "lookup", table, [keys, out], keys.numel(), [], [(tables, scalars)])
     return out
 
 
-def kernel_diff(algo: str, keys: torch.Tensor, old, new):
-    """Lookup under two epochs (each ``(tables, scalars)``) in one pass →
-    (old, new, moved bool).  CUDA tensors launch ``{algo}_diff``."""
+def _not_compact(table: str, what: str) -> None:
+    if table == "compact":
+        raise ValueError(f"compact tables serve the k = 1 lookup only, not {what}")
+
+
+def kernel_diff(algo: str, keys: torch.Tensor, old, new, *, table: str = "dense"):
+    """Lookup under two epochs (each ``(tables, scalars)``, one layout) in
+    one pass → (old, new, moved bool).  CUDA tensors launch the layout's
+    ``diff`` kernel."""
+    _not_compact(table, "diffs")
     epochs = [(list(t), [int(s) for s in sc]) for t, sc in (old, new)]
-    _check_operands(algo, keys, epochs)
+    _check_operands(algo, keys, epochs, table)
     if not _on_card(keys):
-        return diff_plain(algo, keys, *epochs)
+        return diff_plain(algo, keys, *epochs, table=table)
     o, n, moved = (torch.empty_like(keys) for _ in range(3))
     if keys.numel():
-        _launch(f"{algo}_diff", [keys, o, n, moved], keys.numel(), [], epochs)
+        _launch(algo, "diff", table, [keys, o, n, moved], keys.numel(), [], epochs)
     return o, n, moved.bool()
 
 
@@ -496,61 +671,71 @@ def _check_k(k: int) -> int:
 
 
 def kernel_replica(algo: str, keys: torch.Tensor, k: int, tables, scalars,
-                   load: torch.Tensor | None = None, cap: int | None = None) -> torch.Tensor:
+                   load: torch.Tensor | None = None, cap: int | None = None, *,
+                   table: str = "dense") -> torch.Tensor:
     """k-replica sets of int32 keys → int32 [K, k] under one epoch; with
     ``load`` (int32 words, bucket-indexed) and ``cap`` every slot, slot 0
-    included, skips buckets with ``load ≥ cap``.  CUDA tensors launch
-    ``{algo}_replica``; a lane that exhausts the salt budget keeps its
-    plain lookup, as in the reference (:func:`engine_lookup` checks)."""
+    included, skips buckets with ``load ≥ cap``.  CUDA tensors launch the
+    layout's ``replica`` kernel; a lane that exhausts the salt budget
+    keeps its plain lookup, as in the reference (:func:`engine_lookup`
+    checks)."""
+    _not_compact(table, "replica sets")
     tables, scalars, k = list(tables), [int(s) for s in scalars], _check_k(k)
-    _check_operands(algo, keys, [(tables, scalars)])
+    _check_operands(algo, keys, [(tables, scalars)], table)
     if load is not None:
-        _check_load(algo, keys, tables, scalars, load, cap)
+        _check_load(algo, keys, tables, scalars, load, cap, table)
     if not _on_card(keys):
-        return replica_plain(algo, keys, k, tables, scalars, load, cap)
+        return replica_plain(algo, keys, k, tables, scalars, load, cap, table=table)
     out = torch.empty((keys.numel(), k), dtype=torch.int32, device=keys.device)
     if keys.numel():
-        _launch(f"{algo}_replica", [keys, out], keys.numel(),
+        _launch(algo, "replica", table, [keys, out], keys.numel(),
                 [k, None if load is None else load.data_ptr(),
                  0 if load is None else int(cap)], [(tables, scalars)])
     return out
 
 
-def kernel_replica_diff(algo: str, keys: torch.Tensor, k: int, old, new):
+def kernel_replica_diff(algo: str, keys: torch.Tensor, k: int, old, new, *,
+                        table: str = "dense"):
     """Unbounded k-replica sets under two epochs (each ``(tables,
-    scalars)``) in one pass → (old [K, k], new [K, k], moved bool [K]).
-    CUDA tensors launch ``{algo}_replica_diff``."""
+    scalars)``, one layout) in one pass → (old [K, k], new [K, k], moved
+    bool [K]).  CUDA tensors launch the layout's ``replica_diff`` kernel."""
+    _not_compact(table, "diffs")
     epochs = [(list(t), [int(s) for s in sc]) for t, sc in (old, new)]
     k = _check_k(k)
-    _check_operands(algo, keys, epochs)
+    _check_operands(algo, keys, epochs, table)
     if not _on_card(keys):
-        return replica_diff_plain(algo, keys, k, *epochs)
+        return replica_diff_plain(algo, keys, k, *epochs, table=table)
     o, n = (torch.empty((keys.numel(), k), dtype=torch.int32, device=keys.device)
             for _ in range(2))
     moved = torch.empty_like(keys)
     if keys.numel():
-        _launch(f"{algo}_replica_diff", [keys, o, n, moved], keys.numel(), [k], epochs)
+        _launch(algo, "replica_diff", table, [keys, o, n, moved], keys.numel(), [k],
+                epochs)
     return o, n, moved.bool()
 
 
 def kernel_walk(algo: str, chain: torch.Tensor, probe: torch.Tensor,
-                pending: torch.Tensor, tables, scalars, load: torch.Tensor, cap: int):
+                pending: torch.Tensor, tables, scalars, load: torch.Tensor, cap: int, *,
+                table: str = "dense"):
     """One chain-walk step of int32 ``chain`` (uint32 bit patterns), int32
     ``probe`` and bool ``pending`` under one epoch and the load cap →
-    int32 (b, chain, probe).  CUDA tensors launch ``{algo}_walk``."""
+    int32 (b, chain, probe).  CUDA tensors launch the layout's ``walk``
+    kernel."""
+    _not_compact(table, "walks")
     tables, scalars = list(tables), [int(s) for s in scalars]
-    _check_operands(algo, chain, [(tables, scalars)])
+    _check_operands(algo, chain, [(tables, scalars)], table)
     _check_vector(probe, chain, torch.int32, "probe", chain.numel())
     _check_vector(pending, chain, torch.bool, "pending", chain.numel())
-    _check_load(algo, chain, tables, scalars, load, cap)
+    _check_load(algo, chain, tables, scalars, load, cap, table)
     if load.numel() >= MAX_WALK_LOAD:
         raise ValueError(f"load of {load.numel()} words: the walk takes fewer "
                          f"than {MAX_WALK_LOAD}")
     if not _on_card(chain):
-        return walk_plain(algo, chain, probe, pending, tables, scalars, load, int(cap))
+        return walk_plain(algo, chain, probe, pending, tables, scalars, load, int(cap),
+                          table=table)
     b, ch, pr = (torch.empty_like(chain) for _ in range(3))
     if chain.numel():
-        _launch(f"{algo}_walk", [chain, probe, pending, b, ch, pr], chain.numel(),
+        _launch(algo, "walk", table, [chain, probe, pending, b, ch, pr], chain.numel(),
                 [load.data_ptr(), int(cap), walk_probe_bound(load.numel())],
                 [(tables, scalars)])
     return b, ch, pr
@@ -565,6 +750,23 @@ def memento_diff(keys: torch.Tensor, repl_old: torch.Tensor, n_old: int,
                  repl_new: torch.Tensor, n_new: int):
     """The ``memento_diff`` kernel (see :func:`kernel_diff`)."""
     return kernel_diff("memento", keys, ([repl_old], [n_old]), ([repl_new], [n_new]))
+
+
+def compact_lookup(keys: torch.Tensor, slot_b: torch.Tensor, slot_c: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """The ``memento_compact_lookup`` kernel: Memento over the Θ(r)
+    open-addressing table of :func:`build_compact_table` (see
+    :func:`kernel_lookup`)."""
+    return kernel_lookup("memento", keys, [slot_b, slot_c], [n], table="compact")
+
+
+def build_compact_table(repl) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense repl table → the open-addressing (slot_b, slot_c) int32
+    tables on its device, built on the host: a power of two ≥ max(2r,
+    128) slots, so the load factor stays ≤ 0.5 and a probe ends on an
+    empty slot (:func:`repro_torch.core.packing.build_slots`)."""
+    device = repl.device if isinstance(repl, torch.Tensor) else torch.device("cpu")
+    return tuple(torch.from_numpy(t).to(device) for t in build_slots(repl))
 
 
 # ---------------------------------------------------------------------------
@@ -584,10 +786,29 @@ def key_tensor(keys, device) -> torch.Tensor:
     return t.reshape(-1).to(device).contiguous()
 
 
-def image_operands(image) -> tuple[list[torch.Tensor], list[int]]:
-    """An image's kernel operands: its tables and scalars in layout order."""
-    return ([image.arrays[name] for name in IMAGE_LAYOUT[image.algo][1]],
-            image_scalar_vec(image))
+def op_table(image, table: str = "dense") -> str:
+    """The table layout an image serves: a ``packed=True`` image always
+    runs the packed kernels; a dense one ``table`` ("dense", or "compact"
+    for Memento's table built per call)."""
+    if image.packed:
+        if table not in ("dense", "packed"):
+            raise ValueError(f"packed image cannot serve table={table!r}")
+        return "packed"
+    if table == "packed":
+        raise ValueError("table='packed' op cannot read a dense image")
+    return table
+
+
+def image_operands(image, table: str = "dense") -> tuple[list[torch.Tensor], list[int]]:
+    """An image's kernel operands in the layout :func:`op_table` picks:
+    its tables (for "compact", built from ``repl``) and scalars in layout
+    order."""
+    table = op_table(image, table)
+    if table == "compact":
+        tables = list(build_compact_table(image.arrays["repl"]))
+    else:
+        tables = [image.arrays[name] for name in table_names(image.algo, table)]
+    return tables, image_scalar_vec(image)
 
 
 def _image_device(images, device) -> torch.device:
@@ -630,24 +851,27 @@ def _check_bounded(out: torch.Tensor, load: torch.Tensor, cap: int, k: int) -> N
 
 
 def engine_lookup(keys, image, *, k: int = 1, load=None, cap: int | None = None,
-                  device=None) -> torch.Tensor:
+                  table: str = "dense", device=None) -> torch.Tensor:
     """The batched lookup: keys [K] → int32 [K] (k = 1) or replica sets
     [K, k] (column 0 the plain lookup), on the image's device (``device``
     for a tableless image).  ``load``/``cap`` make it bounded: every
     returned bucket has ``load < cap``, slot 0 included, and a lane that
-    cannot find k such buckets raises ``RuntimeError``.  Bit-identical to
-    the host ``lookup``/``lookup_k`` of a ``variant="32"`` state."""
+    cannot find k such buckets raises ``RuntimeError``.  A packed image
+    runs its packed kernels; ``table="compact"`` runs a dense Memento
+    image's k = 1 lookup over its Θ(r) table.  Bit-identical to the host
+    ``lookup``/``lookup_k`` of a ``variant="32"`` state."""
     bounded = load is not None
     if bounded and cap is None:
         raise ValueError("bounded lookup needs a cap")
-    EngineOp(algo=image.algo, k=k, bounded=bounded)
+    table = op_table(image, table)
+    EngineOp(algo=image.algo, k=k, bounded=bounded, table=table)
     dev = _image_device([image], device)
     kt = key_tensor(keys, dev)
-    tables, scalars = image_operands(image)
+    tables, scalars = image_operands(image, table)
     if k == 1 and not bounded:
-        return kernel_lookup(image.algo, kt, tables, scalars)
+        return kernel_lookup(image.algo, kt, tables, scalars, table=table)
     load_t = _int32_tensor(load, dev) if bounded else None
-    out = kernel_replica(image.algo, kt, k, tables, scalars, load_t, cap)
+    out = kernel_replica(image.algo, kt, k, tables, scalars, load_t, cap, table=table)
     if bounded:
         _check_bounded(out, load_t, int(cap), k)
     return out.reshape(-1) if k == 1 else out
@@ -675,19 +899,22 @@ class EngineDiff:
 
 
 def engine_diff(keys, old_image, new_image, *, k: int = 1, device=None) -> EngineDiff:
-    """Fused epoch diff: look a key batch up under two images in one
-    launch (both epochs' tables resident); k > 1 diffs whole replica
-    sets."""
+    """Fused epoch diff: look a key batch up under two images of one
+    layout in one launch (both epochs' tables resident); k > 1 diffs
+    whole replica sets."""
     if old_image.algo != new_image.algo:
         raise ValueError("epoch diff requires one algorithm "
                          f"({old_image.algo!r} != {new_image.algo!r})")
-    EngineOp(algo=old_image.algo, k=k, diff=True)
+    if old_image.packed != new_image.packed:
+        raise ValueError("epoch diff needs both images in one layout")
+    table = op_table(old_image)
+    EngineOp(algo=old_image.algo, k=k, diff=True, table=table)
     dev = _image_device([old_image, new_image], device)
     kt = key_tensor(keys, dev)
     old, new = image_operands(old_image), image_operands(new_image)
     if k == 1:
-        return EngineDiff(*kernel_diff(old_image.algo, kt, old, new))
-    return EngineDiff(*kernel_replica_diff(old_image.algo, kt, k, old, new))
+        return EngineDiff(*kernel_diff(old_image.algo, kt, old, new, table=table))
+    return EngineDiff(*kernel_replica_diff(old_image.algo, kt, k, old, new, table=table))
 
 
 def engine_chain_walk(chain, probe, pending, image, load, cap: int, *, device=None):
@@ -696,12 +923,14 @@ def engine_chain_walk(chain, probe, pending, image, load, cap: int, *, device=No
     bucket of its rehash chain with ``load[b] < cap``.  Returns numpy
     ``(b int32, chain uint32, probe int32)``; non-pending lanes come back
     with their chain and probe unchanged."""
-    EngineOp(algo=image.algo, mode="walk")
+    table = op_table(image)
+    EngineOp(algo=image.algo, mode="walk", table=table)
     dev = _image_device([image], device)
     pend = (pending if isinstance(pending, torch.Tensor)
             else torch.from_numpy(np.asarray(pending, dtype=bool)).to(dev))
     b, ch, pr = kernel_walk(image.algo, key_tensor(chain, dev), _int32_tensor(probe, dev),
-                            pend, *image_operands(image), _int32_tensor(load, dev), cap)
+                            pend, *image_operands(image), _int32_tensor(load, dev), cap,
+                            table=table)
     return (b.cpu().numpy(), ch.cpu().numpy().view(np.uint32), pr.cpu().numpy())
 
 
@@ -716,7 +945,8 @@ def bounded_assign(keys, image, load, cap: int, *, device=None, walk=None):
     step (default :func:`kernel_walk`; :func:`walk_plain` runs the same
     loop through the plain version).  Returns ``(assignments int32 [m],
     new_load int32)`` as numpy."""
-    EngineOp(algo=image.algo, mode="walk")
+    table = op_table(image)
+    EngineOp(algo=image.algo, mode="walk", table=table)
     walk = kernel_walk if walk is None else walk
     dev = _image_device([image], device)
     tables, scalars = image_operands(image)
@@ -729,7 +959,8 @@ def bounded_assign(keys, image, load, cap: int, *, device=None, walk=None):
     load = np.asarray(load, dtype=np.int32).copy()
     while pending.any():
         b, chain, probe = walk(image.algo, chain, probe, torch.from_numpy(pending).to(dev),
-                               tables, scalars, torch.from_numpy(load).to(dev), cap)
+                               tables, scalars, torch.from_numpy(load).to(dev), cap,
+                               table=table)
         b = b.cpu().numpy()
         if (load[b[pending]] >= cap).any():  # probe bound exhausted
             raise RuntimeError("no bucket below capacity (infeasible cap: "
@@ -745,7 +976,7 @@ def bounded_load_len(image) -> int:
     """Length of a load-word array covering ``image``'s bucket ids: the
     sizing rule of every bounded operation (the walk and the bounded
     lookup index ``load`` by bucket id)."""
-    return _load_len(image.algo, image_operands(image)[0], image.n)
+    return _load_len(image.algo, image_operands(image)[0], image.n, op_table(image))
 
 
 def bounded_replica_sets(h, keys, k: int, load, cap: int) -> np.ndarray:

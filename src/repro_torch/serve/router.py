@@ -6,9 +6,10 @@ a failed replica remaps only its own sessions, and a restored one takes
 back only the sessions that were its.  Bulk routing runs on the device
 through a :class:`~repro_torch.core.image_store.DeviceImageStore`:
 ``fail_replica``/``restore_replica`` push O(changed-words) epoch deltas,
-and ``route_batch`` is one ``{algo}_lookup`` launch, or, with
-``replicas_k > 1`` and a replica marked failed, one ``{algo}_replica``
-launch whose k-replica sets the failover rule picks from.
+and ``route_batch`` is one lookup launch (``{algo}_lookup``, or
+``{algo}_packed_lookup`` with ``compact_images``), or, with
+``replicas_k > 1`` and a replica marked failed, one replica launch
+whose k-replica sets the failover rule picks from.
 
 Session ids are hashed to uint32 keys on the host, as in the reference.
 Not yet ported: the sharded streaming plane (``ROADMAP.md`` Queue 1,
@@ -49,13 +50,16 @@ class SessionRouter:
     ``device`` defaults to ``"cuda"``; with no GPU the constructor raises
     unless the caller passes ``device="cpu"``.  ``sync_mode="overlap"``
     dispatches membership deltas with ``sync_async()`` and lands the flip
-    at the next batch boundary.
+    at the next batch boundary.  ``compact_images=True`` keeps the packed
+    layout on the device (``DeviceImageStore(compact=True)``: for Memento
+    a bitmap and a Θ(r) slot table instead of the Θ(n) ``repl`` array).
     """
 
     def __init__(self, num_replicas: int, *, algo="memento",
                  capacity: int | None = None, device=None,
                  max_sessions: int = 1_000_000, replicas_k: int = 1,
                  store: DeviceImageStore | None = None,
+                 compact_images: bool = False,
                  sync_mode: str = "block"):
         self.device = resolve_device(device)
         if isinstance(algo, str):
@@ -69,6 +73,7 @@ class SessionRouter:
             raise ValueError(f"unknown sync_mode {sync_mode!r}")
         self.replicas_k = replicas_k
         self.sync_mode = sync_mode
+        self.compact_images = compact_images
         self.stats = RouterStats()
         self.max_sessions = max_sessions
         # session id → last replica, LRU-bounded
@@ -112,7 +117,8 @@ class SessionRouter:
     # -- bulk path (device) ---------------------------------------------------
     def image_store(self) -> DeviceImageStore:
         if self._store is None:
-            self._store = DeviceImageStore(self.ch, device=self.device)
+            self._store = DeviceImageStore(self.ch, device=self.device,
+                                           compact=self.compact_images)
         return self._store
 
     def _failover_pick(self, sets: np.ndarray) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain torch versions
-and the host.  Marked ``cuda``: every test skips without a GPU.  Imports
+"""The port's CUDA kernels on the card (every layout: dense, packed and
+compact), against their plain torch versions and the host.  Marked ``cuda``: every test skips without a GPU.  Imports
 nothing of the reference, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -312,3 +312,139 @@ def test_session_affinity_replay_on_cuda_matches_host(dev, algo):
     on_card = replay(make_trace("session_affinity", 0), algo=algo)
     host = replay(make_trace("session_affinity", 0), algo=algo, plane="host")
     assert on_card.ok and host.ok and on_card.fingerprint == host.fingerprint
+
+
+def _narrowed(img, dtype):
+    """A packed image with its slots (Memento) or A/K (AnchorHash) cast to
+    ``dtype``; the values fit, so every lookup stays the same."""
+    from repro_torch.core.protocol import DeviceImage
+
+    names = ("slot_b", "slot_c") if img.algo == "memento" else ("A", "K")
+    arrays = {k: (v.to(dtype) if k in names else v) for k, v in img.arrays.items()}
+    return DeviceImage(img.algo, img.n, arrays, dict(img.scalars), img.epoch, packed=True)
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("removed", [0.0, 0.5, 0.9])
+@pytest.mark.parametrize("algo", ["memento", "anchor"])
+def test_packed_kernels_match_plain_and_host(dev, algo, removed, width):
+    """Every mode of ``{algo}_packed_*`` at each slot / A-K width, against
+    the plain versions (and a diff across two widths)."""
+    from repro_torch.core.packing import pack_image
+
+    n = 100 if width == 1 else 3000
+    h = _algo_state(algo, n, removed, seed=7) if width > 1 else \
+        make_hash(algo, n, capacity=n, variant="32")
+    if width == 1:
+        for b in np.random.default_rng(7).permutation(n)[: int(removed * n)].tolist():
+            if h.working > 1:
+                h.remove(int(b))
+    dtype = {1: torch.int8, 2: torch.int16, 4: torch.int32}[width]
+    img = _narrowed(pack_image(h.device_image()), dtype)
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    tables, scalars = engine.image_operands(img)
+    keys = engine.key_tensor(KEYS[:8000], dev)
+    kw = {"table": "packed"}
+    before = {k: v for k, v in engine.LAUNCHES.items()}
+    out = engine.kernel_lookup(algo, keys, tables, scalars, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, engine.lookup_plain(algo, keys, tables, scalars, **kw))
+    assert out[:200].cpu().tolist() == [h.lookup(int(k)) for k in KEYS[:200]]
+    k = min(3, h.working)
+    assert torch.equal(engine.kernel_replica(algo, keys, k, tables, scalars, **kw),
+                       engine.replica_plain(algo, keys, k, tables, scalars, **kw))
+    load = torch.from_numpy(_load(img, seed=1)).to(dev)
+    assert torch.equal(engine.kernel_replica(algo, keys, 2, tables, scalars, load, 3, **kw),
+                       engine.replica_plain(algo, keys, 2, tables, scalars, load, 3, **kw))
+    rng = np.random.default_rng(3)
+    probe = torch.from_numpy(rng.integers(0, 9, size=keys.numel()).astype(np.int32)).to(dev)
+    pending = torch.from_numpy(rng.random(keys.numel()) < 0.6).to(dev)
+    for g, w in zip(engine.kernel_walk(algo, keys, probe, pending, tables, scalars, load, 2, **kw),
+                    engine.walk_plain(algo, keys, probe, pending, tables, scalars, load, 2, **kw)):
+        assert torch.equal(g, w)
+    other = pack_image(_algo_state(algo, n, 0.3, seed=8).device_image())  # int16 or int8
+    other.arrays = {k: v.to(dev) for k, v in other.arrays.items()}
+    old, new = (tables, scalars), engine.image_operands(other)
+    for g, w in zip(engine.kernel_diff(algo, keys, old, new, **kw),
+                    engine.diff_plain(algo, keys, old, new, **kw)):
+        assert torch.equal(g, w)
+    for g, w in zip(engine.kernel_replica_diff(algo, keys, 3, old, new, **kw),
+                    engine.replica_diff_plain(algo, keys, 3, old, new, **kw)):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+    for mode in ("lookup", "diff", "replica", "replica_diff", "walk"):
+        assert engine.LAUNCHES[f"{algo}_packed_{mode}"] > before[f"{algo}_packed_{mode}"]
+
+
+@pytest.mark.parametrize("removed", [0.0, 0.5, 0.9])
+def test_compact_lookup_kernel_matches_plain_and_dense(dev, removed):
+    m = _churned(20_000, int(removed * 20_000), seed=3)
+    repl = m.device_image().arrays["repl"].to(dev)
+    slot_b, slot_c = engine.build_compact_table(repl)
+    keys = engine.key_tensor(KEYS, dev)
+    before = engine.LAUNCHES["memento_compact_lookup"]
+    out = engine.compact_lookup(keys, slot_b, slot_c, m.n)
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES["memento_compact_lookup"] == before + 1
+    assert torch.equal(out, engine.lookup_plain("memento", keys, [slot_b, slot_c], [m.n],
+                                                table="compact"))
+    assert torch.equal(out, engine.memento_lookup(keys, repl, m.n))
+
+
+def test_packed_dx_jump_power_images_run_their_dense_kernels(dev):
+    from repro_torch.core.packing import pack_image
+
+    for algo in [a for a in ALGORITHMS if a not in engine.PACKED_KERNELS]:
+        h = _algo_state(algo, 3000, 0.5, seed=4)
+        img = pack_image(h.device_image())
+        img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+        before = engine.LAUNCHES[f"{algo}_lookup"]
+        out = engine.engine_lookup(KEYS, img, device=dev)
+        assert engine.LAUNCHES[f"{algo}_lookup"] == before + 1
+        assert out[:300].cpu().tolist() == [h.lookup(int(k)) for k in KEYS[:300]]
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int8])
+def test_narrow_delta_apply_kernels_match_plain(dev, dtype):
+    rng = np.random.default_rng(10)
+    base = rng.integers(-2, 100, size=5000).astype(np.int16)
+    idx = rng.integers(0, 5000, size=600)
+    idx[-100:] = idx[:100]
+    vals = rng.integers(-2, 100, size=600).astype(np.int32)
+    table = torch.from_numpy(base).to(dtype).to(dev)
+    name = da.KERNELS[dtype]
+    before = da.LAUNCHES[name]
+    out = da.scatter_update(table, idx, vals)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES[name] == before + 1 and out.dtype == dtype
+    want = base.astype(np.int64)
+    for i, v in zip(idx.tolist(), vals.tolist()):
+        want[i] = v
+    assert (out.cpu().numpy() == want).all()
+    uidx, uvals = da.dedup_last(idx, vals)
+    pidx, pval, k = da._pad_updates(uidx, uvals, sentinel=-1)
+    meta = torch.from_numpy(np.concatenate([pidx, pval])).to(dev)
+    assert torch.equal(da.delta_apply(table, meta, k), da.delta_apply_plain(table, meta, k))
+
+
+@pytest.mark.parametrize("sync_mode", ["block", "overlap"])
+def test_router_with_compact_images_on_cuda_matches_host(dev, sync_mode):
+    """Removals, then restores (tombstones), then removals that probe past
+    them: every batch equals the host."""
+    router = SessionRouter(2000, compact_images=True, sync_mode=sync_mode, replicas_k=2)
+    ids = np.random.default_rng(2).integers(0, 2**63, size=4000, dtype=np.uint64)
+    router.route_batch(ids)
+    assert router.image_store().image().packed
+    for victim in (3, 250, 1999, 17, 800):
+        router.fail_replica(victim)
+        router.image_store().flush()
+    for _ in range(3):
+        router.restore_replica()
+    router.image_store().flush()
+    router.mark_failed(42)
+    assert router.route_batch(ids).tolist() == [router.route(int(s)) for s in ids]
+    router.fail_replica(42)
+    router.image_store().flush()
+    assert router.route_batch(ids).tolist() == [router.route(int(s)) for s in ids]
+    assert router.image_store().totals.snapshot_rebuilds == 0
+    assert (router.image_store()._mirror["slot_b"] == -2).any()

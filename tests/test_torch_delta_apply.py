@@ -49,8 +49,16 @@ def test_scatter_update_uint32_table():
 
 
 def test_scatter_update_rejects_narrow_tables():
-    with pytest.raises(NotImplementedError, match="K1b"):
-        port.scatter_update(torch.zeros(16, dtype=torch.int16), [1], [2])
+    """The int16 and int8 tables of packed images scatter as the
+    reference's functional path does; other element types are refused."""
+    for dtype in (np.int16, np.int8):
+        table = np.arange(16, dtype=dtype)
+        got = port.scatter_update(torch.from_numpy(table.copy()), [1, 5, 1], [2, -2, -1])
+        want = np.asarray(ref.scatter_update(table, [1, 5, 1], [2, -2, -1], plane="jnp"))
+        assert got.numpy().dtype == want.dtype and got.numpy().tobytes() == want.tobytes()
+    for dtype in (torch.int64, torch.float32):
+        with pytest.raises(ValueError):
+            port.scatter_update(torch.zeros(16, dtype=dtype), [1], [2])
 
 
 @pytest.mark.parametrize("k", [0, 1, 8, 9, 100])

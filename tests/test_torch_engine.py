@@ -122,26 +122,22 @@ CONFIGS = [dict(algo=a) for a in ("memento", "anchor", "cuckoo")] + [
 @pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
 def test_engine_op_checks_match_reference(cfg):
     """A configuration the reference rejects raises the same ValueError;
-    one it accepts builds the same configuration, or (packed and compact
-    tables) is not ported yet."""
+    one it accepts builds the same configuration, with the same table
+    names (packed and compact tables included)."""
     try:
         want = ref.EngineOp(**cfg)
     except ValueError as err:
         with pytest.raises(ValueError, match=str(err).replace("(", r"\(").replace(")", r"\)")):
             port.EngineOp(**cfg)
         return
-    try:
-        op = port.EngineOp(**cfg)
-    except NotImplementedError as err:
-        assert "K1b/K1g" in str(err) and cfg.get("table") in ("compact", "packed")
-        return
-    fields = ("algo", "mode", "k", "bounded", "diff", "table")
+    op = port.EngineOp(**cfg)
+    fields = ("algo", "mode", "k", "bounded", "diff", "table", "table_names")
     assert [getattr(op, f) for f in fields] == [getattr(want, f) for f in fields]
 
 
 def test_unported_configurations_raise_at_entry_points():
-    """k > 1 lookups and diffs are served as the reference serves them;
-    only the packed and compact tables remain unported."""
+    """k > 1 lookups and diffs are served as the reference serves them,
+    and so are the packed and compact tables: nothing raises any more."""
     h = state("memento", 40, 5, seed=0)
     ref_img = h.device_image()
     churn(h, 3, seed=1)
@@ -154,9 +150,20 @@ def test_unported_configurations_raise_at_entry_points():
     np.testing.assert_array_equal(got.old.numpy(), want.old)
     np.testing.assert_array_equal(got.new.numpy(), want.new)
     np.testing.assert_array_equal(got.moved.numpy(), want.moved)
-    for table in ("packed", "compact"):
-        with pytest.raises(NotImplementedError, match="K1b/K1g"):
-            port.EngineOp("memento", table=table)
+    from repro.core.packing import pack_image as ref_pack
+    from repro_torch.core.packing import pack_image
+
+    packed, packed2 = pack_image(img), pack_image(img2)
+    np.testing.assert_array_equal(
+        port.engine_lookup(KEYS, packed, k=2).numpy(),
+        np.asarray(ref.engine_lookup(KEYS, ref_pack(ref_img), k=2, plane="jnp")))
+    got = port.engine_diff(KEYS, packed, packed2, k=3)
+    want = ref.engine_diff(KEYS, ref_pack(ref_img), ref_pack(new_img), k=3, plane="jnp")
+    np.testing.assert_array_equal(got.new.numpy(), want.new)
+    np.testing.assert_array_equal(got.moved.numpy(), want.moved)
+    np.testing.assert_array_equal(
+        port.engine_lookup(KEYS, img, table="compact").numpy(),
+        np.asarray(ref.engine_lookup(KEYS, ref_img, table="compact", plane="pallas")))
 
 
 ALGO_STATES = {

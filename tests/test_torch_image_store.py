@@ -166,8 +166,12 @@ def test_delta_fits_matches_reference():
             m.add()
     for caps in ({"repl": 128}, {"repl": 130}, {"repl": 256}, {}):
         assert delta_fits(caps, p.device_delta(0)) == ref_delta_fits(caps, h.device_delta(0))
-    with pytest.raises(NotImplementedError):
-        DeviceImageStore(p, device="cpu", compact=True)
+    for caps in ({"state": 4}, {"state": 5}, {"state": 128}, {}):  # the bitmap rule
+        assert delta_fits(caps, p.device_delta(0), compact=True) == \
+            ref_delta_fits(caps, h.device_delta(0), compact=True)
+    store, ref_store = DeviceImageStore(p, device="cpu", compact=True), RefStore(h, compact=True)
+    assert store.image().packed and store.capacity == ref_store.capacity
+    assert pp.image_fingerprint(store.image()) == ref_fingerprint(ref_store.image())
 
 
 @pytest.mark.parametrize("mode", ["sync", "async"])
