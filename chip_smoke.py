@@ -54,7 +54,18 @@
    ``memento_compact_lookup`` and the int16 and int8 delta applies must
    be launched on that path; then each is held against its plain version
    on the card at every width and timed beside its bound.
-7. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+7. Drives the fifth slice's path on phase 6's one-shot state: Memento's
+   compact table at k = 3 and bounded k = 2 (c = 1.25) through
+   ``engine_lookup(table="compact")``, and a cross-algorithm
+   ``engine_diff`` (AnchorHash one-shot -> packed Memento one-shot, k = 1
+   and k = 3).  ``memento_compact_replica`` must be launched on that path;
+   then it is held against its plain version and the dense replica sets of
+   the same host state, the diff against each image's plain lookup and
+   the host, and each is timed.  Then ``memento_lookup`` and
+   ``memento_packed_lookup`` are timed on their stable and one-shot
+   states warm and cold (L2 flushed by a 128 MiB write before each
+   launch).
+8. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Any mismatch or error exits non-zero.  Without a GPU, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -159,6 +170,8 @@ TINY_N = 100              # phase 6: the hand-built int8 images
 SMALL_EVENTS = (20, 5)    # phase 6: removals, then restores, on the small routers
 BREAKDOWN_REPS = 5        # phase 6: iterations of each state's breakdown
 BATCH_EVERY = 8           # phase 6: a batch after every 8th single removal or restore
+FLUSH_BYTES = 128 << 20   # phase 7: written before each cold launch (the L2 is 50 MB)
+COLD_REPS = 15            # phase 7: cold launches a median is taken over
 
 
 def log(msg: str) -> None:
@@ -188,7 +201,9 @@ def main() -> int:
     smoke.phase_host_vs_device()
     replica_kernels = smoke.phase_replicas()
     packed_kernels = smoke.phase_packed()
-    kernels += algo_kernels + replica_kernels + packed_kernels
+    compact_kernels = smoke.phase_compact_replicas()
+    kernels += algo_kernels + replica_kernels + packed_kernels + compact_kernels
+    smoke.lookup_cold_times(kernels)
     log_rule2_order(kernels)
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -224,6 +239,7 @@ class Smoke:
         # algo -> (one-shot host state, stable image, one-shot image on the
         # card), kept from phase 2 for phase 5: no state is built twice
         self.kept: dict = {}
+        self.flush = None  # phase 7's L2 flush buffer
 
     # -- helpers ---------------------------------------------------------------
     def time_ms(self, fn, reps: int, warmup: int = 3) -> float:
@@ -248,6 +264,26 @@ class Smoke:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
+
+    def time_cold_ms(self, fn, reps: int = COLD_REPS) -> float:
+        """Median device time of one call of ``fn`` on a cold L2: before each
+        call a 128 MiB buffer is written, outside the call's event pair.
+        Queued behind a GPU sleep, as :meth:`time_ms`."""
+        np, torch = self.np, self.torch
+        if self.flush is None:
+            self.flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=self.dev)
+        self.flush.fill_(-1)
+        fn()
+        torch.cuda.synchronize()
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)] for _ in range(reps)]
+        torch.cuda._sleep(SLEEP_CYCLES)
+        for i, (start, end) in enumerate(ev):
+            self.flush.fill_(i)
+            start.record()
+            fn()
+            end.record()
+        ev[-1][1].synchronize()
+        return float(np.median([start.elapsed_time(end) for start, end in ev]))
 
     def remove_random(self, m, count: int) -> None:
         """``count`` removals of random working buckets on the host."""
@@ -1305,6 +1341,7 @@ class Smoke:
                 c[k] = 0
         t0 = time.perf_counter()
         main = self.packed_route()
+        self.packed_main = main  # phase 7 reads its states
         self.packed_failover()
         self.packed_modes(main)
         sets = {"memento": [main["set"]], "anchor": []}
@@ -1312,7 +1349,8 @@ class Smoke:
             sets[algo] += [self.packed_small(algo), self.packed_tiny(algo)]
         launches = {k: v for c in counters for k, v in c.items()}
         log(f"phase 6 path: {time.perf_counter() - t0:.1f} s; launches {launches}")
-        new = [n for n, (_, _, t) in engine.KERNELS.items() if t != "dense"]
+        new = [n for n, (_, m, t) in engine.KERNELS.items()
+               if t == "packed" or (t, m) == ("compact", "lookup")]
         for name in new + ["delta_apply_int16", "delta_apply_int8"]:
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched on the phase 6 path")
@@ -1937,6 +1975,126 @@ class Smoke:
                          "library_ms": library_ms, "state": st["label"]})
         return rows
 
+    # -- phase 7: this slice's path --------------------------------------------
+    def phase_compact_replicas(self) -> list[dict]:
+        """Compact tables at k > 1 and bounded, and a diff across two
+        algorithms, on phase 6's one-shot state: the path with the launch
+        counts reset just before it, then each result against its plain
+        version, the dense sets of the same host state and the host."""
+        from repro_torch.core.protocol import DeviceImage
+        from repro_torch.kernels import delta_apply, engine
+
+        np, torch = self.np, self.torch
+        main = self.packed_main
+        h = main["router"].ch
+        repl, n = main["oneshot_dense"]
+        img = DeviceImage("memento", n, {"repl": repl}, epoch=main["oneshot"].epoch)
+        load_t, cap = main["set"]["load"]
+        h_a, _, anchor_oneshot = self.kept["anchor"]
+        keys_np, keys = self.keys()
+        counters = [engine.LAUNCHES, delta_apply.LAUNCHES]
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        t0 = time.perf_counter()
+        sets = engine.engine_lookup(keys, img, k=REPLICAS_K, table="compact")
+        bounded = engine.engine_lookup(keys, img, k=BOUNDED_K, load=load_t, cap=cap,
+                                       table="compact")
+        cross = {k: engine.engine_diff(keys, anchor_oneshot, main["oneshot"], k=k)
+                 for k in (1, REPLICAS_K)}
+        torch.cuda.synchronize()
+        launches = {k: v for c in counters for k, v in c.items()}
+        log(f"phase 7 path: {time.perf_counter() - t0:.1f} s; launches {launches}")
+        for name in ("memento_compact_replica", "anchor_lookup", "anchor_replica",
+                     "memento_packed_lookup", "memento_packed_replica"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the phase 7 path")
+
+        t0 = time.perf_counter()
+        sample = np.arange(0, KEYS, KEYS // KERNEL_SAMPLE)
+        compact = list(engine.build_compact_table(repl))
+        by_state = {}
+        for what, k, ld, got, bounded_ in (
+                (f"one-shot k={REPLICAS_K}", REPLICAS_K, None, sets, False),
+                (f"one-shot bounded k={BOUNDED_K} c={CAP_C}", BOUNDED_K, load_t, bounded, True)):
+            c = None if ld is None else cap
+            work: dict = {}
+            plain, plain_ms = self.timed_plain(lambda: engine.replica_plain(
+                "memento", keys, k, compact, [n], ld, c, work, table="compact"))
+            e = int((got.long() - plain.long()).abs().max())
+            dense = engine.kernel_replica("memento", keys, k, [repl], [n], ld, c)
+            if e or not torch.equal(got, dense):
+                raise AssertionError(f"memento_compact_replica {what}: kernel != plain / dense")
+            if ld is None:
+                host = [h.lookup_k(int(x), k) for x in keys_np[sample[:512]]]
+            else:
+                host = engine.bounded_replica_sets(h, keys_np[sample[:512]], k,
+                                                   ld.cpu().numpy(), cap).tolist()
+            if host != got[sample[:512]].tolist():
+                raise AssertionError(f"memento_compact_replica {what}: kernel != host")
+            ms = self.time_ms(lambda: engine.kernel_replica(
+                "memento", keys, k, compact, [n], ld, c, table="compact"), reps=10, warmup=1)
+            dense_ms = self.time_ms(lambda: engine.kernel_replica(
+                "memento", keys, k, [repl], [n], ld, c), reps=10, warmup=1)
+            nbytes = 4 * KEYS * (1 + k) + 8 * compact[0].numel() + (
+                4 * ld.numel() if bounded_ else 0)
+            by_state[what] = self.packed_entry(
+                f"memento_compact_replica {what} ({compact[0].numel()} slots; "
+                f"memento_replica on the dense table {dense_ms:.6f} ms, equal, == host "
+                f"on 512 keys)", e, ms, plain_ms,
+                self.mode_ops("memento", work, KEYS, n, k, bounded=bounded_), nbytes, work)
+        tables_a, scalars_a = engine.image_operands(anchor_oneshot)
+        tables_m, scalars_m = engine.image_operands(main["oneshot"])
+        old = engine.lookup_plain("anchor", keys, tables_a, scalars_a)
+        new = engine.lookup_plain("memento", keys, tables_m, scalars_m, table="packed")
+        d = cross[1]
+        if not (torch.equal(d.old, old) and torch.equal(d.new, new)
+                and torch.equal(d.moved, old != new)):
+            raise AssertionError("cross-algorithm engine_diff != the two plain lookups")
+        d3 = cross[REPLICAS_K]
+        if not (torch.equal(d3.old[:, 0], old) and torch.equal(d3.new[:, 0], new)
+                and torch.equal(d3.moved, (d3.old != d3.new).any(dim=1))):
+            raise AssertionError(f"cross-algorithm k={REPLICAS_K} engine_diff is inconsistent")
+        want = [(h_a.lookup(int(x)), h.lookup(int(x))) for x in keys_np[sample]]
+        if want != list(zip(d.old[sample].tolist(), d.new[sample].tolist())):
+            raise AssertionError("cross-algorithm engine_diff != host")
+        log(f"cross-algorithm engine_diff anchor (a={h_a.size}, {h_a.working} working) -> "
+            f"packed memento ({h.working} of {h.n}): k=1 moved {d.num_moved} of {KEYS}, == the "
+            f"plain lookups and {KERNEL_SAMPLE} keys == host; k={REPLICAS_K} moved "
+            f"{d3.num_moved}, column 0 == k=1")
+        log(f"phase 7 checks and timing: {time.perf_counter() - t0:.1f} s")
+        head = by_state[f"one-shot k={REPLICAS_K}"]
+        return [{"name": "memento_compact_replica", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/engine.cu",
+                 "replaces": "src/repro/kernels/engine.py:526",
+                 "launches": launches["memento_compact_replica"],
+                 "max_abs_err": max(v["max_abs_err"] for v in by_state.values()),
+                 "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                 "bound_by": head["bound_by"], "library_ms": None,
+                 "state": f"one-shot k={REPLICAS_K}", "by_state": by_state}]
+
+    def lookup_cold_times(self, kernels: list[dict]) -> None:
+        """``memento_lookup`` (phase 2's stable and one-shot states) and
+        ``memento_packed_lookup`` (phase 6's, int32 slots) timed warm and
+        cold (the L2 flushed before each launch).  The cold one-shot time
+        joins the kernel's row."""
+        from repro_torch.kernels import engine
+
+        _, stable, oneshot = self.kept["memento"]
+        main = self.packed_main
+        states = {"memento_lookup": (stable, oneshot, {}),
+                  "memento_packed_lookup": (main["stable"], main["oneshot"], {"table": "packed"})}
+        rows = {k["name"]: k for k in kernels}
+        _, keys = self.keys()
+        for name, (st, one, kw) in states.items():
+            times = {}
+            for state, im in (("stable", st), ("one-shot", one)):
+                tables, scalars = engine.image_operands(im)
+                run = (lambda: engine.kernel_lookup("memento", keys, tables, scalars, **kw))
+                times[state] = (self.time_ms(run, reps=30), self.time_cold_ms(run))
+            log(f"{name} (one thread a key; {KEYS} keys, n={N}), warm / cold ms: " + "; ".join(
+                f"{state} {w:.6f} / {c:.6f}" for state, (w, c) in times.items()))
+            rows[name]["cold_ms"] = times["one-shot"][1]
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,6 +1,5 @@
 // Lookup kernels for Hopper (sm_90a): every algorithm's lookup, k-replica
-// walk (unbounded and bounded), epoch diffs and bounded-load chain walk,
-// one thread per key.
+// walk (unbounded and bounded), epoch diffs and bounded-load chain walk.
 //
 // Replaces every configuration of the TPU engine kernel
 // src/repro/kernels/engine.py::_engine_pallas (body _engine_kernel_factory,
@@ -8,7 +7,9 @@
 //   memento_*         <- memento_body + dense_body        (K1a)
 //   memento_packed_*  <- memento_body + packed_reader     (K1b)
 //   anchor_packed_*   <- anchor_body over narrowed A/K    (K1b)
-//   memento_compact_lookup <- memento_body + compact_reader (K1g)
+//   memento_compact_lookup, memento_compact_replica
+//                     <- memento_body + compact_reader    (K1g; replica_body
+//                        over it at k > 1 and bounded)
 //   anchor_*  <- anchor_body                 (K1c)
 //   dx_*      <- dx_body                     (K1d)
 //   power_*   <- primitives.power32          (K1e)
@@ -20,24 +21,23 @@
 //   {algo}_replica       replica_body, k slots, optionally bounded (K1h)
 //   {algo}_replica_diff  replica_body under two epochs, k > 1     (K1i)
 //   {algo}_walk          chain_walk_body, one bounded-load step    (K1j)
+// (the compact table serves only the lookup and the replica walk, as in
+// the reference).
 //
-// What bounds them on the card: integer issue.  A key costs hashes
-// (murmur3 mixes), integer modulos and, for Memento and Jump, ~ln(n)
-// jump32 steps with a correctly rounded f32 divide each.  Memory is small
-// beside that: 8 bytes of key and bucket per key (16 for a diff, 4 + 4k
-// for a replica set), and gathers into tables that at n = 10^6 are a few
-// MB and stay in the 50 MB L2 (Anchor's A and K at a = 4*10^6 are 32 MB;
-// Dx's bitmap 0.5 MB; Jump and Power read no table; a load-word array is
-// 4 bytes a bucket).  DxHash is the slowest: after a 90 % removal at
-// capacity factor 4 a key needs ~a/w = 40 probes.  A replica set costs
-// about k lookups (plus one per rejected candidate), a walk step one
-// lookup per probe.
-//
-// The packed Memento layout reads a bitmap word per table read and, for a
-// removed bucket only, probes an open-addressing slot table (load factor
-// <= 0.5, so ~1.5 slots); the compact table probes on every read.  Both
-// tables are Theta(r) and sit in L2 next to the bitmap (125 KB at 10^6
-// buckets).
+// What bounds them on the card.  A key costs hashes (murmur3 mixes),
+// integer modulos and, for Memento and Jump, ~ln(n) jump32 steps with a
+// correctly rounded f32 divide each: on a stable state that integer issue
+// is the bound.  Once many buckets are removed, a key also follows chains
+// of dependent gathers into tables of a few MB to tens of MB (Memento's
+// repl 4-8 MB at n = 10^6, its packed slot table 33.5 MB after a 90 %
+// removal, Anchor's A and K 32 MB at a = 4*10^6, Dx's bitmap 0.5 MB): ~10
+// reads a key for Memento at 90 % removed, each a 32-byte L2 sector for
+// 4 useful bytes.  There the sectors a key pulls through L2, not the bytes
+// of the tables, bound the time; chip_smoke.py's bound_ms counts
+// operations and each table byte once, so it sits below what the card can
+// reach.  DxHash is the slowest: after a 90 % removal at capacity factor 4
+// a key needs ~a/w = 40 probes.  A replica set costs about k lookups (plus
+// one per rejected candidate), a walk step one lookup per probe.
 //
 // Design: one thread per key with per-thread loops.  The Pallas kernel runs
 // lane-synchronous masked while_loops over (8, 128) key blocks, so a block
@@ -52,14 +52,20 @@
 //
 // Memento's table is read through a reader functor (DenseRepl, PackedRepl<T>,
 // CompactRepl) and AnchorHash's A/K through their element type T, so the
-// packed layouts reuse every mode's kernel template unchanged.  Narrow
-// slots and A/K words are signed: they are sign-extended to int32 before
-// any compare, so EMPTY (-1) and TOMBSTONE (-2) stay negative.  A probe
-// stops after as many slots as the table has: the reference's loop has no
-// bound and relies on an empty slot, which every valid image has, so the
-// bound changes no answer and keeps a broken table from hanging the card.
-// The `width` argument of a packed entry (1, 2 or 4 bytes) picks the
-// template instance; each epoch of a diff has its own.
+// packed layouts reuse every mode's kernel template unchanged.  A packed
+// read loads the bitmap word and the first probe slot's two words at once
+// (PackedRepl), and every probe slot loads both its words before comparing
+// (probe_from): a removed bucket's read is one round trip where it was
+// three (word, then slot_b, then slot_c).  Narrow slots and A/K words are
+// signed: they are sign-extended to int32 before any compare, so EMPTY (-1)
+// and TOMBSTONE (-2) stay negative.  A probe stops after as many slots as
+// the table has: the reference's loop has no bound and relies on an empty
+// slot, which every valid image has, so the bound changes no answer and
+// keeps a broken table from hanging the card.  The `width` argument of a
+// packed entry (1, 2 or 4 bytes) picks the template instance; each epoch of
+// a diff has its own.  (A lookup kernel with several keys in flight a
+// thread, a grid that fills the card once, lost to one thread per key at
+// every count tried, stable and one-shot: PERF.md.)
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -131,27 +137,48 @@ struct DenseRepl {
   __device__ int32_t operator()(int32_t i) const { return repl[i]; }
 };
 
+// The first slot of bucket i's probe in a table of mask + 1 slots.
+__device__ __forceinline__ uint32_t probe_start(int32_t i, uint32_t mask) {
+  return fmix32(static_cast<uint32_t>(i) * kGolden32 + 5u) & mask;
+}
+
 // repl(i) from an open-addressing table of mask + 1 slots: linear probing
-// from fmix32(i * golden + 5) & mask until slot_b holds i (-> slot_c), or
-// a slot ends the chain: EMPTY only (kEmptyOnly, the packed layout, whose
-// TOMBSTONEs keep a chain going) or any negative slot (the compact table);
-// a bucket not found is working (-1).
+// from probe_start(i) until slot_b holds i (-> slot_c), or a slot ends the
+// chain: EMPTY only (kEmptyOnly, the packed layout, whose TOMBSTONEs keep a
+// chain going) or any negative slot (the compact table); a bucket not
+// found is working (-1).  probe_from starts at slot pos, whose two words
+// sb, sc (sign-extended) the caller has loaded; every later slot loads both
+// words at once, so a hit costs one round trip, not two (slot_c[pos] is in
+// bounds whatever slot_b[pos] holds).
+template <class T, bool kEmptyOnly>
+__device__ __forceinline__ int32_t probe_from(const T* __restrict__ slot_b,
+                                              const T* __restrict__ slot_c, uint32_t mask,
+                                              int32_t i, uint32_t pos, int32_t sb, int32_t sc) {
+  for (uint32_t s = 0;; ++s) {
+    if (sb == i) return sc;
+    if ((kEmptyOnly ? sb == kEmpty : sb < 0) || s == mask) return -1;
+    pos = (pos + 1u) & mask;
+    sb = static_cast<int32_t>(slot_b[pos]);
+    sc = static_cast<int32_t>(slot_c[pos]);
+  }
+}
+
 template <class T, bool kEmptyOnly>
 __device__ __forceinline__ int32_t probe(const T* __restrict__ slot_b,
                                          const T* __restrict__ slot_c, uint32_t mask,
                                          int32_t i) {
-  uint32_t pos = fmix32(static_cast<uint32_t>(i) * kGolden32 + 5u) & mask;
-  for (uint32_t s = 0; s <= mask; ++s) {
-    const int32_t sb = static_cast<int32_t>(slot_b[pos]);  // sign-extended
-    if (sb == i) return static_cast<int32_t>(slot_c[pos]);
-    if (kEmptyOnly ? sb == kEmpty : sb < 0) return -1;
-    pos = (pos + 1u) & mask;
-  }
-  return -1;
+  const uint32_t pos = probe_start(i, mask);
+  return probe_from<T, kEmptyOnly>(slot_b, slot_c, mask, i, pos,
+                                   static_cast<int32_t>(slot_b[pos]),
+                                   static_cast<int32_t>(slot_c[pos]));
 }
 
 // The packed layout (K1b): bit i & 31 of state word i >> 5 set means
-// working, with no probe; a removed bucket probes its T-wide slots.
+// working, with no probe; a removed bucket probes its T-wide slots.  The
+// first probe slot is loaded together with the bitmap word, before the bit
+// says whether it is needed: a removed bucket's read then costs one round
+// trip, not two (bitmap word, then slot), and a working one two more loads
+// that are never waited for.
 template <class T>
 struct PackedRepl {
   const uint32_t* state;
@@ -159,8 +186,12 @@ struct PackedRepl {
   const T* slot_c;
   uint32_t mask;
   __device__ int32_t operator()(int32_t i) const {
-    if ((state[i >> 5] >> (static_cast<uint32_t>(i) & 31u)) & 1u) return -1;
-    return probe<T, true>(slot_b, slot_c, mask, i);
+    const uint32_t pos = probe_start(i, mask);
+    const uint32_t word = state[i >> 5];
+    const int32_t sb = static_cast<int32_t>(slot_b[pos]);
+    const int32_t sc = static_cast<int32_t>(slot_c[pos]);
+    if ((word >> (static_cast<uint32_t>(i) & 31u)) & 1u) return -1;
+    return probe_from<T, true>(slot_b, slot_c, mask, i, pos, sb, sc);
   }
 };
 
@@ -767,6 +798,13 @@ int memento_compact_lookup(const void* keys, void* out, long long count,
                            const void* slot_b, const void* slot_c, int nslots, int n,
                            void* stream) {
   return launch_lookup(keys, out, count, memento_compact(slot_b, slot_c, nslots, n), stream);
+}
+
+int memento_compact_replica(const void* keys, void* out, long long count, int k,
+                            const void* load, int cap, const void* slot_b, const void* slot_c,
+                            int nslots, int n, void* stream) {
+  return launch_replica(keys, out, count, k, load, cap,
+                        memento_compact(slot_b, slot_c, nslots, n), stream);
 }
 
 const char* error_string(int code) {

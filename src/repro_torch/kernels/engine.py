@@ -36,8 +36,10 @@ every mode: Memento's bitmap and open-addressing slots by
 ``anchor_packed_{mode}`` (both with a ``width`` argument of 1, 2 or 4
 bytes), and DxHash, JumpHash and PowerHash, whose packed layout is their
 dense one, by their dense kernels; and ``"compact"``, Memento's Θ(r)
-open-addressing table built per call from a dense image, served by
-``memento_compact_lookup`` (k = 1 lookups only).
+open-addressing table built per call from a dense image, served in lookup
+mode (the k = 1 lookup by ``memento_compact_lookup``, k-replica and
+bounded sets by ``memento_compact_replica``; no diffs, no walks, as in the
+reference).
 
 Each kernel has a plain torch version beside it (:func:`lookup_plain`,
 :func:`diff_plain`, :func:`replica_plain`, :func:`replica_diff_plain`,
@@ -83,7 +85,7 @@ PACKED_KERNELS = ("memento", "anchor")
 KERNELS: dict[str, tuple[str, str, str]] = {
     **{f"{a}_{m}": (a, m, "dense") for a in ALGORITHMS for m in _MODES},
     **{f"{a}_packed_{m}": (a, m, "packed") for a in PACKED_KERNELS for m in _MODES},
-    "memento_compact_lookup": ("memento", "lookup", "compact"),
+    **{f"memento_compact_{m}": ("memento", m, "compact") for m in ("lookup", "replica")},
 }
 
 #: kernel launches per kernel since the last reset (set the values to 0)
@@ -571,8 +573,11 @@ def _check_operands(algo: str, keys: torch.Tensor, epochs, table: str = "dense")
 def _load_len(algo: str, tables, n: int, table: str = "dense") -> int:
     """Load words that cover ``algo``'s bucket ids: the length of the
     bucket-indexed table for Memento and AnchorHash (32 ids a bitmap word
-    for packed Memento), the 128-padded id space for the others (Dx packs
+    for packed Memento; ``n`` for a compact table, whose slots are not
+    bucket-indexed), the 128-padded id space for the others (Dx packs
     bits, Jump and Power have no table)."""
+    if table == "compact":
+        return n
     if algo == "memento" and table == "packed":
         return 32 * int(tables[0].numel())
     if algo in ("memento", "anchor"):
@@ -646,7 +651,7 @@ def kernel_lookup(algo: str, keys: torch.Tensor, tables, scalars, *,
 
 def _not_compact(table: str, what: str) -> None:
     if table == "compact":
-        raise ValueError(f"compact tables serve the k = 1 lookup only, not {what}")
+        raise ValueError(f"compact tables serve lookups and replica sets, not {what}")
 
 
 def kernel_diff(algo: str, keys: torch.Tensor, old, new, *, table: str = "dense"):
@@ -679,7 +684,6 @@ def kernel_replica(algo: str, keys: torch.Tensor, k: int, tables, scalars,
     layout's ``replica`` kernel; a lane that exhausts the salt budget
     keeps its plain lookup, as in the reference (:func:`engine_lookup`
     checks)."""
-    _not_compact(table, "replica sets")
     tables, scalars, k = list(tables), [int(s) for s in scalars], _check_k(k)
     _check_operands(algo, keys, [(tables, scalars)], table)
     if load is not None:
@@ -858,8 +862,9 @@ def engine_lookup(keys, image, *, k: int = 1, load=None, cap: int | None = None,
     returned bucket has ``load < cap``, slot 0 included, and a lane that
     cannot find k such buckets raises ``RuntimeError``.  A packed image
     runs its packed kernels; ``table="compact"`` runs a dense Memento
-    image's k = 1 lookup over its Θ(r) table.  Bit-identical to the host
-    ``lookup``/``lookup_k`` of a ``variant="32"`` state."""
+    image's lookup, k-replica or bounded, over its Θ(r) table.
+    Bit-identical to the host ``lookup``/``lookup_k`` of a
+    ``variant="32"`` state."""
     bounded = load is not None
     if bounded and cap is None:
         raise ValueError("bounded lookup needs a cap")
@@ -901,10 +906,14 @@ class EngineDiff:
 def engine_diff(keys, old_image, new_image, *, k: int = 1, device=None) -> EngineDiff:
     """Fused epoch diff: look a key batch up under two images of one
     layout in one launch (both epochs' tables resident); k > 1 diffs
-    whole replica sets."""
+    whole replica sets.  Images of two algorithms (a migration between
+    them) take one lookup each, on each algorithm's kernel in its own
+    layout, as the reference's jnp plane does."""
     if old_image.algo != new_image.algo:
-        raise ValueError("epoch diff requires one algorithm "
-                         f"({old_image.algo!r} != {new_image.algo!r})")
+        dev = _image_device([old_image, new_image], device)
+        kt = key_tensor(keys, dev)
+        old, new = (engine_lookup(kt, img, k=k, device=dev) for img in (old_image, new_image))
+        return EngineDiff(old, new, old != new if k == 1 else (old != new).any(dim=1))
     if old_image.packed != new_image.packed:
         raise ValueError("epoch diff needs both images in one layout")
     table = op_table(old_image)

@@ -87,6 +87,11 @@ class SessionRouter:
         # overlap mode: replica → host epoch whose landing clears the mark
         self._unmark_at: dict[int, int] = {}
 
+    @property
+    def memento(self):
+        """Back-compat alias from the Memento-only router: the host state."""
+        return self.ch
+
     # -- single-request path --------------------------------------------------
     def replica_set(self, session_id) -> list[int]:
         """The session's k distinct candidate replicas, k clamped to the
@@ -120,6 +125,10 @@ class SessionRouter:
             self._store = DeviceImageStore(self.ch, device=self.device,
                                            compact=self.compact_images)
         return self._store
+
+    def device_image(self):
+        """The device image the batch paths serve (the store's front epoch)."""
+        return self.image_store().image()
 
     def _failover_pick(self, sets: np.ndarray) -> np.ndarray:
         """The failover rule of every batch path: per row of k candidate

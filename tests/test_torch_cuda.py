@@ -391,6 +391,80 @@ def test_compact_lookup_kernel_matches_plain_and_dense(dev, removed):
     assert torch.equal(out, engine.memento_lookup(keys, repl, m.n))
 
 
+@pytest.mark.parametrize("removed", [0.0, 0.5, 0.9])
+def test_compact_replica_kernel_matches_plain_and_dense(dev, removed):
+    """``memento_compact_replica``, unbounded k = 2, 3 and bounded k = 2,
+    against its plain version and the dense replica kernel, and through
+    ``engine_lookup(table="compact")``."""
+    m = _churned(20_000, int(removed * 20_000), seed=4)
+    img = m.device_image()
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    repl = img.arrays["repl"]
+    compact = list(engine.build_compact_table(repl))
+    keys = engine.key_tensor(KEYS[:8000], dev)
+    load = torch.from_numpy(_load(img, seed=2)).to(dev)
+    before = engine.LAUNCHES["memento_compact_replica"]
+    for k, ld, cap in ((2, None, None), (3, None, None), (2, load, 3)):
+        out = engine.kernel_replica("memento", keys, k, compact, [m.n], ld, cap, table="compact")
+        torch.cuda.synchronize()
+        assert torch.equal(out, engine.replica_plain("memento", keys, k, compact, [m.n], ld, cap,
+                                                     table="compact"))
+        assert torch.equal(out, engine.kernel_replica("memento", keys, k, [repl], [m.n], ld, cap))
+    got = engine.engine_lookup(keys, img, k=3, table="compact")
+    assert torch.equal(got, engine.engine_lookup(keys, img, k=3))
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES["memento_compact_replica"] == before + 4
+
+
+def _chain_state(n: int) -> MementoHash:
+    """A state with one long chain: bucket 3 is removed first, then its
+    replacement n - 1, that one's replacement n - 2 and so on down to
+    n/2 + 1; then most of the rest, so that many walks rehash into 3 with
+    a small w_b and follow the chain down to n/2."""
+    m = MementoHash(n, variant="32")
+    m.remove(3)
+    for b in range(n - 1, n // 2, -1):
+        m.remove(b)
+    for b in range(4, n // 2 - 10):
+        m.remove(b)
+    return m
+
+
+@pytest.mark.parametrize("state", ["none removed", "90% removed", "long chain"])
+@pytest.mark.parametrize("width", [0, 1, 2, 4])
+def test_memento_lookups_match_plain_at_block_edges(dev, width, state):
+    """``memento_lookup`` (width 0, the dense table) and
+    ``memento_packed_lookup`` (1-, 2- and 4-byte slots) against their
+    plain versions at key counts around warp and block edges: 0, 1, 31,
+    33, 256, 257 and 5000 (prefixes of one key batch, whose plain lookup
+    is computed once)."""
+    from repro_torch.core.packing import pack_image
+
+    n = 100 if width == 1 else 3000
+    m = {"none removed": lambda: MementoHash(n, variant="32"),
+         "90% removed": lambda: _churned(n, int(0.9 * n), seed=n),
+         "long chain": lambda: _chain_state(n)}[state]()
+    if width:
+        dtype = {1: torch.int8, 2: torch.int16, 4: torch.int32}[width]
+        img = _narrowed(pack_image(m.device_image()), dtype)
+        name, kw = "memento_packed_lookup", {"table": "packed"}
+    else:
+        img, name, kw = m.device_image(), "memento_lookup", {}
+    tables, scalars = engine.image_operands(img)
+    tables = [t.to(dev) for t in tables]
+    counts = [0, 1, 31, 33, 256, 257, 5000]
+    keys_np = np.random.default_rng(width).integers(0, 2**32, size=max(counts), dtype=np.uint32)
+    keys = engine.key_tensor(keys_np, dev)
+    want = engine.lookup_plain("memento", keys, tables, scalars, **kw)
+    assert want[:200].cpu().tolist() == [m.lookup(int(k)) for k in keys_np[:200]]
+    for count in counts:
+        before = engine.LAUNCHES[name]
+        out = engine.kernel_lookup("memento", keys[:count], tables, scalars, **kw)
+        torch.cuda.synchronize()
+        assert engine.LAUNCHES[name] == before + (count > 0)
+        assert torch.equal(out, want[:count]), count
+
+
 def test_packed_dx_jump_power_images_run_their_dense_kernels(dev):
     from repro_torch.core.packing import pack_image
 

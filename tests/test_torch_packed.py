@@ -461,17 +461,101 @@ def test_compact_lookup_matches_reference(removals):
 
 
 def test_compact_tables_serve_only_the_lookup():
+    """Compact tables serve lookup mode, k-replica sets included (equal to
+    the reference's Pallas plane); diffs, walks and unknown tables raise,
+    as in the reference."""
     h = state("memento", 100, 30, seed=13)
-    img = _port_image(h.device_image())
-    with pytest.raises(ValueError):
-        port.engine_lookup(KEYS, img, k=2, table="compact")
+    ref_img = h.device_image()
+    img = _port_image(ref_img)
+    np.testing.assert_array_equal(
+        port.engine_lookup(KEYS, img, k=2, table="compact").numpy(),
+        np.asarray(ref.engine_lookup(KEYS, ref_img, k=2, table="compact", plane="pallas")))
     with pytest.raises(ValueError, match="lookup mode only"):
         port.EngineOp("memento", diff=True, table="compact")
+    with pytest.raises(ValueError, match="lookup mode only"):
+        port.EngineOp("memento", mode="walk", table="compact")
+    tables, scalars = port.image_operands(img, "compact")
+    with pytest.raises(ValueError, match="not diffs"):
+        port.kernel_diff("memento", port.key_tensor(KEYS, "cpu"), (tables, scalars),
+                         (tables, scalars), table="compact")
     with pytest.raises(ValueError, match="unknown table kind"):
         ops.memento_lookup(KEYS, img.arrays["repl"], h.n, table="sparse")
     with pytest.raises(ValueError):
         ops.device_lookup(KEYS, _port_image(state("anchor", 50, 3, seed=1).device_image()),
                           table="compact")
+
+
+def _churned_and_restored(n: int, seed: int):
+    """A Memento state with removals and then restores (the restored
+    buckets leave the table again), ``variant="32"``."""
+    h = state("memento", n, n // 3, seed=seed)
+    for _ in range(n // 10):
+        h.add()
+    churn(h, n // 20, seed=seed + 1)
+    return h
+
+
+@pytest.mark.parametrize("k,bounded", [(2, False), (3, False), (2, True)])
+@pytest.mark.parametrize("seed", [21, 22])
+def test_compact_replica_sets_match_reference(seed, k, bounded):
+    """k-replica sets over the compact table, unbounded and bounded (c =
+    1.25, loads from a bounded assignment of half the keys), equal the
+    reference's Pallas plane and the port's dense sets."""
+    h = _churned_and_restored(240, seed)
+    ref_img = h.device_image()
+    img = _port_image(ref_img)
+    kw = {}
+    if bounded:
+        cap = int(np.ceil(1.25 * len(KEYS) / h.working))
+        zeros = np.zeros(port.bounded_load_len(img), np.int32)
+        _, load = port.bounded_assign(KEYS[: len(KEYS) // 2], img, zeros, cap, device="cpu")
+        kw = {"load": load, "cap": cap}
+    got = port.engine_lookup(KEYS, img, k=k, table="compact", **kw)
+    want = np.asarray(ref.engine_lookup(KEYS, ref_img, k=k, table="compact", plane="pallas",
+                                        **kw))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), port.engine_lookup(KEYS, img, k=k, **kw).numpy())
+    np.testing.assert_array_equal(port.replica_lookup(KEYS, img, k, table="compact", **kw).numpy(),
+                                  want)
+
+
+CROSS_PAIRS = [(a, b) for a in ALGORITHMS for b in ALGORITHMS if a != b]
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("old_algo,new_algo", CROSS_PAIRS)
+def test_cross_algorithm_diff_matches_reference(old_algo, new_algo, k):
+    """A diff between images of two algorithms (a migration) equals the
+    reference's jnp result: dense -> dense, and dense -> packed."""
+    h_old, h_new = state(old_algo, 120, 40, seed=23), state(new_algo, 150, 30, seed=24)
+    ref_old, ref_new = h_old.device_image(), h_new.device_image()
+    for want_new in (ref_new, rpk.pack_image(ref_new)):
+        got = port.engine_diff(KEYS, _port_image(ref_old), _port_image(want_new), k=k,
+                               device="cpu")
+        want = ref.engine_diff(KEYS, ref_old, want_new, k=k, plane="jnp")
+        np.testing.assert_array_equal(got.old.numpy(), want.old)
+        np.testing.assert_array_equal(got.new.numpy(), want.new)
+        np.testing.assert_array_equal(got.moved.numpy(), want.moved)
+        assert got.num_moved == want.num_moved
+
+
+@pytest.mark.parametrize("compact_images", [False, True])
+def test_router_accessors_match_reference(compact_images):
+    """``SessionRouter.memento`` (the host state) and ``device_image()``
+    (the store's front image) equal the reference's, before and after
+    membership changes."""
+    port_r = SessionRouter(90, device="cpu", compact_images=compact_images)
+    ref_r = RefRouter(90, compact_images=compact_images)
+    assert port_r.memento is port_r.ch and ref_r.memento is ref_r.ch
+    for step in range(3):
+        p, r = port_r.device_image(), ref_r.device_image()
+        assert p is port_r.image_store().image()
+        assert (p.algo, p.n, p.epoch, p.packed, p.scalars) == (r.algo, r.n, r.epoch,
+                                                              bool(r.packed), r.scalars)
+        _same_arrays(p.arrays, r.arrays)
+        assert sorted(port_r.memento.working_set()) == sorted(ref_r.memento.working_set())
+        victim = 7 + 11 * step
+        assert port_r.fail_replica(victim) == ref_r.fail_replica(victim)
 
 
 @pytest.mark.parametrize("packed", [False, True])
