@@ -13,7 +13,8 @@
    the same work: the Memento kernels and the delta apply, then the
    lookup and diff kernels of AnchorHash, DxHash, JumpHash and PowerHash
    on a stable state and after a one-shot removal of 90 % (capacity
-   factor 4 for the fixed-capacity ones).
+   factor 4 for the fixed-capacity ones); for ``dx_lookup`` it also logs
+   its lane group G, the probes a key and the warp rounds a key (a model).
 3. Drives the first slice's path, ``SessionRouter.route_batch`` on 2^20
    session ids at n = 10^6, through the paper's scenarios (stable,
    one-shot 90 % removal, incremental removals) and failover in overlap
@@ -53,7 +54,11 @@
    mode.  Every ``{memento,anchor}_packed_*`` kernel,
    ``memento_compact_lookup`` and the int16 and int8 delta applies must
    be launched on that path; then each is held against its plain version
-   on the card at every width and timed beside its bound.
+   on the card at every width and timed beside its bound;
+   ``memento_packed_replica`` on every state of the path (stable, 1024
+   removals, one-shot, int16, int8), logging the table sectors a key it
+   loads (a model over the plain reader's counters) and the rate that
+   gives at its time.
 7. Drives the fifth slice's path on phase 6's one-shot state: Memento's
    compact table at k = 3 and bounded k = 2 (c = 1.25) through
    ``engine_lookup(table="compact")``, and a cross-algorithm
@@ -176,6 +181,52 @@ COLD_REPS = 15            # phase 7: cold launches a median is taken over
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def replica_sectors(work: dict, keys: int, bounded: bool) -> float:
+    """32-byte L2 sectors a key that a packed Memento replica set loads from
+    its tables, one a load, from the plain reader's counters ("bit" reads,
+    "start" probes of removed buckets, "slot" slots read), as the kernel's
+    reader (``PackedRepl``) loads them: every read its bitmap word and its
+    first probe slot's two words, each later slot two more.  A bounded set
+    adds one load word a try.  A model over the counters, not a device
+    count."""
+    bit, start, slot = (work.get(c, 0) for c in ("bit", "start", "slot"))
+    load = work.get("try", 0) if bounded else 0
+    return (3 * bit + 2 * (slot - start) + load) / keys
+
+
+def dx_probes(keys, words, a: int, max_probes: int):
+    """The probes each key's DxHash lookup makes: the index of its first
+    hit plus one, or max_probes (int64, on the keys' device)."""
+    import torch
+
+    from repro_torch.kernels.primitives import as_u32, gather1d, hash2
+
+    k = as_u32(keys)
+    probes = torch.full(k.shape, max_probes, dtype=torch.int64, device=k.device)
+    lanes = torch.arange(k.numel(), device=k.device)
+    for i in range(max_probes):
+        if not lanes.numel():
+            break
+        c = hash2(k[lanes], i) % a
+        hit = ((gather1d(words, c >> 5) >> (c & 31)) & 1) == 1
+        probes[lanes[hit]] = i + 1
+        lanes = lanes[~hit]
+    return probes
+
+
+def warp_rounds(probes, g: int) -> float:
+    """Rounds a warp runs, a key, when each key's probes are spread over g
+    lanes (32 / g keys a warp, each round g probes a key): a warp runs
+    until its slowest key is done.  A model over the probe counts, not a
+    device count."""
+    import torch
+
+    per = 32 // g
+    p = torch.nn.functional.pad(probes, (0, -probes.numel() % per))
+    rounds = (p.reshape(-1, per) + g - 1).div(g, rounding_mode="floor").amax(dim=1)
+    return float(rounds.sum()) / probes.numel()
 
 
 def main() -> int:
@@ -614,6 +665,8 @@ class Smoke:
                 bound_ms, bound_by = self.bound(ops, 8 * KEYS + table_bytes)
                 by_state[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                                   "bound_by": bound_by, "max_abs_err": err}
+                if algo == "dx":
+                    self.dx_rounds(keys, tables, scalars, name)
                 log(f"check {algo}_lookup {name}: keys={KEYS} kernel == plain"
                     f"{' == host sample' if name == 'oneshot' else ''}; kernel {ms:.6f} ms, "
                     f"plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
@@ -660,6 +713,21 @@ class Smoke:
             self.kept[algo] = (h, stable[3], oneshot[3])
         torch.cuda.synchronize()
         return rows
+
+    @staticmethod
+    def dx_rounds(keys, tables, scalars, name: str) -> None:
+        """Log ``dx_lookup``'s lane group G (read from the kernel library),
+        the mean probes a key, and the warp rounds a key (a model) with G
+        lanes a key and with one thread a key."""
+        from repro_torch.kernels import engine
+
+        a, max_probes = scalars[0], scalars[1]
+        probes = dx_probes(keys, tables[0], a, max_probes)
+        g = engine.dx_lane_group(max_probes)
+        log(f"dx_lookup {name}: a={a} max_probes={max_probes}, G={g} lanes a key; "
+            f"{float(probes.double().mean()):.4f} probes a key (max {int(probes.max())}); "
+            f"warp rounds a key (model) {warp_rounds(probes, g):.4f} at G={g}, "
+            f"{warp_rounds(probes, 1):.4f} at one lane a key")
 
     # -- phase 3 ---------------------------------------------------------------
     def check_batch(self, router, ids, out, what: str) -> None:
@@ -1746,6 +1814,44 @@ class Smoke:
         return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "max_abs_err": e}
 
+    def check_packed_replica(self, algo: str, label: str, keys, operands, load_cap,
+                             rows: dict):
+        """``{algo}_packed_replica`` at k = 3 and bounded k = 2 on one state
+        against its plain version, timed beside its bound; for Memento also
+        logs the table sectors a key of its reader (a model over the plain
+        reader's counters) and the rate that gives at the kernel's time.
+        Returns the k = 3 sets."""
+        from repro_torch.kernels import engine
+
+        tables, scalars = operands
+        n, kw = scalars[0], {"table": "packed"}
+        tb = sum(t.numel() * t.element_size() for t in tables)
+        sets = None
+        for k, load, cap in ((REPLICAS_K, None, None), (BOUNDED_K, *load_cap)):
+            bounded = load is not None
+            work: dict = {}
+            got = engine.kernel_replica(algo, keys, k, tables, scalars, load, cap, **kw)
+            want, plain_ms = self.timed_plain(lambda: engine.replica_plain(
+                algo, keys, k, tables, scalars, load, cap, work, **kw))
+            e = int((got.long() - want.long()).abs().max())
+            if e:
+                raise AssertionError(f"{algo}_packed_replica {label} k={k}"
+                                     f"{' bounded' if bounded else ''}: kernel != plain ({e})")
+            ms = self.time_ms(lambda: engine.kernel_replica(algo, keys, k, tables, scalars,
+                                                            load, cap, **kw), reps=10, warmup=1)
+            what = f"{label} {'bounded ' if bounded else ''}k={k}"
+            entry = self.packed_entry(
+                f"{algo}_packed_replica {what}{f' cap={cap}' if bounded else ''}", e, ms,
+                plain_ms, self.mode_ops(algo, work, KEYS, n, k, bounded=bounded),
+                4 * KEYS * (1 + k) + tb + (4 * load.numel() if bounded else 0), work)
+            if algo == "memento":
+                sec = replica_sectors(work, KEYS, bounded)
+                log(f"  memento_packed_replica {what}: table sectors a key (model) {sec:.3f}, "
+                    f"{sec * KEYS / (ms * 1e-3) / 1e9:.3f} G sectors/s at the kernel's time")
+            rows[what] = entry
+            sets = got if sets is None else sets
+        return sets
+
     def check_packed_kernels(self, algo: str, sets: list, launches: dict) -> list[dict]:
         """Every ``{algo}_packed_*`` kernel against its plain version on the
         card on each of ``sets`` (one table width each), 2048 keys of each
@@ -1814,35 +1920,17 @@ class Smoke:
                 f"{algo}_packed_diff {label}, moved {int(got[2].sum())}", e, ms, plain_ms, ops,
                 16 * KEYS + tb + ob, both)
 
-            work = {}
-            got = engine.kernel_replica(algo, keys, REPLICAS_K, tables, scalars, **kw)
-            want, plain_ms = self.timed_plain(lambda: engine.replica_plain(
-                algo, keys, REPLICAS_K, tables, scalars, work=work, **kw))
-            e = err(got, want)
-            if e or [h.lookup_k(int(k), REPLICAS_K) for k in keys_np[sample[:256]]] != \
+            got = self.check_packed_replica(algo, label, keys, new, (load_t, cap),
+                                            by_mode["replica"])
+            if [h.lookup_k(int(k), REPLICAS_K) for k in keys_np[sample[:256]]] != \
                     got.cpu().numpy()[sample[:256]].tolist():
-                raise AssertionError(f"{algo}_packed_replica {label}: kernel != plain / host")
-            ms = self.time_ms(lambda: engine.kernel_replica(algo, keys, REPLICAS_K, tables,
-                                                            scalars, **kw), reps=10, warmup=1)
-            entry = self.packed_entry(
-                f"{algo}_packed_replica {label} k={REPLICAS_K}", e, ms, plain_ms,
-                self.mode_ops(algo, work, KEYS, n, REPLICAS_K),
-                4 * KEYS * (1 + REPLICAS_K) + tb, work)
-            by_mode["replica"][f"{label} k={REPLICAS_K}"] = entry
-            work = {}
-            got = engine.kernel_replica(algo, keys, BOUNDED_K, tables, scalars, load_t, cap, **kw)
-            want, plain_ms = self.timed_plain(lambda: engine.replica_plain(
-                algo, keys, BOUNDED_K, tables, scalars, load_t, cap, work, **kw))
-            e = err(got, want)
-            if e:
-                raise AssertionError(f"{algo}_packed_replica bounded {label}: kernel != plain")
-            ms = self.time_ms(lambda: engine.kernel_replica(algo, keys, BOUNDED_K, tables,
-                                                            scalars, load_t, cap, **kw),
-                              reps=10, warmup=1)
-            by_mode["replica"][f"{label} bounded k={BOUNDED_K}"] = self.packed_entry(
-                f"{algo}_packed_replica {label} bounded k={BOUNDED_K} cap={cap}", e, ms,
-                plain_ms, self.mode_ops(algo, work, KEYS, n, BOUNDED_K, bounded=True),
-                4 * KEYS * (1 + BOUNDED_K) + tb + 4 * load_t.numel(), work)
+                raise AssertionError(f"{algo}_packed_replica {label}: kernel != host")
+            if algo == "memento":  # the path's earlier states
+                for name, img in st.get("lookups", []):  # the set's load covers their ids
+                    width = str(img.arrays["slot_b"].dtype).replace("torch.", "")
+                    self.check_packed_replica(algo, f"{width}, n={img.n} {name}", keys,
+                                              engine.image_operands(img), (load_t, cap),
+                                              by_mode["replica"])
 
             both = {}
             got = engine.kernel_replica_diff(algo, keys, REPLICAS_K, old, new, **kw)

@@ -1,0 +1,146 @@
+#!/usr/bin/env python3
+"""Time two builds of ``csrc/engine.cu`` on one GPU, in turns, on the same
+states, through the port's public wrappers: another commit's source (a
+``git archive`` of its ``csrc`` unpacked into a directory that
+``.gitignore`` lists) and this tree's.
+
+    git archive PARENT src/repro_torch/kernels/csrc | tar -x -C archive/parent
+    python3 scripts/ab_engine.py archive/parent/src/repro_torch/kernels/csrc \
+        [--json PATH]
+
+Each case is an entry, a state, one call of its wrapper and the plain
+version to hold it against (:func:`cases`); a redesign of another entry
+adds its cases there.  Each case runs old, new, new, old (CUDA-event means
+over REPS launches, as ``chip_smoke.py`` times them); the two builds'
+outputs must be equal over the whole batch, and equal to the plain
+version on the first ``check`` keys.  Both builds must export the same
+entries with the same arguments.
+
+Prints one JSON line a case; ``--json PATH`` also writes them all to
+PATH.  Needs a GPU and ``nvcc``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.core.memento import MementoHash  # noqa: E402
+from repro_torch.core.packing import pack_image  # noqa: E402
+from repro_torch.core.protocol import DeviceImage, make_hash  # noqa: E402
+from repro_torch.kernels import build, engine  # noqa: E402
+from repro_torch.serve.router import SessionRouter  # noqa: E402
+
+REPS = 20
+PREFIX = 2**14  # keys held against a plain version that takes minutes on all
+
+
+def dx_states(smoke):
+    """DxHash at a = 4·10^6: stable (w = 10^6), then one-shot 90 %."""
+    h = make_hash("dx", cs.N, capacity=cs.CAPACITY_FACTOR * cs.N, variant="32")
+    yield "stable", smoke.operands(h)[:2]
+    smoke.remove_fraction(h, cs.ONESHOT_FRACTION)
+    yield "one-shot", smoke.operands(h)[:2]
+
+
+def packed_states(smoke):
+    """(name, image, working) of every packed Memento state, on the card:
+    n = 10^6 stable, after 1024 removals and one-shot 90 % (int32 slots),
+    n = 10^4 (int16) and a hand-narrowed n = 100 (int8)."""
+    router = SessionRouter(cs.N, compact_images=True)
+    store = router.image_store()
+    yield "int32 stable", store.image(), router.ch.working
+    smoke.remove_random(router.ch, cs.PACKED_REMOVALS)
+    store.sync()
+    yield f"int32 {cs.PACKED_REMOVALS} removals", store.image(), router.ch.working
+    smoke.remove_random(router.ch, int(cs.ONESHOT_FRACTION * cs.N) - cs.PACKED_REMOVALS)
+    store.sync()
+    yield "int32 one-shot", store.image(), router.ch.working
+    small = MementoHash(cs.SMALL_N, variant="32")
+    smoke.remove_random(small, cs.SMALL_EVENTS[0])
+    yield "int16 n=10^4", smoke.on_card(pack_image(small.device_image())), small.working
+    tiny = MementoHash(cs.TINY_N, variant="32")
+    smoke.remove_random(tiny, cs.TINY_N // 2)
+    img = pack_image(tiny.device_image())
+    arrays = {k: (v.to(torch.int8) if k.startswith("slot") else v).to(smoke.dev)
+              for k, v in img.arrays.items()}
+    yield "int8 n=100", DeviceImage("memento", img.n, arrays, dict(img.scalars), img.epoch,
+                                    packed=True), tiny.working
+
+
+def cases(smoke, keys_np):
+    """(entry, state, call, plain, check) for every case: ``call(keys)``
+    runs the entry's public wrapper, ``plain(keys)`` its plain version,
+    held on the first ``check`` keys (None: all).  A bounded set's load is
+    ``bounded_assign``'s of ``keys_np``."""
+    for name, (tables, scalars) in dx_states(smoke):
+        yield ("dx_lookup", name,
+               lambda keys, t=tables, s=scalars: engine.kernel_lookup("dx", keys, t, s),
+               lambda keys, t=tables, s=scalars: engine.lookup_plain("dx", keys, t, s), PREFIX)
+    for name, img, working in packed_states(smoke):
+        tables, scalars = engine.image_operands(img)
+        cap = int(np.ceil(cs.CAP_C * cs.KEYS / working))
+        _, load = engine.bounded_assign(keys_np, img,
+                                        np.zeros(engine.bounded_load_len(img), np.int32), cap)
+        load = torch.from_numpy(load).to(smoke.dev)
+        for k, ld, c in ((cs.REPLICAS_K, None, None), (cs.BOUNDED_K, load, cap)):
+            args = (k, tables, scalars, ld, c)
+            state = f"{name} {'bounded ' if ld is not None else ''}k={k}"
+            yield ("memento_packed_replica", state,
+                   lambda keys, a=args: engine.kernel_replica("memento", keys, *a, table="packed"),
+                   lambda keys, a=args: engine.replica_plain("memento", keys, *a, table="packed"),
+                   None)
+
+
+def main(argv: list[str]) -> int:
+    if not torch.cuda.is_available():
+        print("ab_engine: no CUDA device", file=sys.stderr)
+        return 2
+    builds = {"old": Path(argv[1]) / "engine.cu", "new": build.CSRC / "engine.cu"}
+    out = Path(argv[argv.index("--json") + 1]) if "--json" in argv else None
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    for label, src in builds.items():
+        with build.built_from("engine", src):
+            built = build.build(["engine"])["engine"]
+        print(f"built {label} in {built.seconds:.1f} s", flush=True)
+    print(f"both built in {time.perf_counter() - t0:.1f} s", flush=True)
+    smoke = cs.Smoke(torch)
+    keys_np, keys = smoke.keys()
+    rows = []
+    for entry, state, call, plain, check in cases(smoke, keys_np):
+        got = {}
+        for label, src in builds.items():
+            with build.built_from("engine", src):
+                got[label] = call(keys)
+        want = plain(keys[:check])
+        for label, o in got.items():
+            if not torch.equal(o, got["old"]) or not torch.equal(o[:check], want):
+                raise AssertionError(f"{entry} {state}: {label} != old / plain")
+        ms: dict = {label: [] for label in builds}
+        for label in [*builds, *reversed(builds)]:
+            with build.built_from("engine", builds[label]):
+                ms[label].append(smoke.time_ms(lambda: call(keys), reps=REPS))
+        row = {"entry": entry, "state": state, "ms": ms}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    if out is not None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"device": smi, "rows": rows}, indent=1))
+        print(f"wrote {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

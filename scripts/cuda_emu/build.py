@@ -1,7 +1,8 @@
 """Build the port's CUDA sources for the CPU: every ``k<<<grid, block, smem,
 stream>>>(args)`` launch in ``csrc/*.cu`` is rewritten to ``emu_launch(grid,
-block, k, args)`` (a loop over blocks and threads, ``cuda_runtime.h`` here)
-and each file is compiled with g++ into ``lib<name>.so``.
+block, k, args)`` (blocks one after another, a block's threads as fibers
+that meet at warp collectives, ``cuda_runtime.h`` here) and each file is
+compiled with g++ into ``lib<name>.so``.
 
     python scripts/cuda_emu/build.py OUT_DIR [CSRC_DIR]
 
@@ -44,6 +45,7 @@ def main(argv: list[str]) -> int:
         cpp = out / f"{cu.stem}.cpp"
         cpp.write_text(rewrite(cu.read_text()))
         subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+                        "-U_FORTIFY_SOURCE",  # the fibers' longjmp crosses stacks
                         "-I", str(HERE), "-o", str(out / f"lib{cu.stem}.so"), str(cpp)],
                        check=True)
         print("built", out / f"lib{cu.stem}.so")

@@ -50,6 +50,7 @@ def install() -> None:
     torch.cuda.device = lambda *a, **k: contextlib.nullcontext()
     torch.cuda.current_stream = lambda *a, **k: types.SimpleNamespace(cuda_stream=0)
     torch.cuda.current_device = lambda: 0
+    torch.cuda.get_device_properties = lambda *a: types.SimpleNamespace(multi_processor_count=4)
     plain = da.delta_apply
 
     def delta_apply(table, meta, count):

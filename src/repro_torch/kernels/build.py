@@ -13,6 +13,7 @@ on a correctly rounded divide and exact products).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,7 +41,8 @@ class Built:
     reused: bool
 
 
-_LOADED: dict[str, ctypes.CDLL] = {}
+_LOADED: dict[tuple, ctypes.CDLL] = {}
+_SOURCES: dict[str, Path] = {}
 
 
 def nvcc_path() -> str:
@@ -52,8 +54,12 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
+def _source(name: str) -> Path:
+    return _SOURCES.get(name) or CSRC / f"{name}.cu"
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source(name).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -77,7 +83,7 @@ def build(names: list[str] | None = None) -> dict[str, Built]:
             out[name] = Built(name, target, 0.0, log.read_text(), True)
             continue
         tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, target, time.perf_counter())
@@ -100,7 +106,8 @@ def build(names: list[str] | None = None) -> dict[str, Built]:
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu`` (building it if needed),
     with ``argtypes`` set from ``signatures`` and every ``restype`` int."""
-    lib = _LOADED.get(name)
+    key = (name, _SOURCES.get(name))
+    lib = _LOADED.get(key)
     if lib is None:
         built = build([name])[name]
         lib = ctypes.CDLL(str(built.path))
@@ -109,8 +116,21 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
-        _LOADED[name] = lib
+        _LOADED[key] = lib
     return lib
+
+
+@contextlib.contextmanager
+def built_from(name: str, source: Path):
+    """Within the block, :func:`build` and :func:`load` take ``source`` (another
+    revision of ``csrc/<name>.cu``, such as a ``git archive`` of an earlier
+    commit) in place of this tree's, so that two builds run through the
+    same wrappers: ``scripts/ab_engine.py`` times them so."""
+    _SOURCES[name] = Path(source).resolve()
+    try:
+        yield
+    finally:
+        del _SOURCES[name]
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

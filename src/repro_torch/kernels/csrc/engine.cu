@@ -32,12 +32,15 @@
 // repl 4-8 MB at n = 10^6, its packed slot table 33.5 MB after a 90 %
 // removal, Anchor's A and K 32 MB at a = 4*10^6, Dx's bitmap 0.5 MB): ~10
 // reads a key for Memento at 90 % removed, each a 32-byte L2 sector for
-// 4 useful bytes.  There the sectors a key pulls through L2, not the bytes
-// of the tables, bound the time; chip_smoke.py's bound_ms counts
-// operations and each table byte once, so it sits below what the card can
-// reach.  DxHash is the slowest: after a 90 % removal at capacity factor 4
-// a key needs ~a/w = 40 probes.  A replica set costs about k lookups (plus
-// one per rejected candidate), a walk step one lookup per probe.
+// 4 useful bytes.  There the loads a SM keeps in flight bound the time,
+// not the bytes of the tables (chip_smoke.py's bound_ms counts operations
+// and each table byte once, so it sits below what the card can reach):
+// a replica walk that loaded 40 % fewer sectors with half the warps a SM
+// ran twice as long.  DxHash is the slowest: after a 90 % removal at
+// capacity factor 4 a key needs ~a/w = 40 probes, and one thread a key
+// leaves a warp waiting for its slowest key (~4 x the mean).  A replica
+// set costs about k lookups (plus one per rejected candidate), a walk step
+// one lookup per probe.
 //
 // Design: one thread per key with per-thread loops.  The Pallas kernel runs
 // lane-synchronous masked while_loops over (8, 128) key blocks, so a block
@@ -48,7 +51,13 @@
 // mode's kernel is a template over that struct, so the modes of one
 // algorithm cannot disagree about a placement.  A replica walk keeps its
 // chosen slots in the lane's own output row and compares each candidate
-// with them there, so k has no limit.
+// with them there, so k has no limit.  dx_lookup is the exception: when
+// ceil(a/w) >= 8 a key's probes are spread over G lanes (dx_group_kernel,
+// G the largest power of two <= ceil(a/w) / 4, at most 32), so a warp waits
+// for the slowest of 32 / G keys and each round tests G probes of a key;
+// a key then loads ~G/2 bitmap words past its hit, and G ~ ceil(a/w) / 4
+// balanced the two in a sweep (PERF.md).  DxHash's probe remainder divides
+// by a fixed a with multiplies (fastmod).
 //
 // Memento's table is read through a reader functor (DenseRepl, PackedRepl<T>,
 // CompactRepl) and AnchorHash's A/K through their element type T, so the
@@ -63,9 +72,15 @@
 // slot, which every valid image has, so the bound changes no answer and
 // keeps a broken table from hanging the card.  The `width` argument of a
 // packed entry (1, 2 or 4 bytes) picks the template instance; each epoch of
-// a diff has its own.  (A lookup kernel with several keys in flight a
-// thread, a grid that fills the card once, lost to one thread per key at
-// every count tried, stable and one-shot: PERF.md.)
+// a diff has its own.
+//
+// Designs that lost to these on the card and were deleted (PERF.md): a
+// lookup kernel with several keys in flight a thread (every count tried);
+// a persistent memento_packed_replica kernel with the packed bitmap staged
+// in shared memory (one 1024-thread block a SM, half the warps: x2.06
+// one-shot); replica slots held in registers (+4 to +8 % stable); the
+// fixed-divisor remainder as a 64 x 64 high product (+2.5 % stable); and
+// G = ceil(a/w) rounded up to a power of two (G = 32 one-shot: +2.4 %).
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -225,17 +240,16 @@ __device__ __forceinline__ int32_t anchor_one(uint32_t key, const T* __restrict_
   return b;
 }
 
-// DxHash: probe hash2(key, i) % a in the bitmap of working buckets (bucket
-// c is bit c & 31 of word c >> 5) for i < max_probes, else fallback.
-__device__ __forceinline__ int32_t dx_one(uint32_t key,
-                                          const uint32_t* __restrict__ words,
-                                          int32_t a, int32_t max_probes,
-                                          int32_t fallback) {
-  for (int32_t i = 0; i < max_probes; ++i) {
-    const uint32_t c = hash2(key, static_cast<uint32_t>(i)) % static_cast<uint32_t>(a);
-    if ((words[c >> 5] >> (c & 31u)) & 1u) return static_cast<int32_t>(c);
-  }
-  return fallback;
+// x % a for a divisor fixed by the host, by multiplies (Lemire, Kaser and
+// Kurz, "Faster Remainder by Direct Computation", 2019): with magic =
+// ceil(2^64 / a) (UINT64_MAX / a + 1, which wraps to 0 at a = 1), x % a is
+// the high word of ((magic * x) mod 2^64) * a, exact for every 32-bit x and
+// a >= 1.  That 96-bit product's high word is taken in 32-bit halves,
+// (hi * a + umulhi(lo, a)) >> 32, so no 64 x 64 high product is needed.
+__device__ __forceinline__ uint32_t fastmod(uint32_t x, uint64_t magic, uint32_t a) {
+  const uint64_t low = magic * x;
+  return static_cast<uint32_t>((static_cast<uint64_t>(static_cast<uint32_t>(low >> 32)) * a +
+                                __umulhi(static_cast<uint32_t>(low), a)) >> 32);
 }
 
 // PowerHash level descent.  Top level L = floor(log2(n - 1)) by the shift
@@ -275,11 +289,23 @@ struct AnchorT {
   int32_t a;
   __device__ int32_t operator()(uint32_t key) const { return anchor_one(key, A, K, a); }
 };
+// DxHash: probe candidate(key, i) = hash2(key, i) % a in the bitmap of
+// working buckets (bucket c is bit c & 31 of word c >> 5) for i <
+// max_probes, else fallback.
 struct Dx {
   const uint32_t* words;
+  uint64_t magic;  // fastmod's for a
   int32_t a, max_probes, fallback;
+  __device__ uint32_t candidate(uint32_t key, int32_t i) const {
+    return fastmod(hash2(key, static_cast<uint32_t>(i)), magic, static_cast<uint32_t>(a));
+  }
+  __device__ bool working(uint32_t c) const { return (words[c >> 5] >> (c & 31u)) & 1u; }
   __device__ int32_t operator()(uint32_t key) const {
-    return dx_one(key, words, a, max_probes, fallback);
+    for (int32_t i = 0; i < max_probes; ++i) {
+      const uint32_t c = candidate(key, i);
+      if (working(c)) return static_cast<int32_t>(c);
+    }
+    return fallback;
   }
 };
 struct Jump {
@@ -296,6 +322,39 @@ __global__ void lookup_kernel(const uint32_t* __restrict__ keys,
                               int32_t* __restrict__ out, int64_t count, Body body) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < count) out[i] = body(keys[i]);
+}
+
+// dx_lookup: one key's probes spread over a group of G lanes (G a power of
+// two, 32 / G keys a warp).  In round r lane l of a group tests probe
+// r * G + l; the group takes the candidate of its lowest lane that hit (the
+// smallest probe index that hits: the sequential loop's answer, for any G)
+// by a ballot and a shuffle.  The warp runs while any of its groups is
+// open; lanes past `count` vote no hit and store nothing, and a group that
+// reaches max_probes without a hit returns fallback.  Every round begins
+// below max_probes, so `max_probes - base` cannot overflow.
+template <int G>
+__global__ void dx_group_kernel(const uint32_t* __restrict__ keys,
+                                int32_t* __restrict__ out, int64_t count, Dx dx) {
+  const int64_t k = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t sub = lane & (G - 1u);
+  // this group's lanes of the warp (G % 32: no shift by 32 at G = 32)
+  const uint32_t group = (G == 32 ? 0xFFFFFFFFu : (1u << (G % 32)) - 1u) << (lane - sub);
+  const bool live = k < count;
+  const uint32_t key = live ? keys[k] : 0u;
+  bool open = live;
+  int32_t b = dx.fallback;
+  for (int32_t base = 0; __any_sync(0xFFFFFFFFu, open); base += G) {
+    uint32_t c = 0u;
+    const bool hit = open && static_cast<int32_t>(sub) < dx.max_probes - base &&
+                     dx.working(c = dx.candidate(key, base + static_cast<int32_t>(sub)));
+    const uint32_t votes = __ballot_sync(0xFFFFFFFFu, hit) & group;
+    const uint32_t first =
+        __shfl_sync(0xFFFFFFFFu, c, votes ? __ffs(votes) - 1 : static_cast<int>(lane));
+    if (open && votes) b = static_cast<int32_t>(first);
+    if (votes || base >= dx.max_probes - G) open = false;
+  }
+  if (live && sub == 0) out[k] = b;
 }
 
 // The two epochs of a diff may differ in type (packed slots of another
@@ -415,6 +474,24 @@ int launch_lookup(const void* keys, void* out, long long count, Body body,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The lanes a dx_lookup key takes: the largest power of two <= ceil(a/w) /
+// 4, within [1, 32], from the host's probe bound max_probes = 64 *
+// ceil(a/w); so a key's expected ceil(a/w) probes take about four rounds
+// of its group.  G = 1 is one thread a key (lookup_kernel).
+int dx_group(int max_probes) {
+  int g = 1;
+  while (2 * g <= max_probes / 256 && g < 32) g <<= 1;
+  return g;
+}
+
+template <int G>
+int launch_dx_group(const void* keys, void* out, long long count, Dx dx, void* stream) {
+  dx_group_kernel<G><<<blocks_for(count * G), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), count, dx);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class Old, class New>
 int launch_diff(const void* keys, void* old_out, void* new_out, void* moved,
                 long long count, Old old_body, New new_body, void* stream) {
@@ -482,7 +559,8 @@ AnchorT<T> anchor(const void* A, const void* K, int a) {
   return {static_cast<const T*>(A), static_cast<const T*>(K), a};
 }
 Dx dx(const void* words, int a, int max_probes, int fallback) {
-  return {static_cast<const uint32_t*>(words), a, max_probes, fallback};
+  return {static_cast<const uint32_t*>(words), UINT64_MAX / static_cast<uint32_t>(a) + 1u, a,
+          max_probes, fallback};
 }
 
 // Calls f with a value of the signed integer type `width` bytes wide: the
@@ -542,7 +620,15 @@ int anchor_diff(const void* keys, void* old_out, void* new_out, void* moved,
 
 int dx_lookup(const void* keys, void* out, long long count, const void* words,
               int a, int max_probes, int fallback, void* stream) {
-  return launch_lookup(keys, out, count, dx(words, a, max_probes, fallback), stream);
+  const Dx body = dx(words, a, max_probes, fallback);
+  switch (dx_group(max_probes)) {
+    case 1: return launch_lookup(keys, out, count, body, stream);
+    case 2: return launch_dx_group<2>(keys, out, count, body, stream);
+    case 4: return launch_dx_group<4>(keys, out, count, body, stream);
+    case 8: return launch_dx_group<8>(keys, out, count, body, stream);
+    case 16: return launch_dx_group<16>(keys, out, count, body, stream);
+    default: return launch_dx_group<32>(keys, out, count, body, stream);
+  }
 }
 
 int dx_diff(const void* keys, void* old_out, void* new_out, void* moved,
@@ -806,6 +892,10 @@ int memento_compact_replica(const void* keys, void* out, long long count, int k,
   return launch_replica(keys, out, count, k, load, cap,
                         memento_compact(slot_b, slot_c, nslots, n), stream);
 }
+
+// The lanes dx_lookup gives a key at this probe bound (dx_group), for
+// the callers that report it.
+int dx_lane_group(int max_probes) { return dx_group(max_probes); }
 
 const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -745,6 +745,12 @@ def kernel_walk(algo: str, chain: torch.Tensor, probe: torch.Tensor,
     return b, ch, pr
 
 
+def dx_lane_group(max_probes: int) -> int:
+    """The lanes ``dx_lookup`` spreads a key's probes over at this probe
+    bound (1: one thread a key), as the built kernel library picks them."""
+    return build.load("engine", _SIGNATURES).dx_lane_group(ctypes.c_int(int(max_probes)))
+
+
 def memento_lookup(keys: torch.Tensor, repl: torch.Tensor, n: int) -> torch.Tensor:
     """The ``memento_lookup`` kernel (see :func:`kernel_lookup`)."""
     return kernel_lookup("memento", keys, [repl], [n])

@@ -175,16 +175,80 @@ def test_diff_kernel_of_every_algorithm_matches_plain(dev, algo):
     assert got[2].any()
 
 
-def test_dx_kernel_returns_fallback_after_max_probes(dev):
-    h = make_hash("dx", 400, capacity=1600, variant="32")
-    h._MAX_PROBE_FACTOR = 1
-    for b in range(390):
+@pytest.mark.parametrize("capacity, removed, factor",
+                         [(1600, 390, 1), (1600, 0, 1), (1600, 390, 7), (16000, 398, 2),
+                          (1600, 393, 5), (16000, 393, 3)])
+def test_dx_kernel_returns_fallback_after_max_probes(dev, capacity, removed, factor):
+    """Probe bounds of 160 and 4 (one thread a key), 1120 (4 lanes a key)
+    and 16000 (32 lanes a key): many keys run out of probes and take the
+    fallback bucket.  Bounds of 1145 (4 lanes) and 6858 (16 lanes) are no
+    multiple of the group, so a group's last round runs with 1 and 10 of
+    its lanes."""
+    h = make_hash("dx", 400, capacity=capacity, variant="32")
+    h._MAX_PROBE_FACTOR = factor
+    for b in range(removed):
         h.remove(b)
     tables, scalars = _operands(h, dev)
     keys = engine.key_tensor(KEYS, dev)
     out = engine.kernel_lookup("dx", keys, tables, scalars)
     assert torch.equal(out, engine.lookup_plain("dx", keys, tables, scalars))
-    assert int((out == 390).sum()) > 1000
+    assert int((out == removed).sum()) > 1000
+    assert out[:300].cpu().tolist() == [h.lookup(int(k)) for k in KEYS[:300]]
+
+
+def _edge_counts(dev) -> list[int]:
+    """Key counts at the edges of a lane group, a warp and a block, and one
+    past 1024 keys a streaming multiprocessor."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return [0, 1, 31, 33, 1023, 1025, sms * 1024 + 1]
+
+
+@pytest.mark.parametrize("ratio", [1, 4, 8, 16, 32, 64, 128, 200])
+def test_dx_lookup_kernel_for_every_lane_group(dev, ratio):
+    """``dx_lookup`` takes one thread a key (⌈a/w⌉ = 1, 4) or spreads a
+    key's probes over G = 2, 4, 8, 16, 32 lanes (⌈a/w⌉ = 8, 16, 32, 64,
+    128 and 200): equal to its plain version at every key count around a
+    group, a warp and a block, and to the host."""
+    a = 6400
+    h = make_hash("dx", a, capacity=a, variant="32")
+    for b in np.random.default_rng(ratio).permutation(a)[: a - a // ratio].tolist():
+        h.remove(int(b))
+    tables, scalars = _operands(h, dev)
+    lanes = {1: 1, 4: 1, 8: 2, 16: 4, 32: 8, 64: 16, 128: 32, 200: 32}[ratio]
+    assert engine.dx_lane_group(scalars[1]) == lanes
+    counts = _edge_counts(dev)
+    keys_np = np.random.default_rng(ratio).integers(0, 2**32, size=max(counts), dtype=np.uint32)
+    keys_np[:5] = [0, 1, 2**31 - 1, 2**31, 2**32 - 1]
+    keys = engine.key_tensor(keys_np, dev)
+    want = engine.lookup_plain("dx", keys, tables, scalars)
+    assert want[:300].cpu().tolist() == [h.lookup(int(k)) for k in keys_np[:300]]
+    for count in counts:
+        before = engine.LAUNCHES["dx_lookup"]
+        out = engine.kernel_lookup("dx", keys[:count], tables, scalars)
+        torch.cuda.synchronize()
+        assert engine.LAUNCHES["dx_lookup"] == before + (count > 0)
+        assert torch.equal(out, want[:count]), count
+
+
+@pytest.mark.parametrize("a", [1, 2, 3, 7, 1_000_003, 4_000_000])
+def test_dx_kernels_take_the_exact_remainder(dev, a):
+    """The fixed-divisor remainder of every dx entry at odd and edge
+    divisors, on the keys at the ends of the uint32 range."""
+    from repro_torch.core.dx import DxHash
+
+    h = DxHash(a, max(1, a // 4), variant="32")
+    tables, scalars = _operands(h, dev)
+    keys_np = np.concatenate([np.asarray([0, 1, 2**31 - 1, 2**31, 2**32 - 1], np.uint32),
+                              KEYS[5:2000]])
+    keys = engine.key_tensor(keys_np, dev)
+    out = engine.kernel_lookup("dx", keys, tables, scalars)
+    assert out.cpu().tolist() == [h.lookup(int(k)) for k in keys_np]
+    assert torch.equal(out, engine.lookup_plain("dx", keys, tables, scalars))
+    k = min(2, h.working)
+    sets = engine.kernel_replica("dx", keys, k, tables, scalars)
+    assert torch.equal(sets, engine.replica_plain("dx", keys, k, tables, scalars))
+    old, new, moved = engine.kernel_diff("dx", keys, (tables, scalars), (tables, scalars))
+    assert torch.equal(old, out) and torch.equal(new, out) and not moved.any()
 
 
 @pytest.mark.parametrize("algo", ALGORITHMS)
@@ -350,12 +414,14 @@ def test_packed_kernels_match_plain_and_host(dev, algo, removed, width):
     torch.cuda.synchronize()
     assert torch.equal(out, engine.lookup_plain(algo, keys, tables, scalars, **kw))
     assert out[:200].cpu().tolist() == [h.lookup(int(k)) for k in KEYS[:200]]
-    k = min(3, h.working)
-    assert torch.equal(engine.kernel_replica(algo, keys, k, tables, scalars, **kw),
-                       engine.replica_plain(algo, keys, k, tables, scalars, **kw))
     load = torch.from_numpy(_load(img, seed=1)).to(dev)
-    assert torch.equal(engine.kernel_replica(algo, keys, 2, tables, scalars, load, 3, **kw),
-                       engine.replica_plain(algo, keys, 2, tables, scalars, load, 3, **kw))
+    for k in (1, 2, 3, 8, 9):
+        assert torch.equal(engine.kernel_replica(algo, keys, k, tables, scalars, **kw),
+                           engine.replica_plain(algo, keys, k, tables, scalars, **kw)), k
+        if 2 * k > h.working:
+            continue  # too few buckets below the cap: the exhausted walk is tested apart
+        assert torch.equal(engine.kernel_replica(algo, keys, k, tables, scalars, load, 3, **kw),
+                           engine.replica_plain(algo, keys, k, tables, scalars, load, 3, **kw)), k
     rng = np.random.default_rng(3)
     probe = torch.from_numpy(rng.integers(0, 9, size=keys.numel()).astype(np.int32)).to(dev)
     pending = torch.from_numpy(rng.random(keys.numel()) < 0.6).to(dev)
@@ -374,6 +440,63 @@ def test_packed_kernels_match_plain_and_host(dev, algo, removed, width):
     torch.cuda.synchronize()
     for mode in ("lookup", "diff", "replica", "replica_diff", "walk"):
         assert engine.LAUNCHES[f"{algo}_packed_{mode}"] > before[f"{algo}_packed_{mode}"]
+
+
+def test_packed_replica_kernel_at_full_size_and_key_count_edges(dev):
+    """``memento_packed_replica`` at n = 10^6, k = 1, 2, 3, 8 and 9,
+    unbounded and bounded, against the plain version at key counts around
+    a warp and a block, and against the host."""
+    from repro_torch.core.packing import pack_image
+
+    n = 10**6
+    m = _churned(n, int(0.4 * n), seed=11)
+    img = pack_image(m.device_image())
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    tables, scalars = engine.image_operands(img)
+    counts = _edge_counts(dev)
+    keys_np = np.random.default_rng(12).integers(0, 2**32, size=max(counts), dtype=np.uint32)
+    keys = engine.key_tensor(keys_np, dev)
+    load = torch.from_numpy(_load(img, seed=13)).to(dev)
+    kw = {"table": "packed"}
+    for k in (1, 2, 3, 8, 9):
+        for ld, cap in ((None, None), (load, 3)):
+            want = engine.replica_plain("memento", keys, k, tables, scalars, ld, cap, **kw)
+            for count in counts:
+                before = engine.LAUNCHES["memento_packed_replica"]
+                out = engine.kernel_replica("memento", keys[:count], k, tables, scalars, ld,
+                                            cap, **kw)
+                torch.cuda.synchronize()
+                assert engine.LAUNCHES["memento_packed_replica"] == before + (count > 0)
+                assert torch.equal(out, want[:count]), (k, cap, count)
+    assert want[:100].cpu().tolist() == engine.bounded_replica_sets(  # k = 9, bounded
+        m, keys_np[:100], 9, load.cpu().numpy(), 3).tolist()
+    assert engine.kernel_replica("memento", keys[:100], 3, tables, scalars,
+                                 **kw).cpu().tolist() == [m.lookup_k(int(x), 3)
+                                                          for x in keys_np[:100]]
+
+
+def test_exhausted_packed_replica_walk_keeps_the_plain_lookup(dev):
+    """k above the working buckets, and every bucket at the cap, on a
+    packed image: the lanes run out of salts and keep their plain lookup."""
+    from repro_torch.core.packing import pack_image
+
+    m = MementoHash(5, variant="32")
+    m.remove(1)
+    m.remove(3)
+    img = pack_image(m.device_image())
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    tables, scalars = engine.image_operands(img)
+    keys = engine.key_tensor(KEYS[:64], dev)
+    kw = {"table": "packed"}
+    for k in (5, 9):
+        assert torch.equal(engine.kernel_replica("memento", keys, k, tables, scalars, **kw),
+                           engine.replica_plain("memento", keys, k, tables, scalars, **kw))
+    load = torch.ones(engine.bounded_load_len(img), dtype=torch.int32, device=dev)
+    out = engine.kernel_replica("memento", keys, 2, tables, scalars, load, 1, **kw)
+    assert torch.equal(out, engine.replica_plain("memento", keys, 2, tables, scalars, load, 1,
+                                                 **kw))
+    first = engine.kernel_lookup("memento", keys, tables, scalars, **kw)
+    assert torch.equal(out, torch.stack([first, first], dim=1))
 
 
 @pytest.mark.parametrize("removed", [0.0, 0.5, 0.9])
