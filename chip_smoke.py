@@ -14,7 +14,8 @@
    lookup and diff kernels of AnchorHash, DxHash, JumpHash and PowerHash
    on a stable state and after a one-shot removal of 90 % (capacity
    factor 4 for the fixed-capacity ones); for ``dx_lookup`` it also logs
-   its lane group G, the probes a key and the warp rounds a key (a model).
+   its lane group G, the probes a key and the warp rounds a key (a model),
+   and for ``dx_diff`` its lane group G.
 3. Drives the first slice's path, ``SessionRouter.route_batch`` on 2^20
    session ids at n = 10^6, through the paper's scenarios (stable,
    one-shot 90 % removal, incremental removals) and failover in overlap
@@ -58,7 +59,10 @@
    ``memento_packed_replica`` on every state of the path (stable, 1024
    removals, one-shot, int16, int8), logging the table sectors a key it
    loads (a model over the plain reader's counters) and the rate that
-   gives at its time.
+   gives at its time; ``memento_packed_walk`` on every width, logging the
+   round trips a lane (a model, checked against the plain walk's
+   counters), the lane use one thread a lane leaves over warps of 32 and
+   the round trips a second at its time.
 7. Drives the fifth slice's path on phase 6's one-shot state: Memento's
    compact table at k = 3 and bounded k = 2 (c = 1.25) through
    ``engine_lookup(table="compact")``, and a cross-algorithm
@@ -214,6 +218,104 @@ def dx_probes(keys, words, a: int, max_probes: int):
         probes[lanes[hit]] = i + 1
         lanes = lanes[~hit]
     return probes
+
+
+def packed_read_trips(idx, state, slot_b, slot_c):
+    """Each packed Memento read of ``idx``: its value (repl, -1 working)
+    and the dependent round trips ``PackedRepl`` waits for: one for the
+    bitmap word and the first probe slot, one for each later slot."""
+    import torch
+
+    from repro_torch.core.hashing import GOLDEN32, MASK32
+    from repro_torch.core.packing import EMPTY
+    from repro_torch.kernels.primitives import fmix32, gather1d
+
+    val = torch.full_like(idx, -1)
+    trips = torch.ones_like(idx)
+    word = gather1d(state, idx >> 5) & MASK32
+    lanes = torch.nonzero(((word >> (idx & 31)) & 1) == 0).reshape(-1)
+    mask = slot_b.numel() - 1
+    want = idx[lanes]
+    pos = fmix32(want * GOLDEN32 + 5) & mask
+    for s in range(mask + 1):
+        if not lanes.numel():
+            break
+        sb = gather1d(slot_b, pos)
+        hit = sb == want
+        val[lanes[hit]] = gather1d(slot_c, pos[hit])
+        go = ~(hit | (sb == EMPTY)) & (s < mask)
+        lanes, want, pos = lanes[go], want[go], (pos[go] + 1) & mask
+        trips[lanes] += 1
+    return val, trips
+
+
+def lookup_trips(keys, tables, n: int):
+    """Each key's packed Memento lookup as ``memento_one`` runs it: its
+    bucket, the round trips it waits for, and how many of those read
+    repl(d) again, as the next outer read, after Alg. 4's inner loop has
+    read it."""
+    import torch
+
+    from repro_torch.kernels.primitives import hash2, jump32
+
+    b = jump32(keys, n)
+    c, trips = packed_read_trips(b, *tables)
+    again = torch.zeros_like(trips)
+    act = torch.nonzero(c >= 0).reshape(-1)
+    wb = c[act].clamp_min(1)
+    while act.numel():
+        d = hash2(keys[act], b[act]) % wb
+        u, t = packed_read_trips(d, *tables)
+        last = t.clone()
+        follow = torch.nonzero(u >= wb).reshape(-1)
+        while follow.numel():
+            d[follow] = u[follow]
+            u[follow], last[follow] = packed_read_trips(d[follow], *tables)
+            t[follow] += last[follow]
+            follow = follow[u[follow] >= wb[follow]]
+        b[act] = d
+        trips[act] += t + last
+        again[act] += last
+        keep = u >= 0
+        act, wb = act[keep], u[keep].clamp_min(1)
+    return b, trips, again
+
+
+def walk_trips(chain, probe, pending, tables, n: int, load, cap: int):
+    """The dependent round trips each lane of a packed Memento walk step
+    waits for as ``walk_kernel`` issues them (its lookups, and a load[b]
+    read at every test of a pending lane), and how many of those are
+    repeated reads of repl(d) (:func:`lookup_trips`).  A model over the
+    tables, not a device count.  Returns int64 per-lane tensors."""
+    import torch
+
+    from repro_torch.core.bounded import walk_probe_bound
+    from repro_torch.kernels.primitives import as_u32, gather1d, hash2
+
+    max_probe = walk_probe_bound(load.numel())
+    keys = as_u32(chain)
+    b, trips, again = lookup_trips(keys, tables, n)
+    lanes = torch.nonzero(pending).reshape(-1)
+    ch, pr, bb = keys[lanes], probe[lanes].long(), b[lanes]
+    while lanes.numel():
+        trips[lanes] += 1
+        go = (gather1d(load, bb) >= cap) & (pr < max_probe)
+        lanes, pr = lanes[go], pr[go] + 1
+        ch = hash2(ch[go], pr)
+        bb, t, a = lookup_trips(ch, tables, n)
+        trips[lanes] += t
+        again[lanes] += a
+    return trips, again
+
+
+def lane_use(trips) -> float:
+    """The share of a warp's lane slots with a round trip outstanding when
+    each thread runs one lane to its end (32 consecutive lanes a warp, each
+    warp waiting for its slowest): a model over per-lane counts."""
+    import torch
+
+    p = torch.nn.functional.pad(trips, (0, -trips.numel() % 32))
+    return float(trips.sum()) / float(32 * p.reshape(-1, 32).amax(dim=1).sum())
 
 
 def warp_rounds(probes, g: int) -> float:
@@ -626,6 +728,7 @@ class Smoke:
         Memento against their plain versions, at w = 10^6 stable and after
         a one-shot removal of 90 %."""
         from repro_torch.core.protocol import ALGORITHMS, make_hash
+        from repro_torch.kernels import engine
         from repro_torch.kernels.engine import (diff_plain, kernel_diff, kernel_lookup,
                                                 lookup_plain)
 
@@ -701,7 +804,9 @@ class Smoke:
                 self.algo_ops(algo, w_a, KEYS, old[1][0])
                 + self.algo_ops(algo, w_b, KEYS, new[1][0]) + KEYS,
                 16 * KEYS + stable[2] + oneshot[2])
-            log(f"check {algo}_diff stable -> oneshot: kernel == plain, moved "
+            lanes = (f", G={engine.dx_diff_lane_group(old[1][1], new[1][1])} lanes a key"
+                     if algo == "dx" else "")
+            log(f"check {algo}_diff stable -> oneshot{lanes}: kernel == plain, moved "
                 f"{int(got[2].sum())} of {KEYS}; kernel {ms:.6f} ms, plain {plain_ms:.3f} ms, "
                 f"bound {bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.1%} of the bound")
             rows.append({"name": f"{algo}_diff", "route": "cuda",
@@ -1966,6 +2071,8 @@ class Smoke:
                 f"{work.get('walk', 0)} steps)", e, ms, plain_ms,
                 self.mode_ops(algo, work, KEYS, n, walk=True),
                 21 * KEYS + tb + 4 * load_t.numel(), work)
+            if algo == "memento":
+                self.log_walk_trips(label, chain, probe, pending, new, load_t, cap, work, ms)
         rows = []
         for mode, by_state in by_mode.items():
             head = next(iter(by_state))
@@ -1979,6 +2086,25 @@ class Smoke:
                          "bound_ms": h_["bound_ms"], "bound_by": h_["bound_by"],
                          "library_ms": None, "state": head, "by_state": by_state})
         return rows
+
+    @staticmethod
+    def log_walk_trips(label, chain, probe, pending, operands, load, cap, work, ms) -> None:
+        """Log a packed Memento walk step's round trips a lane (a model,
+        :func:`walk_trips`, whose count must equal the plain walk's
+        counters), the lane use that leaves over warps of 32, the share of
+        repeated reads, and the round trips a second the kernel's time
+        implies."""
+        (tables, scalars), keys = operands, chain.numel()
+        trips, again = walk_trips(chain, probe, pending, tables, scalars[0], load, cap)
+        counted = (sum(work.get(c, 0) for c in ("bit", "slot", "walk")) - work.get("start", 0)
+                   + int(pending.sum()))
+        if int(trips.sum()) != counted:
+            raise AssertionError(f"memento_packed_walk {label}: round-trip model "
+                                 f"{int(trips.sum())} != the plain walk's counters {counted}")
+        log(f"  memento_packed_walk {label}: round trips a lane (model) "
+            f"{trips.sum() / keys:.3f}, {again.sum() / trips.sum():.1%} of them repeated reads "
+            f"of repl(d); lane use {lane_use(trips):.4f} over warps of 32; "
+            f"{trips.sum() / (ms * 1e-3) / 1e9:.3f} G round trips/s at the kernel's time")
 
     def check_compact(self, main: dict, launches: dict) -> dict:
         """``memento_compact_lookup`` on the 1024-removal and one-shot states

@@ -45,11 +45,21 @@ PREFIX = 2**14  # keys held against a plain version that takes minutes on all
 
 
 def dx_states(smoke):
-    """DxHash at a = 4·10^6: stable (w = 10^6), then one-shot 90 %."""
+    """DxHash at a = 4·10^6 on the card: stable (w = 10^6), w = 5·10^5
+    (the incremental scenario's last stage) and one-shot 90 % (w = 10^5),
+    each of the last two also one removal later: (name, operands)."""
     h = make_hash("dx", cs.N, capacity=cs.CAPACITY_FACTOR * cs.N, variant="32")
+
+    def remove(count):
+        for b in smoke.rng.permutation(sorted(h.working_set()))[:count].tolist():
+            h.remove(b)
+
     yield "stable", smoke.operands(h)[:2]
-    smoke.remove_fraction(h, cs.ONESHOT_FRACTION)
-    yield "one-shot", smoke.operands(h)[:2]
+    for name, working in (("w=5*10^5", cs.N // 2), ("one-shot", cs.N // 10)):
+        remove(h.working - working)
+        yield name, smoke.operands(h)[:2]
+        remove(1)
+        yield f"{name} + 1 removal", smoke.operands(h)[:2]
 
 
 def packed_states(smoke):
@@ -80,12 +90,19 @@ def packed_states(smoke):
 def cases(smoke, keys_np):
     """(entry, state, call, plain, check) for every case: ``call(keys)``
     runs the entry's public wrapper, ``plain(keys)`` its plain version,
-    held on the first ``check`` keys (None: all).  A bounded set's load is
-    ``bounded_assign``'s of ``keys_np``."""
-    for name, (tables, scalars) in dx_states(smoke):
+    held on the first ``check`` keys (None: all).  A bounded set's load,
+    and a walk's, is ``bounded_assign``'s of ``keys_np``; a walk has half
+    its lanes pending."""
+    dx = dict(dx_states(smoke))
+    for name in ("stable", "one-shot"):
         yield ("dx_lookup", name,
-               lambda keys, t=tables, s=scalars: engine.kernel_lookup("dx", keys, t, s),
-               lambda keys, t=tables, s=scalars: engine.lookup_plain("dx", keys, t, s), PREFIX)
+               lambda keys, t=dx[name]: engine.kernel_lookup("dx", keys, *t),
+               lambda keys, t=dx[name]: engine.lookup_plain("dx", keys, *t), PREFIX)
+    for old, new in (("stable", "one-shot"), ("w=5*10^5", "w=5*10^5 + 1 removal"),
+                     ("one-shot", "one-shot + 1 removal")):
+        yield ("dx_diff", f"{old} -> {new}",
+               lambda keys, e=(dx[old], dx[new]): engine.kernel_diff("dx", keys, *e),
+               lambda keys, e=(dx[old], dx[new]): engine.diff_plain("dx", keys, *e), PREFIX)
     for name, img, working in packed_states(smoke):
         tables, scalars = engine.image_operands(img)
         cap = int(np.ceil(cs.CAP_C * cs.KEYS / working))
@@ -99,6 +116,26 @@ def cases(smoke, keys_np):
                    lambda keys, a=args: engine.kernel_replica("memento", keys, *a, table="packed"),
                    lambda keys, a=args: engine.replica_plain("memento", keys, *a, table="packed"),
                    None)
+        probe = torch.zeros(cs.KEYS, dtype=torch.int32, device=smoke.dev)
+        pending = torch.from_numpy(smoke.rng.random(cs.KEYS) < 0.5).to(smoke.dev)
+        walk = (tables, scalars, load, cap)
+        yield ("memento_packed_walk", f"{name} cap={cap}",
+               lambda keys, w=walk, p=probe, q=pending: engine.kernel_walk(
+                   "memento", keys, p[:len(keys)], q[:len(keys)], *w, table="packed"),
+               lambda keys, w=walk, p=probe, q=pending: engine.walk_plain(
+                   "memento", keys, p[:len(keys)], q[:len(keys)], *w, table="packed"), None)
+
+
+def _equal(a, b) -> bool:
+    """Outputs equal: tensors, or tuples of them (a diff, a walk)."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _head(out, check):
+    """The first ``check`` rows of an output or of each of its tensors."""
+    return out[:check] if isinstance(out, torch.Tensor) else tuple(o[:check] for o in out)
 
 
 def main(argv: list[str]) -> int:
@@ -126,7 +163,7 @@ def main(argv: list[str]) -> int:
                 got[label] = call(keys)
         want = plain(keys[:check])
         for label, o in got.items():
-            if not torch.equal(o, got["old"]) or not torch.equal(o[:check], want):
+            if not _equal(o, got["old"]) or not _equal(_head(o, check), want):
                 raise AssertionError(f"{entry} {state}: {label} != old / plain")
         ms: dict = {label: [] for label in builds}
         for label in [*builds, *reversed(builds)]:

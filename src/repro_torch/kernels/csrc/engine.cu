@@ -40,7 +40,10 @@
 // capacity factor 4 a key needs ~a/w = 40 probes, and one thread a key
 // leaves a warp waiting for its slowest key (~4 x the mean).  A replica
 // set costs about k lookups (plus one per rejected candidate), a walk step
-// one lookup per probe.
+// one lookup per probe.  One thread a walk lane leaves ~73 % of a warp's
+// lane slots with no load outstanding at 90 % removed (a model, PERF.md),
+// yet walks that kept every lane loading ran slower (the designs below),
+// so lane use is not what binds the one-shot walk (what does is open).
 //
 // Design: one thread per key with per-thread loops.  The Pallas kernel runs
 // lane-synchronous masked while_loops over (8, 128) key blocks, so a block
@@ -51,13 +54,15 @@
 // mode's kernel is a template over that struct, so the modes of one
 // algorithm cannot disagree about a placement.  A replica walk keeps its
 // chosen slots in the lane's own output row and compares each candidate
-// with them there, so k has no limit.  dx_lookup is the exception: when
-// ceil(a/w) >= 8 a key's probes are spread over G lanes (dx_group_kernel,
-// G the largest power of two <= ceil(a/w) / 4, at most 32), so a warp waits
-// for the slowest of 32 / G keys and each round tests G probes of a key;
-// a key then loads ~G/2 bitmap words past its hit, and G ~ ceil(a/w) / 4
-// balanced the two in a sweep (PERF.md).  DxHash's probe remainder divides
-// by a fixed a with multiplies (fastmod).
+// with them there, so k has no limit.  dx_lookup and dx_diff are the
+// exceptions: when ceil(a/w) >= 8 a key's probes are spread over G lanes
+// (dx_group_bucket; G the largest power of two <= ceil(a/w) / 4, at most
+// 32, for the lookup; half that for the diff, from the epoch with more
+// probes, whose group probes both epochs), so a warp waits for the slowest
+// of 32 / G keys and each round tests G probes of a key; a key then loads
+// ~G/2 bitmap words past its hit, and these G balanced the two in sweeps
+// (PERF.md).  DxHash's probe remainder divides by a fixed a with multiplies
+// (fastmod).
 //
 // Memento's table is read through a reader functor (DenseRepl, PackedRepl<T>,
 // CompactRepl) and AnchorHash's A/K through their element type T, so the
@@ -74,13 +79,22 @@
 // packed entry (1, 2 or 4 bytes) picks the template instance; each epoch of
 // a diff has its own.
 //
-// Designs that lost to these on the card and were deleted (PERF.md): a
+// Designs that lost to these on the card and were deleted (PERF.md; the
+// figures below from an NVIDIA H100 80GB HBM3 at 700.00 W): a
 // lookup kernel with several keys in flight a thread (every count tried);
 // a persistent memento_packed_replica kernel with the packed bitmap staged
 // in shared memory (one 1024-thread block a SM, half the warps: x2.06
 // one-shot); replica slots held in registers (+4 to +8 % stable); the
-// fixed-divisor remainder as a 64 x 64 high product (+2.5 % stable); and
-// G = ceil(a/w) rounded up to a power of two (G = 32 one-shot: +2.4 %).
+// fixed-divisor remainder as a 64 x 64 high product (+2.5 % stable);
+// G = ceil(a/w) rounded up to a power of two (G = 32 one-shot: +2.4 %);
+// dx_diff at dx_lookup's G (+10 % at ceil(a/w) = 8); and for
+// memento_packed_walk a flattened walk, a persistent grid whose lanes each
+// issue one round trip an iteration and take the next index from a counter
+// (one atomic an index: x1.54 one-shot; 32 indices a warp an atomic:
+// +8.6 %; those 32 staged with their first jump32 run together: +5.3 %
+// one-shot, +19 to +52 % elsewhere), and a first lookup a thread with the
+// lanes still at or over the cap queued in shared memory for full warps
+// (-26 % stable, +35 % one-shot).
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -324,24 +338,21 @@ __global__ void lookup_kernel(const uint32_t* __restrict__ keys,
   if (i < count) out[i] = body(keys[i]);
 }
 
-// dx_lookup: one key's probes spread over a group of G lanes (G a power of
-// two, 32 / G keys a warp).  In round r lane l of a group tests probe
-// r * G + l; the group takes the candidate of its lowest lane that hit (the
-// smallest probe index that hits: the sequential loop's answer, for any G)
-// by a ballot and a shuffle.  The warp runs while any of its groups is
-// open; lanes past `count` vote no hit and store nothing, and a group that
-// reaches max_probes without a hit returns fallback.  Every round begins
-// below max_probes, so `max_probes - base` cannot overflow.
+// A DxHash key's probes spread over a group of G lanes (G a power of two,
+// 32 / G keys a warp): the bucket of `key` under one epoch.  In round r
+// lane l of a group tests probe r * G + l; the group takes the candidate
+// of its lowest lane that hit (the smallest probe index that hits: the
+// sequential loop's answer, for any G) by a ballot and a shuffle.  The
+// warp runs while any of its groups is open, so every lane of the warp
+// calls this together; a lane with no key (`live` false) votes no hit, and
+// a group that reaches max_probes without a hit returns fallback.  Every
+// round begins below max_probes, so `max_probes - base` cannot overflow.
 template <int G>
-__global__ void dx_group_kernel(const uint32_t* __restrict__ keys,
-                                int32_t* __restrict__ out, int64_t count, Dx dx) {
-  const int64_t k = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+__device__ __forceinline__ int32_t dx_group_bucket(const Dx& dx, uint32_t key, bool live) {
   const uint32_t lane = threadIdx.x & 31u;
   const uint32_t sub = lane & (G - 1u);
   // this group's lanes of the warp (G % 32: no shift by 32 at G = 32)
   const uint32_t group = (G == 32 ? 0xFFFFFFFFu : (1u << (G % 32)) - 1u) << (lane - sub);
-  const bool live = k < count;
-  const uint32_t key = live ? keys[k] : 0u;
   bool open = live;
   int32_t b = dx.fallback;
   for (int32_t base = 0; __any_sync(0xFFFFFFFFu, open); base += G) {
@@ -354,7 +365,38 @@ __global__ void dx_group_kernel(const uint32_t* __restrict__ keys,
     if (open && votes) b = static_cast<int32_t>(first);
     if (votes || base >= dx.max_probes - G) open = false;
   }
-  if (live && sub == 0) out[k] = b;
+  return b;
+}
+
+// dx_lookup at G lanes a key: lanes past `count` join the group rounds and
+// store nothing.
+template <int G>
+__global__ void dx_group_kernel(const uint32_t* __restrict__ keys,
+                                int32_t* __restrict__ out, int64_t count, Dx dx) {
+  const int64_t k = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const bool live = k < count;
+  const int32_t b = dx_group_bucket<G>(dx, live ? keys[k] : 0u, live);
+  if (live && (threadIdx.x & (G - 1u)) == 0) out[k] = b;
+}
+
+// dx_diff at G lanes a key: the group probes the old epoch, then the new
+// one, and its first lane stores both and whether the key moved.
+template <int G>
+__global__ void dx_group_diff_kernel(const uint32_t* __restrict__ keys,
+                                     int32_t* __restrict__ old_out,
+                                     int32_t* __restrict__ new_out,
+                                     int32_t* __restrict__ moved, int64_t count, Dx old_dx,
+                                     Dx new_dx) {
+  const int64_t k = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const bool live = k < count;
+  const uint32_t key = live ? keys[k] : 0u;
+  const int32_t o = dx_group_bucket<G>(old_dx, key, live);
+  const int32_t w = dx_group_bucket<G>(new_dx, key, live);
+  if (live && (threadIdx.x & (G - 1u)) == 0) {
+    old_out[k] = o;
+    new_out[k] = w;
+    moved[k] = o != w;
+  }
 }
 
 // The two epochs of a diff may differ in type (packed slots of another
@@ -484,11 +526,33 @@ int dx_group(int max_probes) {
   return g;
 }
 
+// The lanes a dx_diff key takes: half dx_lookup's G for the epoch with
+// more probes, at most 16 (one thread a key below 2).  A diff's group
+// probes both epochs, and the stable epoch of a stable -> one-shot diff (~4
+// probes a key) loses to large groups: on an NVIDIA H100 80GB HBM3 at
+// 700.00 W half dx_group's G ran 3.5 % faster there (G = 4 against 8),
+// 8.7 % between epochs at ceil(a/w) = 8 (one thread against G = 2) and
+// 1.2 % between two one-shot epochs (PERF.md).
+int dx_diff_group(int max_probes_old, int max_probes_new) {
+  const int g = dx_group(max_probes_old > max_probes_new ? max_probes_old : max_probes_new);
+  return g > 1 ? g / 2 : 1;
+}
+
 template <int G>
 int launch_dx_group(const void* keys, void* out, long long count, Dx dx, void* stream) {
   dx_group_kernel<G><<<blocks_for(count * G), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), count, dx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int launch_dx_group_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                         long long count, Dx old_dx, Dx new_dx, void* stream) {
+  dx_group_diff_kernel<G><<<blocks_for(count * G), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
+      static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count, old_dx, new_dx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -635,9 +699,15 @@ int dx_diff(const void* keys, void* old_out, void* new_out, void* moved,
             long long count, const void* words_old, int a_old, int max_probes_old,
             int fallback_old, const void* words_new, int a_new, int max_probes_new,
             int fallback_new, void* stream) {
-  return launch_diff(keys, old_out, new_out, moved, count,
-                     dx(words_old, a_old, max_probes_old, fallback_old),
-                     dx(words_new, a_new, max_probes_new, fallback_new), stream);
+  const Dx o = dx(words_old, a_old, max_probes_old, fallback_old);
+  const Dx w = dx(words_new, a_new, max_probes_new, fallback_new);
+  switch (dx_diff_group(max_probes_old, max_probes_new)) {
+    case 1: return launch_diff(keys, old_out, new_out, moved, count, o, w, stream);
+    case 2: return launch_dx_group_diff<2>(keys, old_out, new_out, moved, count, o, w, stream);
+    case 4: return launch_dx_group_diff<4>(keys, old_out, new_out, moved, count, o, w, stream);
+    case 8: return launch_dx_group_diff<8>(keys, old_out, new_out, moved, count, o, w, stream);
+    default: return launch_dx_group_diff<16>(keys, old_out, new_out, moved, count, o, w, stream);
+  }
 }
 
 int jump_lookup(const void* keys, void* out, long long count, int n, void* stream) {
@@ -896,6 +966,12 @@ int memento_compact_replica(const void* keys, void* out, long long count, int k,
 // The lanes dx_lookup gives a key at this probe bound (dx_group), for
 // the callers that report it.
 int dx_lane_group(int max_probes) { return dx_group(max_probes); }
+
+// The lanes dx_diff gives a key for these two epochs' probe bounds
+// (dx_diff_group).
+int dx_diff_lane_group(int max_probes_old, int max_probes_new) {
+  return dx_diff_group(max_probes_old, max_probes_new);
+}
 
 const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -751,6 +751,14 @@ def dx_lane_group(max_probes: int) -> int:
     return build.load("engine", _SIGNATURES).dx_lane_group(ctypes.c_int(int(max_probes)))
 
 
+def dx_diff_lane_group(max_probes_old: int, max_probes_new: int) -> int:
+    """The lanes ``dx_diff`` spreads a key's probes over, in both epochs,
+    for these probe bounds (1: one thread a key), as the built kernel
+    library picks them."""
+    return build.load("engine", _SIGNATURES).dx_diff_lane_group(
+        ctypes.c_int(int(max_probes_old)), ctypes.c_int(int(max_probes_new)))
+
+
 def memento_lookup(keys: torch.Tensor, repl: torch.Tensor, n: int) -> torch.Tensor:
     """The ``memento_lookup`` kernel (see :func:`kernel_lookup`)."""
     return kernel_lookup("memento", keys, [repl], [n])

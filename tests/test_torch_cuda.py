@@ -183,7 +183,8 @@ def test_dx_kernel_returns_fallback_after_max_probes(dev, capacity, removed, fac
     and 16000 (32 lanes a key): many keys run out of probes and take the
     fallback bucket.  Bounds of 1145 (4 lanes) and 6858 (16 lanes) are no
     multiple of the group, so a group's last round runs with 1 and 10 of
-    its lanes."""
+    its lanes.  The same epoch diffed from a stable one takes half those
+    groups (one thread a key, 2, 16; 2 and 8 lanes for 1145 and 6858)."""
     h = make_hash("dx", 400, capacity=capacity, variant="32")
     h._MAX_PROBE_FACTOR = factor
     for b in range(removed):
@@ -194,6 +195,11 @@ def test_dx_kernel_returns_fallback_after_max_probes(dev, capacity, removed, fac
     assert torch.equal(out, engine.lookup_plain("dx", keys, tables, scalars))
     assert int((out == removed).sum()) > 1000
     assert out[:300].cpu().tolist() == [h.lookup(int(k)) for k in KEYS[:300]]
+    stable = _operands(make_hash("dx", 400, capacity=capacity, variant="32"), dev)
+    got = engine.kernel_diff("dx", keys, stable, (tables, scalars))
+    for g, w in zip(got, engine.diff_plain("dx", keys, stable, (tables, scalars))):
+        assert torch.equal(g, w)
+    assert torch.equal(got[1], out)
 
 
 def _edge_counts(dev) -> list[int]:
@@ -497,6 +503,133 @@ def test_exhausted_packed_replica_walk_keeps_the_plain_lookup(dev):
                                                  **kw))
     first = engine.kernel_lookup("memento", keys, tables, scalars, **kw)
     assert torch.equal(out, torch.stack([first, first], dim=1))
+
+
+def _packed_memento(n: int, removed: float, width: int, dev, seed: int = 7):
+    """A packed Memento image with ``width``-byte slots on the card, built
+    as ``test_packed_kernels_match_plain_and_host`` builds it (int8 by
+    narrowing a small image by hand), and its operands."""
+    from repro_torch.core.packing import pack_image
+
+    h = MementoHash(n, variant="32")
+    for b in np.random.default_rng(seed).permutation(n)[: int(removed * n)].tolist():
+        if h.working > 1:
+            h.remove(int(b))
+    dtype = {1: torch.int8, 2: torch.int16, 4: torch.int32}[width]
+    img = _narrowed(pack_image(h.device_image()), dtype)
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    return h, img, engine.image_operands(img)
+
+
+def _walk_once(chain, probe, pending, operands, load, cap):
+    """One ``memento_packed_walk`` launch, counted, against its plain
+    version."""
+    before = engine.LAUNCHES["memento_packed_walk"]
+    got = engine.kernel_walk("memento", chain, probe, pending, *operands, load, cap,
+                             table="packed")
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES["memento_packed_walk"] == before + (chain.numel() > 0)
+    want = engine.walk_plain("memento", chain, probe, pending, *operands, load, cap,
+                             table="packed")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("pending_share", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_packed_walk_kernel_at_every_width(dev, width, pending_share):
+    """``memento_packed_walk`` with no lane, half the lanes and every lane
+    pending, probes in nonzero, at caps 1 and 2: equal to the plain
+    version, twice over, one launch a call."""
+    n = 100 if width == 1 else 3000
+    _, img, operands = _packed_memento(n, 0.6, width, dev)
+    rng = np.random.default_rng(width)
+    keys = engine.key_tensor(KEYS[:8000], dev)
+    probe = torch.from_numpy(rng.integers(0, 9, size=keys.numel()).astype(np.int32)).to(dev)
+    pending = torch.from_numpy(rng.random(keys.numel()) < pending_share).to(dev)
+    load = torch.from_numpy(_load(img, seed=width)).to(dev)
+    for cap in (1, 2):
+        first = _walk_once(keys, probe, pending, operands, load, cap)
+        for g, w in zip(first, _walk_once(keys, probe, pending, operands, load, cap)):
+            assert torch.equal(g, w)
+        assert torch.equal(first[2][~pending], probe[~pending])
+
+
+def test_packed_walk_kernel_at_key_count_edges(dev):
+    """``memento_packed_walk`` at n = 10^6 (int32 slots) at key counts
+    around a warp and a block, one past 1024 keys a SM, and at four times
+    the threads the card keeps resident plus 7."""
+    from repro_torch.core.packing import pack_image
+
+    m = _churned(10**6, int(0.6 * 10**6), seed=14)
+    img = pack_image(m.device_image())
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    operands = engine.image_operands(img)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    counts = _edge_counts(dev) + [4 * sms * 2048 + 7]
+    rng = np.random.default_rng(15)
+    keys = engine.key_tensor(rng.integers(0, 2**32, size=max(counts), dtype=np.uint32), dev)
+    probe = torch.from_numpy(rng.integers(0, 3, size=keys.numel()).astype(np.int32)).to(dev)
+    pending = torch.from_numpy(rng.random(keys.numel()) < 0.5).to(dev)
+    load = torch.from_numpy(_load(img, seed=16, high=16)).to(dev)
+    for count in counts:
+        _walk_once(keys[:count], probe[:count], pending[:count], operands, load, 14)
+
+
+def test_packed_walk_kernel_stops_every_pending_lane_at_max_probe(dev):
+    """Every bucket at the cap: each pending lane walks to max_probe and
+    keeps the bucket of its last chain; a lane whose probe starts one below
+    max_probe takes one step.  The state holds one bitmap word (n = 20), so
+    the load has 32 words and max_probe is 64 * 32 + 64."""
+    from repro_torch.core.bounded import walk_probe_bound
+
+    _, img, (tables, scalars) = _packed_memento(20, 0.5, 2, dev)
+    tables = [tables[0][:1].contiguous(), *tables[1:]]
+    load = torch.full((32,), 3, dtype=torch.int32, device=dev)
+    max_probe = walk_probe_bound(32)
+    keys = engine.key_tensor(KEYS[:512], dev)
+    probe = torch.zeros(keys.numel(), dtype=torch.int32, device=dev)
+    probe[::3] = max_probe - 1
+    pending = torch.from_numpy(np.arange(keys.numel()) % 4 != 1).to(dev)
+    _, _, pr = _walk_once(keys, probe, pending, (tables, scalars), load, 3)
+    assert (pr[pending] == max_probe).all() and torch.equal(pr[~pending], probe[~pending])
+
+
+def _dx_state(ratio: int, seed: int):
+    """DxHash of capacity a = 6400 with all but a / ratio buckets removed."""
+    a = 6400
+    h = make_hash("dx", a, capacity=a, variant="32")
+    for b in np.random.default_rng(seed).permutation(a)[: a - a // ratio].tolist():
+        h.remove(int(b))
+    return h
+
+
+@pytest.mark.parametrize("ratio", [1, 4, 8, 16, 32, 64, 128, 200])
+def test_dx_diff_kernel_for_every_lane_group(dev, ratio):
+    """``dx_diff`` between epochs at ⌈a/w⌉ = ``ratio`` and another ratio
+    (each with its own probe bound and fallback): one thread a key, or G =
+    2 .. 16 lanes a key from the larger bound, equal to its plain version at
+    every key count around a group, a warp and a block."""
+    other = {1: 4, 4: 1, 8: 1, 16: 8, 32: 8, 64: 16, 128: 2, 200: 64}[ratio]
+    old, new = _dx_state(ratio, seed=ratio), _dx_state(other, seed=ratio + 1)
+    operands = [_operands(h, dev) for h in (old, new)]
+    assert engine.dx_diff_lane_group(operands[0][1][1], operands[1][1][1]) == {
+        4: 1, 8: 1, 16: 2, 32: 4, 64: 8, 128: 16, 200: 16}[max(ratio, other)]
+    counts = _edge_counts(dev)
+    keys_np = np.random.default_rng(ratio).integers(0, 2**32, size=max(counts), dtype=np.uint32)
+    keys_np[:5] = [0, 1, 2**31 - 1, 2**31, 2**32 - 1]
+    keys = engine.key_tensor(keys_np, dev)
+    want = engine.diff_plain("dx", keys, *operands)
+    assert want[0][:200].cpu().tolist() == [old.lookup(int(k)) for k in keys_np[:200]]
+    assert want[1][:200].cpu().tolist() == [new.lookup(int(k)) for k in keys_np[:200]]
+    for count in counts:
+        before = engine.LAUNCHES["dx_diff"]
+        got = engine.kernel_diff("dx", keys[:count], *operands)
+        torch.cuda.synchronize()
+        assert engine.LAUNCHES["dx_diff"] == before + (count > 0)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w[:count]), count
 
 
 @pytest.mark.parametrize("removed", [0.0, 0.5, 0.9])

@@ -203,6 +203,29 @@ def test_every_body_diff_matches_reference(algo, plane):
     assert got.num_moved == want.num_moved > 0
 
 
+@pytest.mark.parametrize("old_ratio, new_ratio", [(4, 40), (40, 41), (1, 200), (200, 8)])
+def test_dx_diff_across_probe_bounds_matches_reference(old_ratio, new_ratio):
+    """``diff_plain`` of two DxHash epochs at different a/w, each with its
+    own probe bound and fallback (``dx_diff`` takes its lane group from the
+    larger bound), against the reference's jnp plane."""
+    a = 1600
+
+    def image(ratio, seed):
+        h = state("dx", a // 4, 0, seed=seed)
+        rng = np.random.default_rng(seed)
+        while h.working > a // ratio:
+            h.remove(int(rng.choice(sorted(h.working_set()))))
+        return h.device_image()
+
+    old, new = image(old_ratio, 1), image(new_ratio, 2)
+    got = port.diff_plain("dx", port.key_tensor(KEYS, "cpu"),
+                          *(port.image_operands(_port_image(i)) for i in (old, new)))
+    want = ref.engine_diff(KEYS, old, new, plane="jnp")
+    for g, w in zip(got, (want.old, want.new, want.moved)):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert old.scalars != new.scalars and got[2].any()
+
+
 @pytest.mark.parametrize("algo", ALGORITHMS)
 def test_work_counts_of_every_body_match_host_trace(algo):
     """The plain bodies' lane counts (what chip_smoke.py's bounds read)

@@ -6,6 +6,8 @@ compact store after every churn event, packed epoch deltas, the compact
 table, the public ``ops`` wrappers and the router with compact images."""
 from __future__ import annotations
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -202,6 +204,41 @@ def test_packed_walk_and_bounded_assign_match_reference(algo):
     want = ref.bounded_assign(KEYS, want_img, load0, cap, plane="jnp")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["every bucket at the cap", "probe one below max_probe",
+                                  "all pending", "none pending"])
+def test_packed_walk_edges_match_reference(case):
+    """A packed Memento walk step at its edges against the reference: every
+    pending lane walking to max_probe, lanes one step from it, and every or
+    no lane pending.  The bitmap is cut to its one word that n = 8 needs,
+    so the load has 32 words and max_probe is 64 * 32 + 64."""
+    from repro.core.bounded import walk_probe_bound as ref_walk_probe_bound
+
+    _, packed, _ = _packed_pair("memento", 8, 2, seed=11)
+    cut = dataclasses.replace(packed, arrays={**packed.arrays,
+                                              "state": packed.arrays["state"][:1]})
+    img = _port_image(cut)
+    max_probe = ref_walk_probe_bound(port.bounded_load_len(img))
+    assert port.bounded_load_len(img) == 32 and max_probe == 64 * 32 + 64
+    rng = np.random.default_rng(12)
+    keys = KEYS[:64] if case == "every bucket at the cap" else KEYS
+    load = rng.integers(0, 4, size=32).astype(np.int32)
+    probe = rng.integers(0, 9, size=len(keys)).astype(np.int32)
+    pending = rng.random(len(keys)) < 0.6
+    if case == "every bucket at the cap":
+        load[:] = 2
+    elif case == "probe one below max_probe":
+        probe[:] = max_probe - 1
+    else:
+        pending[:] = case == "all pending"
+    got = port.engine_chain_walk(keys, probe, pending, img, load, 2, device="cpu")
+    want = ref.engine_chain_walk(keys, probe, pending, cut, load, 2, plane="jnp")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    if case == "every bucket at the cap":
+        assert (got[2][pending] == max_probe).all()
+    np.testing.assert_array_equal(got[2][~pending], probe[~pending])
 
 
 def test_packed_and_dense_diffs_refuse_mixed_layouts():
