@@ -39,7 +39,8 @@
    and a chain-walk step.  Every ``{algo}_replica``, ``{algo}_replica_diff``
    and ``{algo}_walk`` kernel must be launched on that path; then each
    result is held against its plain version on the card and 2048 keys
-   against the host, and each kernel is timed beside its bound.
+   against the host, and each kernel is timed beside its bound;
+   ``dx_replica``'s lane group is logged from the library.
 6. Drives the fourth slice's path, the packed and compact layouts:
    ``SessionRouter(10^6, compact_images=True).route_batch`` on 2^20 ids
    through stable, 1024 removals (one sync), 128 single removals (one
@@ -123,10 +124,14 @@ INT32_OPS_PER_S = 67e12 / 2 / 2
 #   per jump32 step:    step hash (mul-add, xor, fmix32 = 8, shift) 11,
 #                       float part (2 converts, 2 adds, mul, divide, floor,
 #                       min, compare, convert) 10, loop counter 1
-#   per Alg. 4 pass:    repl read + test 2, hash2 (mul-add, 2 x fmix32, xor)
-#                       18, modulo 1, first chain read + test 2
+#   per Alg. 4 pass:    hash2 (mul-add, 2 x fmix32, xor) 18, modulo 1, first
+#                       chain read + test 2 (the chain's last read is the
+#                       next pass's repl read: memento_one does not read it
+#                       again)
 #   per chain read:     move, read, test
-OPS_PER_KEY, OPS_PER_STEP, OPS_PER_OUTER, OPS_PER_READ = 6, 22, 23, 3
+# The plain version reads repl(d) again at each pass, as the reference
+# does, but leaves that read out of its counters (the readers' below too).
+OPS_PER_KEY, OPS_PER_STEP, OPS_PER_OUTER, OPS_PER_READ = 6, 22, 21, 3
 # The other bodies of engine.cu, counted the same way.  Each algorithm:
 # (ops per key, {plain-version work counter: ops per lane-iteration}).
 #   anchor: per key index, key load, store, fmix32 8, modulo, A read + test
@@ -251,42 +256,77 @@ def packed_read_trips(idx, state, slot_b, slot_c):
 
 def lookup_trips(keys, tables, n: int):
     """Each key's packed Memento lookup as ``memento_one`` runs it: its
-    bucket, the round trips it waits for, and how many of those read
-    repl(d) again, as the next outer read, after Alg. 4's inner loop has
-    read it."""
+    bucket and the round trips it waits for (the inner loop's last read of
+    repl(d) is the next outer read, not read again)."""
     import torch
 
     from repro_torch.kernels.primitives import hash2, jump32
 
     b = jump32(keys, n)
     c, trips = packed_read_trips(b, *tables)
-    again = torch.zeros_like(trips)
     act = torch.nonzero(c >= 0).reshape(-1)
     wb = c[act].clamp_min(1)
     while act.numel():
         d = hash2(keys[act], b[act]) % wb
         u, t = packed_read_trips(d, *tables)
-        last = t.clone()
         follow = torch.nonzero(u >= wb).reshape(-1)
         while follow.numel():
             d[follow] = u[follow]
-            u[follow], last[follow] = packed_read_trips(d[follow], *tables)
-            t[follow] += last[follow]
+            u[follow], more = packed_read_trips(d[follow], *tables)
+            t[follow] += more
             follow = follow[u[follow] >= wb[follow]]
         b[act] = d
-        trips[act] += t + last
-        again[act] += last
+        trips[act] += t
         keep = u >= 0
         act, wb = act[keep], u[keep].clamp_min(1)
-    return b, trips, again
+    return b, trips
+
+
+def pair_walk_work(keys, k: int, lookups, n: int) -> dict:
+    """The salted tries and jump32 steps of ``replica_pair_row``, the
+    unbounded k-slot replica walk of two Memento epochs of one n on one
+    salt walk: each salt that either epoch's row still needs is hashed and
+    its jump32 run once for both (salt 0, the key itself, too).  Each
+    epoch's row fills as ``replica_body``'s does: salt s at its s-th try,
+    a bucket of an earlier slot rejected.  ``lookups`` are the two epochs'
+    plain lookups of int64-carried keys.  Returns {"try": salted tries,
+    "step": jump32 steps, "tries": each epoch's own salted tries}.  A model
+    over the plain lookups, not a device count."""
+    import torch
+
+    from repro_torch.core.protocol import REPLICA_SALT_CAP
+    from repro_torch.kernels.primitives import hash2, jump32
+
+    work = {"try": 0, "tries": [0, 0]}
+    jump32(keys, n, work)
+    rows = [lookup(keys)[:, None].repeat(1, k) for lookup in lookups]
+    filled = [torch.ones_like(keys) for _ in lookups]
+    slots = torch.arange(k, device=keys.device)
+    for salt in range(1, REPLICA_SALT_CAP + 1):
+        wants = [f < k for f in filled]
+        idx = torch.nonzero(wants[0] | wants[1]).reshape(-1)
+        if not idx.numel():
+            break
+        cand = hash2(keys[idx], salt)
+        jump32(cand, n, work)
+        work["try"] += idx.numel()
+        for e, lookup in enumerate(lookups):
+            sub = wants[e][idx]
+            lanes, b = idx[sub], lookup(cand[sub])
+            j = filled[e][lanes]
+            work["tries"][e] += lanes.numel()
+            taken = ((rows[e][lanes] == b[:, None]) & (slots < j[:, None])).any(dim=1)
+            lanes, j, b = lanes[~taken], j[~taken], b[~taken]
+            rows[e][lanes, j] = b
+            filled[e][lanes] += 1
+    return work
 
 
 def walk_trips(chain, probe, pending, tables, n: int, load, cap: int):
     """The dependent round trips each lane of a packed Memento walk step
     waits for as ``walk_kernel`` issues them (its lookups, and a load[b]
-    read at every test of a pending lane), and how many of those are
-    repeated reads of repl(d) (:func:`lookup_trips`).  A model over the
-    tables, not a device count.  Returns int64 per-lane tensors."""
+    read at every test of a pending lane).  A model over the tables, not a
+    device count.  Returns an int64 per-lane tensor."""
     import torch
 
     from repro_torch.core.bounded import walk_probe_bound
@@ -294,7 +334,7 @@ def walk_trips(chain, probe, pending, tables, n: int, load, cap: int):
 
     max_probe = walk_probe_bound(load.numel())
     keys = as_u32(chain)
-    b, trips, again = lookup_trips(keys, tables, n)
+    b, trips = lookup_trips(keys, tables, n)
     lanes = torch.nonzero(pending).reshape(-1)
     ch, pr, bb = keys[lanes], probe[lanes].long(), b[lanes]
     while lanes.numel():
@@ -302,10 +342,9 @@ def walk_trips(chain, probe, pending, tables, n: int, load, cap: int):
         go = (gather1d(load, bb) >= cap) & (pr < max_probe)
         lanes, pr = lanes[go], pr[go] + 1
         ch = hash2(ch[go], pr)
-        bb, t, a = lookup_trips(ch, tables, n)
+        bb, t = lookup_trips(ch, tables, n)
         trips[lanes] += t
-        again[lanes] += a
-    return trips, again
+    return trips
 
 
 def lane_use(trips) -> float:
@@ -722,6 +761,31 @@ class Smoke:
                 + work.get("try", 0) * (OPS_PER_TRY + (OPS_PER_BOUNDED_TRY if bounded else 0))
                 + work.get("compare", 0) * OPS_PER_COMPARE
                 + work.get("walk", 0) * OPS_PER_WALK_STEP + walk)
+
+    def pair_shared_ops(self, algo: str, keys, work: dict, old, new, table: str) -> int:
+        """The operations of a k = REPLICAS_K replica diff that its plain
+        counters ``work`` (both epochs) count twice and the kernel makes
+        once: for two Memento epochs of one n, the pair walk's salted tries
+        and jump32 steps (:func:`pair_walk_work`, whose own tries must
+        equal the plain counters'); 0 otherwise."""
+        from repro_torch.kernels import engine
+        from repro_torch.kernels.primitives import as_u32
+
+        if algo != "memento" or old[1][0] != new[1][0]:
+            return 0
+        pair = pair_walk_work(as_u32(keys), REPLICAS_K,
+                              [lambda kk, e=e: engine.lookup_plain(algo, kk, *e,
+                                                                   table=table).long()
+                               for e in (old, new)], old[1][0])
+        if sum(pair["tries"]) != work.get("try", 0):
+            raise AssertionError(f"memento replica diff ({table}): pair walk model tries "
+                                 f"{pair['tries']} != the plain counters' {work.get('try', 0)}")
+        log(f"  pair walk ({table}, n = {old[1][0]} both): {pair['try'] / keys.numel():.3f} "
+            f"salted tries and {pair['step'] / keys.numel():.3f} jump32 steps a key for both "
+            f"epochs, where the two walks make {work.get('try', 0) / keys.numel():.3f} and "
+            f"{work.get('step', 0) / keys.numel():.3f} (model)")
+        return ((work.get("try", 0) - pair["try"]) * OPS_PER_TRY
+                + (work.get("step", 0) - pair["step"]) * OPS_PER_STEP)
 
     def phase_algo_kernels(self) -> list[dict]:
         """``{algo}_lookup`` and ``{algo}_diff`` of every algorithm but
@@ -1332,6 +1396,11 @@ class Smoke:
             self.mode_ops(algo, work, KEYS, scalars[0], BOUNDED_K, bounded=True),
             4 * KEYS * (1 + BOUNDED_K) + tbytes["oneshot"] + 4 * load_t.numel(), work)
 
+        if algo == "dx":  # the lanes a key, beside dx_lookup's and dx_diff's (phase 2)
+            log("dx_replica: " + ", ".join(
+                f"{name} G={engine.dx_replica_lane_group(sc[1])} lanes a key (max_probes "
+                f"{sc[1]})" for name, (_, sc) in ops_of.items()))
+
         # {algo}_replica_diff, k = 3, stable -> one-shot
         d = run["diff"]
         old, new = ops_of["stable"], ops_of["oneshot"]
@@ -1346,7 +1415,7 @@ class Smoke:
                 for k in set(works["stable"]) | set(works["oneshot"])}
         ops = (self.mode_ops(algo, works["stable"], KEYS, old[1][0], REPLICAS_K)
                + self.mode_ops(algo, works["oneshot"], KEYS, new[1][0], REPLICAS_K)
-               + 2 * REPLICAS_K * KEYS)
+               + 2 * REPLICAS_K * KEYS - self.pair_shared_ops(algo, keys, both, old, new, "dense"))
         diff = {f"stable -> oneshot k={REPLICAS_K}": entry(
             f"replica_diff stable -> oneshot, moved {d.num_moved}", e, ms, plain_ms, ops,
             4 * KEYS * (2 + 2 * REPLICAS_K) + tbytes["stable"] + tbytes["oneshot"], both)}
@@ -2046,8 +2115,8 @@ class Smoke:
                 raise AssertionError(f"{algo}_packed_replica_diff {label}: kernel != plain")
             ms = self.time_ms(lambda: engine.kernel_replica_diff(algo, keys, REPLICAS_K, old,
                                                                  new, **kw), reps=10, warmup=1)
-            ops = (self.mode_ops(algo, both, 2 * KEYS, n, REPLICAS_K)
-                   + 2 * REPLICAS_K * KEYS)
+            ops = (self.mode_ops(algo, both, 2 * KEYS, n, REPLICAS_K) + 2 * REPLICAS_K * KEYS
+                   - self.pair_shared_ops(algo, keys, both, old, new, "packed"))
             by_mode["replica_diff"][f"{label} k={REPLICAS_K}"] = self.packed_entry(
                 f"{algo}_packed_replica_diff {label} k={REPLICAS_K}, moved "
                 f"{int(got[2].sum())}", e, ms, plain_ms, ops,
@@ -2091,19 +2160,17 @@ class Smoke:
     def log_walk_trips(label, chain, probe, pending, operands, load, cap, work, ms) -> None:
         """Log a packed Memento walk step's round trips a lane (a model,
         :func:`walk_trips`, whose count must equal the plain walk's
-        counters), the lane use that leaves over warps of 32, the share of
-        repeated reads, and the round trips a second the kernel's time
-        implies."""
+        counters), the lane use that leaves over warps of 32, and the round
+        trips a second the kernel's time implies."""
         (tables, scalars), keys = operands, chain.numel()
-        trips, again = walk_trips(chain, probe, pending, tables, scalars[0], load, cap)
+        trips = walk_trips(chain, probe, pending, tables, scalars[0], load, cap)
         counted = (sum(work.get(c, 0) for c in ("bit", "slot", "walk")) - work.get("start", 0)
                    + int(pending.sum()))
         if int(trips.sum()) != counted:
             raise AssertionError(f"memento_packed_walk {label}: round-trip model "
                                  f"{int(trips.sum())} != the plain walk's counters {counted}")
         log(f"  memento_packed_walk {label}: round trips a lane (model) "
-            f"{trips.sum() / keys:.3f}, {again.sum() / trips.sum():.1%} of them repeated reads "
-            f"of repl(d); lane use {lane_use(trips):.4f} over warps of 32; "
+            f"{trips.sum() / keys:.3f}; lane use {lane_use(trips):.4f} over warps of 32; "
             f"{trips.sum() / (ms * 1e-3) / 1e9:.3f} G round trips/s at the kernel's time")
 
     def check_compact(self, main: dict, launches: dict) -> dict:

@@ -47,44 +47,82 @@ PREFIX = 2**14  # keys held against a plain version that takes minutes on all
 def dx_states(smoke):
     """DxHash at a = 4·10^6 on the card: stable (w = 10^6), w = 5·10^5
     (the incremental scenario's last stage) and one-shot 90 % (w = 10^5),
-    each of the last two also one removal later: (name, operands)."""
+    each of the last two also one removal later: (name, (tables, scalars,
+    table bytes, image))."""
     h = make_hash("dx", cs.N, capacity=cs.CAPACITY_FACTOR * cs.N, variant="32")
 
     def remove(count):
         for b in smoke.rng.permutation(sorted(h.working_set()))[:count].tolist():
             h.remove(b)
 
-    yield "stable", smoke.operands(h)[:2]
+    yield "stable", smoke.operands(h)
     for name, working in (("w=5*10^5", cs.N // 2), ("one-shot", cs.N // 10)):
         remove(h.working - working)
-        yield name, smoke.operands(h)[:2]
+        yield name, smoke.operands(h)
         remove(1)
-        yield f"{name} + 1 removal", smoke.operands(h)[:2]
+        yield f"{name} + 1 removal", smoke.operands(h)
+
+
+def _int8(smoke, h):
+    """``h``'s packed image with its slots narrowed to int8 by hand (the
+    values fit), on the card."""
+    img = pack_image(h.device_image())
+    arrays = {k: (v.to(torch.int8) if k.startswith("slot") else v).to(smoke.dev)
+              for k, v in img.arrays.items()}
+    return DeviceImage("memento", img.n, arrays, dict(img.scalars), img.epoch, packed=True)
 
 
 def packed_states(smoke):
-    """(name, image, working) of every packed Memento state, on the card:
-    n = 10^6 stable, after 1024 removals and one-shot 90 % (int32 slots),
-    n = 10^4 (int16) and a hand-narrowed n = 100 (int8)."""
+    """(name, image, working, dense image or None) of every packed Memento
+    state, on the card: n = 10^6 stable, after 1024 removals and one-shot
+    90 % (int32 slots; with their dense images), n = 10^4 (int16) and a
+    hand-narrowed n = 100 (int8)."""
     router = SessionRouter(cs.N, compact_images=True)
-    store = router.image_store()
-    yield "int32 stable", store.image(), router.ch.working
-    smoke.remove_random(router.ch, cs.PACKED_REMOVALS)
+    store, h = router.image_store(), router.ch
+    yield "int32 stable", store.image(), h.working, smoke.on_card(h.device_image())
+    smoke.remove_random(h, cs.PACKED_REMOVALS)
     store.sync()
-    yield f"int32 {cs.PACKED_REMOVALS} removals", store.image(), router.ch.working
-    smoke.remove_random(router.ch, int(cs.ONESHOT_FRACTION * cs.N) - cs.PACKED_REMOVALS)
+    yield f"int32 {cs.PACKED_REMOVALS} removals", store.image(), h.working, None
+    smoke.remove_random(h, int(cs.ONESHOT_FRACTION * cs.N) - cs.PACKED_REMOVALS)
     store.sync()
-    yield "int32 one-shot", store.image(), router.ch.working
+    yield "int32 one-shot", store.image(), h.working, smoke.on_card(h.device_image())
     small = MementoHash(cs.SMALL_N, variant="32")
     smoke.remove_random(small, cs.SMALL_EVENTS[0])
-    yield "int16 n=10^4", smoke.on_card(pack_image(small.device_image())), small.working
+    yield "int16 n=10^4", smoke.on_card(pack_image(small.device_image())), small.working, None
     tiny = MementoHash(cs.TINY_N, variant="32")
     smoke.remove_random(tiny, cs.TINY_N // 2)
-    img = pack_image(tiny.device_image())
-    arrays = {k: (v.to(torch.int8) if k.startswith("slot") else v).to(smoke.dev)
-              for k, v in img.arrays.items()}
-    yield "int8 n=100", DeviceImage("memento", img.n, arrays, dict(img.scalars), img.epoch,
-                                    packed=True), tiny.working
+    yield "int8 n=100", _int8(smoke, tiny), tiny.working, None
+
+
+def packed_pairs(smoke, states):
+    """(name, old image, new image) of packed Memento epoch pairs on the
+    card: ``chip_smoke.py``'s three, all of equal n (int32 stable -> one-shot
+    at n = 10^6, int16 n = 10^4 -> 20 removals later, int8 n = 100 -> one
+    removal later), and n = 10^6 unchurned -> its last bucket removed
+    (n - 1)."""
+    yield "int32 stable -> one-shot", states["int32 stable"], states["int32 one-shot"]
+    small = MementoHash(cs.SMALL_N, variant="32")
+    old = smoke.on_card(pack_image(small.device_image()))
+    smoke.remove_random(small, cs.SMALL_EVENTS[0])
+    yield "int16 n=10^4 -> 20 removals", old, smoke.on_card(pack_image(small.device_image()))
+    tiny = MementoHash(cs.TINY_N, variant="32")
+    smoke.remove_random(tiny, cs.TINY_N // 2)
+    old = _int8(smoke, tiny)
+    smoke.remove_random(tiny, 1)
+    yield "int8 n=100 -> 1 removal", old, _int8(smoke, tiny)
+    m = MementoHash(cs.N, variant="32")
+    old = smoke.on_card(pack_image(m.device_image()))
+    m.remove(cs.N - 1)
+    yield "int32 n=10^6 -> last bucket removed", old, smoke.on_card(pack_image(m.device_image()))
+
+
+def _bounded_load(smoke, keys_np, img, working):
+    """``bounded_assign``'s load of ``keys_np`` on ``img`` at c = CAP_C, on
+    the card, and its cap."""
+    cap = int(np.ceil(cs.CAP_C * cs.KEYS / working))
+    _, load = engine.bounded_assign(keys_np, img,
+                                    np.zeros(engine.bounded_load_len(img), np.int32), cap)
+    return torch.from_numpy(load).to(smoke.dev), cap
 
 
 def cases(smoke, keys_np):
@@ -96,19 +134,37 @@ def cases(smoke, keys_np):
     dx = dict(dx_states(smoke))
     for name in ("stable", "one-shot"):
         yield ("dx_lookup", name,
-               lambda keys, t=dx[name]: engine.kernel_lookup("dx", keys, *t),
-               lambda keys, t=dx[name]: engine.lookup_plain("dx", keys, *t), PREFIX)
+               lambda keys, t=dx[name][:2]: engine.kernel_lookup("dx", keys, *t),
+               lambda keys, t=dx[name][:2]: engine.lookup_plain("dx", keys, *t), PREFIX)
     for old, new in (("stable", "one-shot"), ("w=5*10^5", "w=5*10^5 + 1 removal"),
                      ("one-shot", "one-shot + 1 removal")):
         yield ("dx_diff", f"{old} -> {new}",
-               lambda keys, e=(dx[old], dx[new]): engine.kernel_diff("dx", keys, *e),
-               lambda keys, e=(dx[old], dx[new]): engine.diff_plain("dx", keys, *e), PREFIX)
-    for name, img, working in packed_states(smoke):
+               lambda keys, e=(dx[old][:2], dx[new][:2]): engine.kernel_diff("dx", keys, *e),
+               lambda keys, e=(dx[old][:2], dx[new][:2]): engine.diff_plain("dx", keys, *e),
+               PREFIX)
+    load, cap = _bounded_load(smoke, keys_np, dx["one-shot"][3], cs.N // 10)
+    for name, k, ld, c in (("stable", cs.REPLICAS_K, None, None),
+                           ("one-shot", cs.REPLICAS_K, None, None),
+                           ("one-shot", cs.BOUNDED_K, load, cap)):
+        args = (k, *dx[name][:2], ld, c)
+        yield ("dx_replica", f"{name} {'bounded ' if ld is not None else ''}k={k}",
+               lambda keys, a=args: engine.kernel_replica("dx", keys, *a),
+               lambda keys, a=args: engine.replica_plain("dx", keys, *a), PREFIX)
+    states, dense = {}, {}
+    for name, img, working, dense_img in packed_states(smoke):
+        states[name] = img
         tables, scalars = engine.image_operands(img)
-        cap = int(np.ceil(cs.CAP_C * cs.KEYS / working))
-        _, load = engine.bounded_assign(keys_np, img,
-                                        np.zeros(engine.bounded_load_len(img), np.int32), cap)
-        load = torch.from_numpy(load).to(smoke.dev)
+        if dense_img is not None and name != f"int32 {cs.PACKED_REMOVALS} removals":
+            dense[name] = engine.image_operands(dense_img)
+            state = name.split(" ", 1)[1]
+            for entry, ops, kw in (("memento_lookup", dense[name], {}),
+                                   ("memento_packed_lookup", (tables, scalars),
+                                    {"table": "packed"})):
+                yield (entry, state,
+                       lambda keys, o=ops, kw=kw: engine.kernel_lookup("memento", keys, *o, **kw),
+                       lambda keys, o=ops, kw=kw: engine.lookup_plain("memento", keys, *o, **kw),
+                       PREFIX)
+        load, cap = _bounded_load(smoke, keys_np, img, working)
         for k, ld, c in ((cs.REPLICAS_K, None, None), (cs.BOUNDED_K, load, cap)):
             args = (k, tables, scalars, ld, c)
             state = f"{name} {'bounded ' if ld is not None else ''}k={k}"
@@ -124,6 +180,17 @@ def cases(smoke, keys_np):
                    "memento", keys, p[:len(keys)], q[:len(keys)], *w, table="packed"),
                lambda keys, w=walk, p=probe, q=pending: engine.walk_plain(
                    "memento", keys, p[:len(keys)], q[:len(keys)], *w, table="packed"), None)
+    pairs = [("memento_replica_diff", "stable -> one-shot",
+              (dense["int32 stable"], dense["int32 one-shot"]), {})]
+    pairs += [("memento_packed_replica_diff", name,
+               (engine.image_operands(old), engine.image_operands(new)), {"table": "packed"})
+              for name, old, new in packed_pairs(smoke, states)]
+    for entry, state, epochs, kw in pairs:
+        yield (entry, f"{state} k={cs.REPLICAS_K}",
+               lambda keys, e=epochs, kw=kw: engine.kernel_replica_diff(
+                   "memento", keys, cs.REPLICAS_K, *e, **kw),
+               lambda keys, e=epochs, kw=kw: engine.replica_diff_plain(
+                   "memento", keys, cs.REPLICAS_K, *e, **kw), PREFIX)
 
 
 def _equal(a, b) -> bool:

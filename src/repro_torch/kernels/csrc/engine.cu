@@ -54,15 +54,23 @@
 // mode's kernel is a template over that struct, so the modes of one
 // algorithm cannot disagree about a placement.  A replica walk keeps its
 // chosen slots in the lane's own output row and compares each candidate
-// with them there, so k has no limit.  dx_lookup and dx_diff are the
-// exceptions: when ceil(a/w) >= 8 a key's probes are spread over G lanes
-// (dx_group_bucket; G the largest power of two <= ceil(a/w) / 4, at most
-// 32, for the lookup; half that for the diff, from the epoch with more
-// probes, whose group probes both epochs), so a warp waits for the slowest
-// of 32 / G keys and each round tests G probes of a key; a key then loads
-// ~G/2 bitmap words past its hit, and these G balanced the two in sweeps
-// (PERF.md).  DxHash's probe remainder divides by a fixed a with multiplies
-// (fastmod).
+// with them there, so k has no limit.  dx_lookup, dx_diff and dx_replica
+// are the exceptions: when ceil(a/w) >= 8 a key's probes are spread over G
+// lanes (dx_group_bucket; G the largest power of two <= ceil(a/w) / 4, at
+// most 32, for the lookup and for each lookup of a replica set, whose
+// group runs the key's whole salted walk; half that for the diff, from the
+// epoch with more probes, whose group probes both epochs), so a warp waits
+// for the slowest of 32 / G keys and each round tests G probes of a key; a
+// key then loads ~G/2 bitmap words past its hit, and these G balanced the
+// two in sweeps (PERF.md).  DxHash's probe remainder divides by a fixed a
+// with multiplies (fastmod).
+//
+// Memento's Alg. 4 reads repl(d) once: the inner loop's last read is the
+// next pass's (memento_from), one round trip a pass fewer than the
+// reference's loop.  A replica diff of two Memento epochs of one n walks
+// both rows on one salt walk (replica_pair_row): each salt's candidate is
+// hashed and its jump32 run once for both epochs, and both epochs' first
+// reads are in flight together (each reader's fetch/finish).
 //
 // Memento's table is read through a reader functor (DenseRepl, PackedRepl<T>,
 // CompactRepl) and AnchorHash's A/K through their element type T, so the
@@ -94,7 +102,15 @@
 // +8.6 %; those 32 staged with their first jump32 run together: +5.3 %
 // one-shot, +19 to +52 % elsewhere), and a first lookup a thread with the
 // lanes still at or over the cap queued in shared memory for full warps
-// (-26 % stable, +35 % one-shot).
+// (-26 % stable, +35 % one-shot).  For the Memento replica diff: the pair
+// walk at any n with salt 0 taken apart from the loop (34-40 registers:
+// +4.9 % int32 stable -> one-shot, +9.6 % dense, +3.7 % at n - 1 against
+// the two replica_rows it replaced); the pair capped at 8 blocks a SM by
+// __launch_bounds__ (int16 -34.5 % where the uncapped pair ran -36.5 %);
+// both epochs' chains advanced in lockstep, both reads of a step in
+// flight (int8 -17.6 % against -25.6 %, int32 -7.8 % against -9.3 %).
+// dx_replica at G/2 and 2G (one-shot k = 3 -4.8 and +3.6 %, bounded -20.2
+// and -29.0 %, where G ran -6.0 and -34.5 %).
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -143,26 +159,40 @@ __device__ __forceinline__ int32_t jump32(uint32_t key, int32_t n) {
   return b;
 }
 
-// Paper Alg. 4 over a table reader: repl(b) = |W_b| if b was removed,
-// else -1.  A chain is followed only while repl(d) >= w_b.
+// Paper Alg. 4 over a table reader, from b and its read c = repl(b):
+// repl(b) = |W_b| if b was removed, else -1.  A chain is followed only while
+// repl(d) >= w_b.  The inner loop's last read, repl(d) < w_b, is the next
+// outer read (b = d): it is taken as c, not read again.
 template <class Read>
-__device__ __forceinline__ int32_t memento_one(uint32_t key, const Read& repl, int32_t n) {
-  int32_t b = jump32(key, n);
-  int32_t c;
-  while ((c = repl(b)) >= 0) {
+__device__ __forceinline__ int32_t memento_from(uint32_t key, const Read& repl, int32_t b,
+                                                int32_t c) {
+  while (c >= 0) {
     const int32_t wb = c > 0 ? c : 1;  // a valid image never holds 0
     int32_t d = static_cast<int32_t>(hash2(key, static_cast<uint32_t>(b)) %
                                      static_cast<uint32_t>(wb));
-    int32_t u;
-    while ((u = repl(d)) >= wb) d = u;
+    while ((c = repl(d)) >= wb) d = c;
     b = d;
   }
   return b;
 }
 
+template <class Read>
+__device__ __forceinline__ int32_t memento_one(uint32_t key, const Read& repl, int32_t n) {
+  const int32_t b = jump32(key, n);
+  return memento_from(key, repl, b, repl(b));
+}
+
+// Each reader's repl(i) is fetch(i), which only issues loads, then
+// finish(i, f), which waits for them: a caller can issue two reads before
+// it waits for either (replica_pair_row).
 // The dense table: one int32 word per bucket.
 struct DenseRepl {
   const int32_t* repl;
+  struct Fetch {
+    int32_t v;
+  };
+  __device__ Fetch fetch(int32_t i) const { return {repl[i]}; }
+  __device__ int32_t finish(int32_t, Fetch f) const { return f.v; }
   __device__ int32_t operator()(int32_t i) const { return repl[i]; }
 };
 
@@ -192,16 +222,6 @@ __device__ __forceinline__ int32_t probe_from(const T* __restrict__ slot_b,
   }
 }
 
-template <class T, bool kEmptyOnly>
-__device__ __forceinline__ int32_t probe(const T* __restrict__ slot_b,
-                                         const T* __restrict__ slot_c, uint32_t mask,
-                                         int32_t i) {
-  const uint32_t pos = probe_start(i, mask);
-  return probe_from<T, kEmptyOnly>(slot_b, slot_c, mask, i, pos,
-                                   static_cast<int32_t>(slot_b[pos]),
-                                   static_cast<int32_t>(slot_c[pos]));
-}
-
 // The packed layout (K1b): bit i & 31 of state word i >> 5 set means
 // working, with no probe; a removed bucket probes its T-wide slots.  The
 // first probe slot is loaded together with the bitmap word, before the bit
@@ -214,14 +234,20 @@ struct PackedRepl {
   const T* slot_b;
   const T* slot_c;
   uint32_t mask;
-  __device__ int32_t operator()(int32_t i) const {
+  struct Fetch {
+    uint32_t word, pos;
+    int32_t sb, sc;
+  };
+  __device__ Fetch fetch(int32_t i) const {
     const uint32_t pos = probe_start(i, mask);
-    const uint32_t word = state[i >> 5];
-    const int32_t sb = static_cast<int32_t>(slot_b[pos]);
-    const int32_t sc = static_cast<int32_t>(slot_c[pos]);
-    if ((word >> (static_cast<uint32_t>(i) & 31u)) & 1u) return -1;
-    return probe_from<T, true>(slot_b, slot_c, mask, i, pos, sb, sc);
+    return {state[i >> 5], pos, static_cast<int32_t>(slot_b[pos]),
+            static_cast<int32_t>(slot_c[pos])};
   }
+  __device__ int32_t finish(int32_t i, Fetch f) const {
+    if ((f.word >> (static_cast<uint32_t>(i) & 31u)) & 1u) return -1;
+    return probe_from<T, true>(slot_b, slot_c, mask, i, f.pos, f.sb, f.sc);
+  }
+  __device__ int32_t operator()(int32_t i) const { return finish(i, fetch(i)); }
 };
 
 // The compact table (K1g): every read probes.
@@ -229,9 +255,18 @@ struct CompactRepl {
   const int32_t* slot_b;
   const int32_t* slot_c;
   uint32_t mask;
-  __device__ int32_t operator()(int32_t i) const {
-    return probe<int32_t, false>(slot_b, slot_c, mask, i);
+  struct Fetch {
+    uint32_t pos;
+    int32_t sb, sc;
+  };
+  __device__ Fetch fetch(int32_t i) const {
+    const uint32_t pos = probe_start(i, mask);
+    return {pos, slot_b[pos], slot_c[pos]};
   }
+  __device__ int32_t finish(int32_t i, Fetch f) const {
+    return probe_from<int32_t, false>(slot_b, slot_c, mask, i, f.pos, f.sb, f.sc);
+  }
+  __device__ int32_t operator()(int32_t i) const { return finish(i, fetch(i)); }
 };
 
 // AnchorHash: A[b] = 0 for a working bucket, else the working-set size
@@ -417,6 +452,17 @@ __global__ void diff_kernel(const uint32_t* __restrict__ keys,
   moved[i] = o != w;
 }
 
+// Whether a replica walk's row, holding j slots, takes cand as its next:
+// cand is no earlier slot's bucket and, bounded (load != nullptr), its load
+// is under the cap.  Every salted walk (replica_row, replica_pair_row,
+// dx_group_replica_kernel) tests a candidate here.
+__device__ __forceinline__ bool row_takes(const int32_t* row, int32_t j, int32_t cand,
+                                          const int32_t* __restrict__ load, int32_t cap) {
+  bool bad = load != nullptr && load[cand] >= cap;
+  for (int32_t i = 0; i < j && !bad; ++i) bad = row[i] == cand;
+  return !bad;
+}
+
 // replica_body for one key into row[0, k): the salted walk.  The candidate
 // at salt 0 is the plain lookup `first`, at salt s >= 1 the lookup of
 // hash2(key, s); the salt advances on every try and carries across slots.
@@ -439,9 +485,7 @@ __device__ void replica_row(uint32_t key, int32_t* row, int32_t k, const Body& b
     while (salt <= kReplicaSaltCap) {
       const int32_t cand = salt == 0 ? first : body(hash2(key, static_cast<uint32_t>(salt)));
       ++salt;
-      bool bad = load != nullptr && load[cand] >= cap;
-      for (int32_t i = 0; i < j && !bad; ++i) bad = row[i] == cand;
-      if (!bad) {
+      if (row_takes(row, j, cand, load, cap)) {
         slot = cand;
         break;
       }
@@ -458,6 +502,60 @@ __global__ void replica_kernel(const uint32_t* __restrict__ keys, int32_t* out,
   if (i < count) replica_row(keys[i], out + i * k, k, body, load, cap);
 }
 
+// dx_replica at G lanes a key: replica_row's salted walk, run by the group.
+// Each candidate is the group's dx_group_bucket of hash2(key, salt) (at
+// salt 0, bounded, the key's own bucket `first`), so every lane of the
+// group holds the same one.  The group's first lane tests it (an earlier
+// slot of the row; bounded, load[cand] >= cap), stores it, and gives its
+// verdict to the group by a shuffle, so j and `open` agree over the group.
+// The warp loops while any of its groups has a slot open, so salt steps in
+// every lane alike; a lane past `count` or of a finished group joins every
+// collective with `open` false.
+template <int G>
+__global__ void dx_group_replica_kernel(const uint32_t* __restrict__ keys, int32_t* out,
+                                        int64_t count, int32_t k,
+                                        const int32_t* __restrict__ load, int32_t cap,
+                                        Dx dx) {
+  const int64_t q = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const bool live = q < count;
+  const uint32_t key = live ? keys[q] : 0u;
+  const uint32_t lane = threadIdx.x & 31u;
+  const bool lead = (lane & (G - 1u)) == 0;
+  int32_t* row = out + (live ? q : 0) * k;
+  const int32_t first = dx_group_bucket<G>(dx, key, live);
+  int32_t j = 0, salt = 0;
+  if (load == nullptr) {
+    if (live && lead) row[0] = first;
+    j = salt = 1;
+  }
+  bool open = live && j < k;
+  while (__any_sync(0xFFFFFFFFu, open)) {
+    const int32_t cand =
+        salt == 0 ? first : dx_group_bucket<G>(dx, hash2(key, static_cast<uint32_t>(salt)), open);
+    ++salt;
+    int bad = 0;
+    if (open && lead) {
+      bad = !row_takes(row, j, cand, load, cap);
+      if (!bad) row[j] = cand;
+    }
+    bad = __shfl_sync(0xFFFFFFFFu, bad, static_cast<int>(lane & ~(G - 1u)));
+    if (open && !bad) ++j;
+    if (open && j < k && salt > kReplicaSaltCap) {  // the salts ran out: the rest keep first
+      if (lead)
+        for (int32_t i = j; i < k; ++i) row[i] = first;
+      j = k;
+    }
+    open = open && j < k;
+  }
+}
+
+// Whether a diff moved key i's set: any slot differs between its rows.
+__device__ __forceinline__ int32_t row_moved(const int32_t* o, const int32_t* w, int32_t k) {
+  int32_t m = 0;
+  for (int32_t j = 0; j < k; ++j) m |= o[j] != w[j];
+  return m;
+}
+
 template <class Old, class New>
 __global__ void replica_diff_kernel(const uint32_t* __restrict__ keys, int32_t* old_out,
                                     int32_t* new_out, int32_t* __restrict__ moved,
@@ -470,9 +568,60 @@ __global__ void replica_diff_kernel(const uint32_t* __restrict__ keys, int32_t* 
   int32_t* w = new_out + i * k;
   replica_row(key, o, k, old_body, nullptr, 0);
   replica_row(key, w, k, new_body, nullptr, 0);
-  int32_t m = 0;
-  for (int32_t j = 0; j < k; ++j) m |= o[j] != w[j];
-  moved[i] = m;
+  moved[i] = row_moved(o, w, k);
+}
+
+// Both lookups of one candidate key ck under two Memento epochs of one n,
+// for the epochs that want one (go, gn): one jump32 starts both chains,
+// and both epochs' first reads are issued before either is waited for.
+template <class RO, class RN>
+__device__ __forceinline__ void memento_pair(uint32_t ck, const MementoT<RO>& ob,
+                                             const MementoT<RN>& nb, bool go, bool gn,
+                                             int32_t& co, int32_t& cn) {
+  const int32_t b = jump32(ck, ob.n);
+  typename RO::Fetch fo{};
+  typename RN::Fetch fn{};
+  if (go) fo = ob.repl.fetch(b);
+  if (gn) fn = nb.repl.fetch(b);
+  if (go) co = memento_from(ck, ob.repl, b, ob.repl.finish(b, fo));
+  if (gn) cn = memento_from(ck, nb.repl, b, nb.repl.finish(b, fn));
+}
+
+// Both Memento epochs' rows of one key on one salt walk, the epochs having
+// one n.  Unbounded, replica_row's epoch takes salt s at its (s+1)-th try
+// (salt 0 the key itself, slot 0 taken without a test), whatever it
+// accepted before: both epochs try the same salts in the same order, each
+// until its row is full or the salts run out, so walking them together,
+// an epoch leaving the walk when its row is full, gives each epoch
+// replica_row's row.  Each salt's candidate key is hashed once and its
+// jump32 run once for both epochs.
+template <class RO, class RN>
+__device__ void replica_pair_row(uint32_t key, int32_t* o, int32_t* w, int32_t k,
+                                 const MementoT<RO>& ob, const MementoT<RN>& nb) {
+  int32_t jo = 0, jn = 0;
+  for (int32_t salt = 0; salt <= kReplicaSaltCap && (jo < k || jn < k); ++salt) {
+    const bool go = jo < k, gn = jn < k;
+    int32_t co = 0, cn = 0;
+    memento_pair(salt == 0 ? key : hash2(key, static_cast<uint32_t>(salt)), ob, nb, go, gn,
+                 co, cn);
+    if (go && row_takes(o, jo, co, nullptr, 0)) o[jo++] = co;
+    if (gn && row_takes(w, jn, cn, nullptr, 0)) w[jn++] = cn;
+  }
+  for (; jo < k; ++jo) o[jo] = o[0];  // a row whose salts ran out keeps first
+  for (; jn < k; ++jn) w[jn] = w[0];
+}
+
+template <class RO, class RN>
+__global__ void replica_pair_kernel(const uint32_t* __restrict__ keys, int32_t* old_out,
+                                    int32_t* new_out, int32_t* __restrict__ moved,
+                                    int64_t count, int32_t k, MementoT<RO> old_body,
+                                    MementoT<RN> new_body) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  int32_t* o = old_out + i * k;
+  int32_t* w = new_out + i * k;
+  replica_pair_row(keys[i], o, w, k, old_body, new_body);
+  moved[i] = row_moved(o, w, k);
 }
 
 // chain_walk_body: b = lookup(chain) for every lane; a pending lane steps
@@ -538,6 +687,12 @@ int dx_diff_group(int max_probes_old, int max_probes_new) {
   return g > 1 ? g / 2 : 1;
 }
 
+// The lanes a dx_replica key takes: dx_lookup's G (one thread a key below
+// 2), since each lookup of a replica set probes as a lookup does; on an
+// NVIDIA H100 80GB HBM3 at 700.00 W it ran faster than G/2 and 2G at
+// ceil(a/w) = 40, k = 3 and bounded k = 2 (PERF.md).
+int dx_replica_group(int max_probes) { return dx_group(max_probes); }
+
 template <int G>
 int launch_dx_group(const void* keys, void* out, long long count, Dx dx, void* stream) {
   dx_group_kernel<G><<<blocks_for(count * G), kThreads, 0,
@@ -553,6 +708,16 @@ int launch_dx_group_diff(const void* keys, void* old_out, void* new_out, void* m
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
       static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count, old_dx, new_dx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int launch_dx_group_replica(const void* keys, void* out, long long count, int k,
+                            const void* load, int cap, Dx dx, void* stream) {
+  dx_group_replica_kernel<G><<<blocks_for(count * G), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), count, k,
+      static_cast<const int32_t*>(load), cap, dx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -586,6 +751,28 @@ int launch_replica_diff(const void* keys, void* old_out, void* new_out, void* mo
       static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
       static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count, k,
       old_body, new_body);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two Memento epochs of one n share each salt's jump32: the pair walk.
+// Of different n they share nothing, and two replica_rows ran faster
+// (PERF.md).  Against the single read alone (two replica_rows at every n)
+// the pair ran int16 n = 10^4 -36.5 %, int8 n = 100 -16.6 %, dense
+// stable -> one-shot -9.6 % and packed int32 stable -> one-shot -1.1 %
+// (NVIDIA H100 80GB HBM3, 700.00 W): it is kept for the states where
+// jump32 is most of the time or both epochs are churned.
+template <class RO, class RN>
+int launch_memento_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                                long long count, int k, MementoT<RO> old_body,
+                                MementoT<RN> new_body, void* stream) {
+  if (old_body.n != new_body.n)
+    return launch_replica_diff(keys, old_out, new_out, moved, count, k, old_body, new_body,
+                               stream);
+  replica_pair_kernel<RO, RN><<<blocks_for(count), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
+      static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count, k, old_body,
+      new_body);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -738,8 +925,9 @@ int memento_replica(const void* keys, void* out, long long count, int k,
 int memento_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
                          long long count, int k, const void* repl_old, int n_old,
                          const void* repl_new, int n_new, void* stream) {
-  return launch_replica_diff(keys, old_out, new_out, moved, count, k,
-                             memento(repl_old, n_old), memento(repl_new, n_new), stream);
+  return launch_memento_replica_diff(keys, old_out, new_out, moved, count, k,
+                                     memento(repl_old, n_old), memento(repl_new, n_new),
+                                     stream);
 }
 
 int memento_walk(const void* chain, const void* probe, const void* pending, void* b,
@@ -774,8 +962,15 @@ int anchor_walk(const void* chain, const void* probe, const void* pending, void*
 int dx_replica(const void* keys, void* out, long long count, int k, const void* load,
                int cap, const void* words, int a, int max_probes, int fallback,
                void* stream) {
-  return launch_replica(keys, out, count, k, load, cap,
-                        dx(words, a, max_probes, fallback), stream);
+  const Dx body = dx(words, a, max_probes, fallback);
+  switch (dx_replica_group(max_probes)) {
+    case 1: return launch_replica(keys, out, count, k, load, cap, body, stream);
+    case 2: return launch_dx_group_replica<2>(keys, out, count, k, load, cap, body, stream);
+    case 4: return launch_dx_group_replica<4>(keys, out, count, k, load, cap, body, stream);
+    case 8: return launch_dx_group_replica<8>(keys, out, count, k, load, cap, body, stream);
+    case 16: return launch_dx_group_replica<16>(keys, out, count, k, load, cap, body, stream);
+    default: return launch_dx_group_replica<32>(keys, out, count, k, load, cap, body, stream);
+  }
 }
 
 int dx_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
@@ -877,7 +1072,7 @@ int memento_packed_replica_diff(const void* keys, void* old_out, void* new_out, 
                                 int n_new, void* stream) {
   return with_width(width_old, [&](auto to) {
     return with_width(width_new, [&](auto tn) {
-      return launch_replica_diff(
+      return launch_memento_replica_diff(
           keys, old_out, new_out, moved, count, k,
           memento_packed<decltype(to)>(state_old, slot_b_old, slot_c_old, nslots_old, n_old),
           memento_packed<decltype(tn)>(state_new, slot_b_new, slot_c_new, nslots_new, n_new),
@@ -972,6 +1167,9 @@ int dx_lane_group(int max_probes) { return dx_group(max_probes); }
 int dx_diff_lane_group(int max_probes_old, int max_probes_new) {
   return dx_diff_group(max_probes_old, max_probes_new);
 }
+
+// The lanes dx_replica gives a key at this probe bound (dx_replica_group).
+int dx_replica_lane_group(int max_probes) { return dx_replica_group(max_probes); }
 
 const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

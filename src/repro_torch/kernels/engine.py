@@ -200,9 +200,11 @@ def memento_body(keys: torch.Tensor, read, n: int,
                  work: dict | None = None) -> torch.Tensor:
     """Paper Alg. 4 over a table reader ``read(idx) -> repl[idx]`` (−1 =
     working).  Lanes are evaluated only while they walk, so ``read`` sees
-    the reads the kernel makes.  ``work`` gains ``"step"`` (jump32
-    steps), ``"outer"`` (Alg. 4 iterations) and ``"read"`` (chain
-    reads)."""
+    the reads the reference's loop makes.  The kernel makes one fewer a
+    pass, taking the chain's last read of repl(d) as the next pass's, so
+    that read is left out of ``work`` (a reader's counters), which gains
+    ``"step"`` (jump32 steps), ``"outer"`` (Alg. 4 iterations) and
+    ``"read"`` (chain reads): the reads the kernel makes."""
     b = jump32(keys, n, work)
     c = read(b)
     act = torch.nonzero(c >= 0).reshape(-1)
@@ -218,7 +220,11 @@ def memento_body(keys: torch.Tensor, read, n: int,
             u[follow] = read(d[follow])
             follow = follow[u[follow] >= wb[follow]]
         b[act] = d
-        c = read(d)
+        kept = None if work is None else dict(work)
+        c = read(d)  # == u, which the kernel takes: not counted
+        if kept is not None:
+            work.clear()
+            work.update(kept)
         keep = c >= 0
         act, wb = act[keep], c[keep].clamp_min(1)
     return b
@@ -757,6 +763,13 @@ def dx_diff_lane_group(max_probes_old: int, max_probes_new: int) -> int:
     library picks them."""
     return build.load("engine", _SIGNATURES).dx_diff_lane_group(
         ctypes.c_int(int(max_probes_old)), ctypes.c_int(int(max_probes_new)))
+
+
+def dx_replica_lane_group(max_probes: int) -> int:
+    """The lanes ``dx_replica`` spreads each salted lookup of a key over at
+    this probe bound (1: one thread a key), as the built kernel library
+    picks them."""
+    return build.load("engine", _SIGNATURES).dx_replica_lane_group(ctypes.c_int(int(max_probes)))
 
 
 def memento_lookup(keys: torch.Tensor, repl: torch.Tensor, n: int) -> torch.Tensor:

@@ -778,3 +778,137 @@ def test_router_with_compact_images_on_cuda_matches_host(dev, sync_mode):
     assert router.route_batch(ids).tolist() == [router.route(int(s)) for s in ids]
     assert router.image_store().totals.snapshot_rebuilds == 0
     assert (router.image_store()._mirror["slot_b"] == -2).any()
+
+
+@pytest.mark.parametrize("ratio", [1, 4, 8, 16, 32, 64, 128, 200])
+def test_dx_replica_kernel_for_every_lane_group(dev, ratio):
+    """``dx_replica`` takes one thread a key (⌈a/w⌉ = 1, 4) or runs a key's
+    salted walk on G = 2 .. 32 lanes (⌈a/w⌉ = 8 .. 200), unbounded and
+    bounded, k = 1, 2, 3 and 8: equal to its plain version at every key
+    count around a group, a warp and a block, and to the host."""
+    h = _dx_state(ratio, seed=ratio)
+    tables, scalars = _operands(h, dev)
+    lanes = {1: 1, 4: 1, 8: 2, 16: 4, 32: 8, 64: 16, 128: 32, 200: 32}[ratio]
+    assert engine.dx_replica_lane_group(scalars[1]) == lanes
+    counts = _edge_counts(dev)
+    keys_np = np.random.default_rng(ratio).integers(0, 2**32, size=max(counts), dtype=np.uint32)
+    keys_np[:5] = [0, 1, 2**31 - 1, 2**31, 2**32 - 1]
+    keys = engine.key_tensor(keys_np, dev)
+    load_np = _load(h.device_image(), seed=ratio)
+    load = torch.from_numpy(load_np).to(dev)
+    for k in (1, 2, 3, 8):
+        for ld, cap in ((None, None), (load, 3)):
+            want = engine.replica_plain("dx", keys, k, tables, scalars, ld, cap)
+            host = (engine.bounded_replica_sets(h, keys_np[:50], k, load_np, cap).tolist()
+                    if ld is not None else [h.lookup_k(int(x), k) for x in keys_np[:50]])
+            assert want[:50].cpu().tolist() == host, (k, cap)
+            for count in counts:
+                before = engine.LAUNCHES["dx_replica"]
+                out = engine.kernel_replica("dx", keys[:count], k, tables, scalars, ld, cap)
+                torch.cuda.synchronize()
+                assert engine.LAUNCHES["dx_replica"] == before + (count > 0)
+                assert torch.equal(out, want[:count]), (k, cap, count)
+
+
+@pytest.mark.parametrize("ratio", [64, 200])
+def test_exhausted_dx_replica_group_walk_keeps_the_plain_lookup(dev, ratio):
+    """``dx_replica`` on G = 16 and 32 lanes a key (⌈a/w⌉ = 64 and 200,
+    w = 10) whose walks run out of salts, where the group fills the rest
+    of the row with the key's plain lookup.  Unbounded at k = w + 3: the
+    plain walk at k = w takes every working bucket long before the salt
+    cap, and no later candidate is new, so the plain row at k = w + 3 is
+    that row and then the plain lookup three times.  Bounded with every
+    bucket at the cap: no candidate is taken, so the plain row is the
+    plain lookup k times."""
+    h = make_hash("dx", 10 * ratio, capacity=10 * ratio, variant="32")
+    for b in np.random.default_rng(ratio).permutation(10 * ratio)[10:].tolist():
+        h.remove(int(b))
+    tables, scalars = _operands(h, dev)
+    assert engine.dx_replica_lane_group(scalars[1]) == {64: 16, 200: 32}[ratio]
+    w = h.working
+    keys = engine.key_tensor(KEYS[:33], dev)
+    first = engine.lookup_plain("dx", keys, tables, scalars)[:, None]
+    full = engine.replica_plain("dx", keys, w, tables, scalars)
+    every = torch.tensor(sorted(h.working_set()), dtype=torch.int32, device=dev)
+    assert torch.equal(full.sort(dim=1).values, every.expand(len(keys), -1))
+    before = engine.LAUNCHES["dx_replica"]
+    out = engine.kernel_replica("dx", keys, w + 3, tables, scalars)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.cat([full, first.expand(-1, 3)], dim=1))
+    load = torch.ones(engine.bounded_load_len(h.device_image()), dtype=torch.int32,
+                      device=dev)
+    out = engine.kernel_replica("dx", keys, 3, tables, scalars, load, 1)
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES["dx_replica"] == before + 2
+    assert torch.equal(out, first.expand(-1, 3))
+
+
+def _memento_pair(pair: str):
+    """Two host states of one Memento cluster, old and new: one removal
+    inside a churned state (n kept), the last bucket removed from an
+    unchurned state (n - 1), a bucket added to an unchurned state (n + 1),
+    and 12 working buckets against 4 (n kept), whose walks at k = 9 run out
+    of salts in the new epoch only."""
+    if pair == "exhausted":
+        old = MementoHash(12, variant="32")
+        new = MementoHash(12, variant="32")
+        for b in (0, 2, 3, 5, 6, 8, 9, 10):
+            new.remove(b)
+        return old, new
+    old = _churned(3000, 1000, seed=1) if pair == "one removal" else MementoHash(3000,
+                                                                                  variant="32")
+    new = _churned(3000, 1000, seed=1) if pair == "one removal" else MementoHash(3000,
+                                                                                  variant="32")
+    if pair == "one removal":
+        new.remove(sorted(new.working_set())[7])
+    elif pair == "last bucket":
+        new.remove(new.n - 1)
+    else:
+        new.add()
+    return old, new
+
+
+@pytest.mark.parametrize("pair", ["one removal", "last bucket", "add", "exhausted"])
+@pytest.mark.parametrize("table", ["dense", "packed"])
+def test_memento_replica_diff_kernel_walks_both_epochs_on_one_salt_walk(dev, table, pair):
+    """``memento_replica_diff`` and ``memento_packed_replica_diff`` for
+    pairs of equal and of different n, k = 1, 2, 3 and 9, each way round:
+    equal to the plain version and, where no walk runs out of salts, to the
+    host.  Packed epochs differ in slot width (int32 against int16; int8
+    against int16 for the 12-bucket pair)."""
+    from repro_torch.core.packing import pack_image
+
+    hosts = _memento_pair(pair)
+    assert (hosts[0].n == hosts[1].n) == (pair in ("one removal", "exhausted"))
+    epochs = []
+    for h, dtype in zip(hosts, (torch.int8 if pair == "exhausted" else torch.int32,
+                                torch.int16)):
+        img = h.device_image()
+        if table == "packed":
+            img = _narrowed(pack_image(img), dtype)
+        img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+        epochs.append(engine.image_operands(img))
+    if table == "packed":
+        assert [e[0][1].dtype for e in epochs] == [
+            torch.int8 if pair == "exhausted" else torch.int32, torch.int16]
+    name = engine.kernel_name("memento", "replica_diff", table)
+    # the plain walk of an exhausted row runs all 4096 salts: fewer keys there
+    keys = engine.key_tensor(KEYS[:1024] if pair == "exhausted" else KEYS, dev)
+    for k in (1, 2, 3, 9):
+        for (a, b), (ha, hb) in (((0, 1), hosts), ((1, 0), hosts[::-1])):
+            before = engine.LAUNCHES[name]
+            got = engine.kernel_replica_diff("memento", keys, k, epochs[a], epochs[b],
+                                             table=table)
+            torch.cuda.synchronize()
+            assert engine.LAUNCHES[name] == before + 1
+            want = engine.replica_diff_plain("memento", keys, k, epochs[a], epochs[b],
+                                             table=table)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (k, a)
+            for h, rows in ((ha, got[0]), (hb, got[1])):
+                if k <= h.working:
+                    assert rows[:100].cpu().tolist() == [h.lookup_k(int(x), k)
+                                                         for x in KEYS[:100]], (k, a)
+            if pair == "exhausted" and k == 9:  # the 4-bucket epoch kept first past its 4
+                few = got[0] if a == 1 else got[1]
+                assert torch.equal(few[:, 4:], few[:, :1].expand(-1, 5))

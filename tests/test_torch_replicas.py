@@ -302,3 +302,76 @@ def test_wrappers_check_the_new_operands(algo):
     o, n, moved = port.kernel_replica_diff(algo, keys, 2, (tables, scalars),
                                            (tables, scalars))
     assert torch.equal(o, n) and not moved.any()
+
+
+def _dx_at_ratio(ratio: int, a: int = 6400):
+    """The reference's DxHash of capacity ``a`` with all but a / ratio
+    buckets removed, and the port's after the same removals."""
+    ref_h = ref_make_hash("dx", a, capacity=a, variant="32")
+    port_h = make_hash("dx", a, capacity=a, variant="32")
+    for b in np.random.default_rng(ratio).permutation(a)[: a - a // ratio].tolist():
+        ref_h.remove(int(b))
+        port_h.remove(int(b))
+    return ref_h, port_h
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+@pytest.mark.parametrize("ratio", [8, 40, 128])
+def test_dx_replica_sets_match_reference_where_the_card_takes_lane_groups(ratio, bounded):
+    """DxHash k = 3 sets, and bounded k = 2 sets, at ⌈a/w⌉ = 8, 40 and 128
+    (a = 6400): the states on which ``dx_replica`` runs a key's walk on 2, 8
+    and 32 lanes, equal to the reference engine and the host."""
+    ref_h, port_h = _dx_at_ratio(ratio)
+    img = ref_h.device_image()
+    if bounded:
+        load, cap = _bounded_load(ref_h, img)
+        got = port.engine_lookup(KEYS, _port_image(img), k=2, load=load, cap=cap, device="cpu")
+        want = np.asarray(ref.engine_lookup(KEYS, img, k=2, load=load, cap=cap, plane="jnp"))
+        host = port.bounded_replica_sets(port_h, KEYS, 2, load, cap)
+        np.testing.assert_array_equal(host, ref.bounded_replica_sets(ref_h, KEYS, 2, load, cap))
+    else:
+        got = port.engine_lookup(KEYS, _port_image(img), k=3, device="cpu")
+        want = np.asarray(ref.engine_lookup(KEYS, img, k=3, plane="jnp"))
+        host = replica_sets(port_h, KEYS, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), host)
+
+
+def _memento_epochs(pair: str):
+    """Two reference Memento states, old and new: one removal inside a
+    churned state (n kept), the last bucket removed from an unchurned
+    state (n - 1) and a bucket added to one (n + 1)."""
+    old, new = (ref_make_hash("memento", 200, variant="32") for _ in range(2))
+    if pair == "one removal":
+        churn(old, 120, seed=5)
+        churn(new, 120, seed=5)
+        new.remove(sorted(new.working_set())[3])
+    elif pair == "last bucket":
+        new.remove(new.n - 1)
+    else:
+        new.add()
+    return old, new
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("pair", ["one removal", "last bucket", "add"])
+def test_memento_replica_diff_matches_reference_for_equal_and_changed_n(pair, packed):
+    """Memento k = 3 diffs, dense and packed, between epochs of equal n and
+    of n - 1 and n + 1 (the pairs on which ``memento_replica_diff`` shares
+    jump32 between the epochs or runs one each), equal to the reference."""
+    from repro.core import packing as rpk
+
+    old, new = _memento_epochs(pair)
+    assert (old.n == new.n) == (pair == "one removal")
+    imgs = [h.device_image() for h in (old, new)]
+    if packed:
+        imgs = [rpk.pack_image(i) for i in imgs]
+    ports = [image_from_arrays(i.algo, i.n, {k: np.asarray(v) for k, v in i.arrays.items()},
+                               i.scalars, i.epoch, packed=i.packed) for i in imgs]
+    got = port.engine_diff(KEYS, *ports, k=3, device="cpu")
+    want = ref.engine_diff(KEYS, *imgs, k=3, plane="jnp")
+    np.testing.assert_array_equal(got.old.numpy(), want.old)
+    np.testing.assert_array_equal(got.new.numpy(), want.new)
+    np.testing.assert_array_equal(got.moved.numpy(), want.moved)
+    np.testing.assert_array_equal(got.new.numpy(), ref_replica_sets(new, KEYS, 3))
+    assert got.num_moved == want.num_moved > 0
