@@ -40,7 +40,8 @@
    and ``{algo}_walk`` kernel must be launched on that path; then each
    result is held against its plain version on the card and 2048 keys
    against the host, and each kernel is timed beside its bound;
-   ``dx_replica``'s lane group is logged from the library.
+   ``dx_replica``'s and ``dx_walk``'s lane groups are logged from the
+   library.
 6. Drives the fourth slice's path, the packed and compact layouts:
    ``SessionRouter(10^6, compact_images=True).route_batch`` on 2^20 ids
    through stable, 1024 removals (one sync), 128 single removals (one
@@ -1397,9 +1398,10 @@ class Smoke:
             4 * KEYS * (1 + BOUNDED_K) + tbytes["oneshot"] + 4 * load_t.numel(), work)
 
         if algo == "dx":  # the lanes a key, beside dx_lookup's and dx_diff's (phase 2)
-            log("dx_replica: " + ", ".join(
-                f"{name} G={engine.dx_replica_lane_group(sc[1])} lanes a key (max_probes "
-                f"{sc[1]})" for name, (_, sc) in ops_of.items()))
+            log("dx_replica and dx_walk: " + ", ".join(
+                f"{name} G={engine.dx_replica_lane_group(sc[1])} and "
+                f"{engine.dx_walk_lane_group(sc[1])} lanes a key (max_probes {sc[1]})"
+                for name, (_, sc) in ops_of.items()))
 
         # {algo}_replica_diff, k = 3, stable -> one-shot
         d = run["diff"]

@@ -36,7 +36,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.core.memento import MementoHash  # noqa: E402
 from repro_torch.core.packing import pack_image  # noqa: E402
-from repro_torch.core.protocol import DeviceImage, make_hash  # noqa: E402
+from repro_torch.core.protocol import ALGORITHMS, DeviceImage, make_hash  # noqa: E402
 from repro_torch.kernels import build, engine  # noqa: E402
 from repro_torch.serve.router import SessionRouter  # noqa: E402
 
@@ -125,6 +125,53 @@ def _bounded_load(smoke, keys_np, img, working):
     return torch.from_numpy(load).to(smoke.dev), cap
 
 
+def memento_sets(smoke, keys_np, state, img, working):
+    """The cases of ``memento_replica`` on a dense image (k = 3; one-shot
+    also bounded k = 2 under ``bounded_assign``'s load and cap) and, one-shot,
+    of ``memento_compact_replica`` on its compact table (k = 3, bounded
+    k = 2)."""
+    sets = [(cs.REPLICAS_K, None, None)]
+    if state == "one-shot":
+        sets.append((cs.BOUNDED_K, *_bounded_load(smoke, keys_np, img, working)))
+    layouts = [("memento_replica", "dense", None)]
+    if state == "one-shot":
+        layouts.append(("memento_compact_replica", "compact", PREFIX))
+    for entry, table, check in layouts:
+        tables, scalars = engine.image_operands(img, table)
+        for k, ld, c in sets:
+            args = (k, tables, scalars, ld, c)
+            yield (entry, f"{state} {'bounded ' if ld is not None else ''}k={k}",
+                   lambda keys, a=args, t=table: engine.kernel_replica("memento", keys, *a,
+                                                                       table=t),
+                   lambda keys, a=args, t=table: engine.replica_plain("memento", keys, *a,
+                                                                      table=t), check)
+
+
+def shared_walk_sets(smoke, keys_np):
+    """The cases of the other entries that share ``replica_row`` with
+    Memento's sets: AnchorHash (a = 4·10^6), JumpHash and PowerHash at
+    w = 10^6, one-shot k = 3 and bounded k = 2 (``bounded_assign``'s load
+    and cap), and the k = 3 diff stable -> one-shot."""
+    for algo in (a for a in ALGORITHMS if a not in ("memento", "dx")):
+        h = make_hash(algo, cs.N, capacity=cs.CAPACITY_FACTOR * cs.N, variant="32")
+        stable = smoke.operands(h)[:2]
+        smoke.remove_fraction(h, cs.ONESHOT_FRACTION)
+        tables, scalars, _, img = smoke.operands(h)
+        sets = ((cs.REPLICAS_K, None, None),
+                (cs.BOUNDED_K, *_bounded_load(smoke, keys_np, img, h.working)))
+        for k, ld, c in sets:
+            args = (k, tables, scalars, ld, c)
+            yield (f"{algo}_replica", f"one-shot {'bounded ' if ld is not None else ''}k={k}",
+                   lambda keys, a=args, al=algo: engine.kernel_replica(al, keys, *a),
+                   lambda keys, a=args, al=algo: engine.replica_plain(al, keys, *a), PREFIX)
+        epochs = (stable, (tables, scalars))
+        yield (f"{algo}_replica_diff", f"stable -> one-shot k={cs.REPLICAS_K}",
+               lambda keys, e=epochs, al=algo: engine.kernel_replica_diff(
+                   al, keys, cs.REPLICAS_K, *e),
+               lambda keys, e=epochs, al=algo: engine.replica_diff_plain(
+                   al, keys, cs.REPLICAS_K, *e), PREFIX)
+
+
 def cases(smoke, keys_np):
     """(entry, state, call, plain, check) for every case: ``call(keys)``
     runs the entry's public wrapper, ``plain(keys)`` its plain version,
@@ -150,6 +197,19 @@ def cases(smoke, keys_np):
         yield ("dx_replica", f"{name} {'bounded ' if ld is not None else ''}k={k}",
                lambda keys, a=args: engine.kernel_replica("dx", keys, *a),
                lambda keys, a=args: engine.replica_plain("dx", keys, *a), PREFIX)
+    epochs = (dx["stable"][:2], dx["one-shot"][:2])
+    yield ("dx_replica_diff", f"stable -> one-shot k={cs.REPLICAS_K}",
+           lambda keys: engine.kernel_replica_diff("dx", keys, cs.REPLICAS_K, *epochs),
+           lambda keys: engine.replica_diff_plain("dx", keys, cs.REPLICAS_K, *epochs), PREFIX)
+    probe = torch.zeros(cs.KEYS, dtype=torch.int32, device=smoke.dev)
+    pending = torch.from_numpy(smoke.rng.random(cs.KEYS) < 0.5).to(smoke.dev)
+    for name, working in (("stable", cs.N), ("one-shot", cs.N // 10)):
+        walk = (*dx[name][:2], *_bounded_load(smoke, keys_np, dx[name][3], working))
+        yield ("dx_walk", f"{name} cap={walk[3]}",
+               lambda keys, w=walk: engine.kernel_walk("dx", keys, probe[:len(keys)],
+                                                       pending[:len(keys)], *w),
+               lambda keys, w=walk: engine.walk_plain("dx", keys, probe[:len(keys)],
+                                                      pending[:len(keys)], *w), PREFIX)
     states, dense = {}, {}
     for name, img, working, dense_img in packed_states(smoke):
         states[name] = img
@@ -164,6 +224,7 @@ def cases(smoke, keys_np):
                        lambda keys, o=ops, kw=kw: engine.kernel_lookup("memento", keys, *o, **kw),
                        lambda keys, o=ops, kw=kw: engine.lookup_plain("memento", keys, *o, **kw),
                        PREFIX)
+            yield from memento_sets(smoke, keys_np, state, dense_img, working)
         load, cap = _bounded_load(smoke, keys_np, img, working)
         for k, ld, c in ((cs.REPLICAS_K, None, None), (cs.BOUNDED_K, load, cap)):
             args = (k, tables, scalars, ld, c)
@@ -180,6 +241,7 @@ def cases(smoke, keys_np):
                    "memento", keys, p[:len(keys)], q[:len(keys)], *w, table="packed"),
                lambda keys, w=walk, p=probe, q=pending: engine.walk_plain(
                    "memento", keys, p[:len(keys)], q[:len(keys)], *w, table="packed"), None)
+    yield from shared_walk_sets(smoke, keys_np)
     pairs = [("memento_replica_diff", "stable -> one-shot",
               (dense["int32 stable"], dense["int32 one-shot"]), {})]
     pairs += [("memento_packed_replica_diff", name,

@@ -54,23 +54,39 @@
 // mode's kernel is a template over that struct, so the modes of one
 // algorithm cannot disagree about a placement.  A replica walk keeps its
 // chosen slots in the lane's own output row and compares each candidate
-// with them there, so k has no limit.  dx_lookup, dx_diff and dx_replica
-// are the exceptions: when ceil(a/w) >= 8 a key's probes are spread over G
-// lanes (dx_group_bucket; G the largest power of two <= ceil(a/w) / 4, at
-// most 32, for the lookup and for each lookup of a replica set, whose
-// group runs the key's whole salted walk; half that for the diff, from the
-// epoch with more probes, whose group probes both epochs), so a warp waits
-// for the slowest of 32 / G keys and each round tests G probes of a key; a
-// key then loads ~G/2 bitmap words past its hit, and these G balanced the
-// two in sweeps (PERF.md).  DxHash's probe remainder divides by a fixed a
-// with multiplies (fastmod).
+// with them there, so k has no limit.  The DxHash entries are the
+// exceptions: when ceil(a/w) >= 8 a key's probes are spread over G lanes
+// (dx_group_bucket; G the largest power of two <= ceil(a/w) / 4, at most
+// 32, for dx_lookup, for each lookup of a dx_replica set, whose group runs
+// the key's whole salted walk, and for each lookup of a dx_walk step, whose
+// group runs the lane's whole chain; half that for dx_diff, from the epoch
+// with more probes, whose group probes both epochs), so a warp waits for
+// the slowest of 32 / G keys and each round tests G probes of a key; a key
+// then loads ~G/2 bitmap words past its hit, and these G balanced the two
+// in sweeps (PERF.md).  DxHash's probe remainder divides by a fixed a with
+// multiplies (fastmod).
 //
 // Memento's Alg. 4 reads repl(d) once: the inner loop's last read is the
 // next pass's (memento_from), one round trip a pass fewer than the
-// reference's loop.  A replica diff of two Memento epochs of one n walks
-// both rows on one salt walk (replica_pair_row): each salt's candidate is
-// hashed and its jump32 run once for both epochs, and both epochs' first
-// reads are in flight together (each reader's fetch/finish).
+// reference's loop.
+//
+// The salted replica walks.  Each tests a candidate with row_takes and
+// fills a row whose salts ran out with row_keep_first, so they share the
+// rules of replica_body; each exists for the work it lets a thread or a
+// group share:
+//   replica_row              one lookup a try, one thread a key: every
+//                            {algo}_replica but dx_replica at G >= 2, dense,
+//                            packed and compact, and the replica diffs
+//                            whose epochs share nothing (every algorithm
+//                            but Memento, and Memento at two n).  Unbounded
+//                            and bounded are two instances, each with the
+//                            loop that ran fastest for it.
+//   replica_pair_row         the Memento replica diffs of one n: both
+//                            epochs' rows on one salt walk, each salt's
+//                            jump32 run once for both, both epochs' first
+//                            reads in flight together.
+//   dx_group_replica_kernel  dx_replica at G >= 2: replica_row's walk run
+//                            by a lane group.
 //
 // Memento's table is read through a reader functor (DenseRepl, PackedRepl<T>,
 // CompactRepl) and AnchorHash's A/K through their element type T, so the
@@ -110,7 +126,20 @@
 // both epochs' chains advanced in lockstep, both reads of a step in
 // flight (int8 -17.6 % against -25.6 %, int32 -7.8 % against -9.3 %).
 // dx_replica at G/2 and 2G (one-shot k = 3 -4.8 and +3.6 %, bounded -20.2
-// and -29.0 %, where G ran -6.0 and -34.5 %).
+// and -29.0 %, where G ran -6.0 and -34.5 %).  dx_walk at G/2 (one-shot
+// 0.496 ms where G ran 0.391).  For the Memento replica sets, a walk that
+// took two salts of a key a round while two slots were open, in one thread:
+// both jump32 chains stepped in one loop until the longer ended (28-32
+// registers; memento_replica stable +14.8 %, packed stable +21.9 %,
+// one-shot +0.9 to +2.1 %: a pair cost twice its longer chain), stepped
+// together only while both ran (stable +20 %), or one after the other,
+// both first reads and both load words in flight (stable +4.8 %,
+// one-shot -0.2 %); and the two salts on two lanes, the first accepting
+// from shuffles (4-17 % slower than the one-thread pair).  For replica_row,
+// one loop over the salts in both modes with salt 0 in it (bounded -5 to
+// -12 %, but unbounded stable +1.0 to +4.2 % and int16 and int8 bounded +1
+// to +2.7 %), and a loop a slot in both modes (packed one-shot bounded
+// +1.9 %).
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -454,8 +483,8 @@ __global__ void diff_kernel(const uint32_t* __restrict__ keys,
 
 // Whether a replica walk's row, holding j slots, takes cand as its next:
 // cand is no earlier slot's bucket and, bounded (load != nullptr), its load
-// is under the cap.  Every salted walk (replica_row, replica_pair_row,
-// dx_group_replica_kernel) tests a candidate here.
+// is under the cap.  At j = 0 unbounded it takes any cand, as slot 0 takes
+// the key's plain lookup `first` untested.
 __device__ __forceinline__ bool row_takes(const int32_t* row, int32_t j, int32_t cand,
                                           const int32_t* __restrict__ load, int32_t cap) {
   bool bad = load != nullptr && load[cand] >= cap;
@@ -463,54 +492,65 @@ __device__ __forceinline__ bool row_takes(const int32_t* row, int32_t j, int32_t
   return !bad;
 }
 
+// A row whose salts ran out with j < k slots taken keeps `first` in the
+// rest.
+__device__ __forceinline__ void row_keep_first(int32_t* row, int32_t j, int32_t k,
+                                               int32_t first) {
+  for (; j < k; ++j) row[j] = first;
+}
+
 // replica_body for one key into row[0, k): the salted walk.  The candidate
 // at salt 0 is the plain lookup `first`, at salt s >= 1 the lookup of
-// hash2(key, s); the salt advances on every try and carries across slots.
-// Unbounded (load == nullptr) slot 0 is `first`, taken outside the loop,
-// and the salt starts at 1; bounded, slot 0 walks too from salt 0 and every
-// slot also rejects load[cand] >= cap.  A candidate equal to an earlier
-// slot of this row is rejected.  A slot whose walk passes the salt cap
-// keeps `first`.
-template <class Body>
+// hash2(key, s); every try takes the next salt, whatever it accepted, and
+// a row whose salts pass kReplicaSaltCap keeps `first` in its open slots.
+// Unbounded, slot 0 is `first`, taken untested; bounded, salt 0 is tested
+// against the cap as every later salt is, so salt 0 is taken apart from the
+// loop in both.  The two modes are two instances (kBounded, picked by the
+// launch), and each keeps the loop that ran fastest for it on the card
+// (PERF.md): one loop a slot unbounded, one loop over the salts bounded.
+template <bool kBounded, class Body>
 __device__ void replica_row(uint32_t key, int32_t* row, int32_t k, const Body& body,
                             const int32_t* __restrict__ load, int32_t cap) {
   const int32_t first = body(key);
-  int32_t j = 0, salt = 0;
-  if (load == nullptr) {
-    row[0] = first;
-    j = salt = 1;
+  int32_t j = 0, salt = 1;
+  if (!kBounded || load[first] < cap) row[j++] = first;
+  if (kBounded) {
+    for (; j < k && salt <= kReplicaSaltCap; ++salt) {
+      const int32_t cand = body(hash2(key, static_cast<uint32_t>(salt)));
+      if (row_takes(row, j, cand, load, cap)) row[j++] = cand;
+    }
+    row_keep_first(row, j, k, first);
+    return;
   }
   for (; j < k; ++j) {
-    int32_t slot = first;
-    while (salt <= kReplicaSaltCap) {
-      const int32_t cand = salt == 0 ? first : body(hash2(key, static_cast<uint32_t>(salt)));
-      ++salt;
-      if (row_takes(row, j, cand, load, cap)) {
-        slot = cand;
-        break;
+    int32_t cand;
+    do {
+      if (salt > kReplicaSaltCap) {
+        row_keep_first(row, j, k, first);
+        return;
       }
-    }
-    row[j] = slot;
+      cand = body(hash2(key, static_cast<uint32_t>(salt++)));
+    } while (!row_takes(row, j, cand, nullptr, cap));
+    row[j] = cand;
   }
 }
 
-template <class Body>
+template <bool kBounded, class Body>
 __global__ void replica_kernel(const uint32_t* __restrict__ keys, int32_t* out,
                                int64_t count, int32_t k, const int32_t* __restrict__ load,
                                int32_t cap, Body body) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < count) replica_row(keys[i], out + i * k, k, body, load, cap);
+  if (i < count) replica_row<kBounded>(keys[i], out + i * k, k, body, load, cap);
 }
 
 // dx_replica at G lanes a key: replica_row's salted walk, run by the group.
 // Each candidate is the group's dx_group_bucket of hash2(key, salt) (at
-// salt 0, bounded, the key's own bucket `first`), so every lane of the
-// group holds the same one.  The group's first lane tests it (an earlier
-// slot of the row; bounded, load[cand] >= cap), stores it, and gives its
-// verdict to the group by a shuffle, so j and `open` agree over the group.
-// The warp loops while any of its groups has a slot open, so salt steps in
-// every lane alike; a lane past `count` or of a finished group joins every
-// collective with `open` false.
+// salt 0 the key's own bucket `first`), so every lane of the group holds
+// the same one.  The group's first lane tests it with row_takes, stores it,
+// and gives its verdict to the group by a shuffle, so j and `open` agree
+// over the group.  The warp loops while any of its groups has a slot open,
+// so salt steps in every lane alike; a lane past `count` or of a finished
+// group joins every collective with `open` false.
 template <int G>
 __global__ void dx_group_replica_kernel(const uint32_t* __restrict__ keys, int32_t* out,
                                         int64_t count, int32_t k,
@@ -523,26 +563,20 @@ __global__ void dx_group_replica_kernel(const uint32_t* __restrict__ keys, int32
   const bool lead = (lane & (G - 1u)) == 0;
   int32_t* row = out + (live ? q : 0) * k;
   const int32_t first = dx_group_bucket<G>(dx, key, live);
-  int32_t j = 0, salt = 0;
-  if (load == nullptr) {
-    if (live && lead) row[0] = first;
-    j = salt = 1;
-  }
-  bool open = live && j < k;
-  while (__any_sync(0xFFFFFFFFu, open)) {
+  int32_t j = 0;
+  bool open = live;
+  for (int32_t salt = 0; __any_sync(0xFFFFFFFFu, open); ++salt) {
     const int32_t cand =
         salt == 0 ? first : dx_group_bucket<G>(dx, hash2(key, static_cast<uint32_t>(salt)), open);
-    ++salt;
-    int bad = 0;
+    int take = 0;
     if (open && lead) {
-      bad = !row_takes(row, j, cand, load, cap);
-      if (!bad) row[j] = cand;
+      take = row_takes(row, j, cand, load, cap);
+      if (take) row[j] = cand;
     }
-    bad = __shfl_sync(0xFFFFFFFFu, bad, static_cast<int>(lane & ~(G - 1u)));
-    if (open && !bad) ++j;
-    if (open && j < k && salt > kReplicaSaltCap) {  // the salts ran out: the rest keep first
-      if (lead)
-        for (int32_t i = j; i < k; ++i) row[i] = first;
+    take = __shfl_sync(0xFFFFFFFFu, take, static_cast<int>(lane & ~(G - 1u)));
+    if (open && take) ++j;
+    if (open && j < k && salt == kReplicaSaltCap) {  // the salts ran out
+      if (lead) row_keep_first(row, j, k, first);
       j = k;
     }
     open = open && j < k;
@@ -566,8 +600,8 @@ __global__ void replica_diff_kernel(const uint32_t* __restrict__ keys, int32_t* 
   const uint32_t key = keys[i];
   int32_t* o = old_out + i * k;
   int32_t* w = new_out + i * k;
-  replica_row(key, o, k, old_body, nullptr, 0);
-  replica_row(key, w, k, new_body, nullptr, 0);
+  replica_row<false>(key, o, k, old_body, nullptr, 0);
+  replica_row<false>(key, w, k, new_body, nullptr, 0);
   moved[i] = row_moved(o, w, k);
 }
 
@@ -607,8 +641,8 @@ __device__ void replica_pair_row(uint32_t key, int32_t* o, int32_t* w, int32_t k
     if (go && row_takes(o, jo, co, nullptr, 0)) o[jo++] = co;
     if (gn && row_takes(w, jn, cn, nullptr, 0)) w[jn++] = cn;
   }
-  for (; jo < k; ++jo) o[jo] = o[0];  // a row whose salts ran out keeps first
-  for (; jn < k; ++jn) w[jn] = w[0];
+  row_keep_first(o, jo, k, o[0]);
+  row_keep_first(w, jn, k, w[0]);
 }
 
 template <class RO, class RN>
@@ -652,6 +686,43 @@ __global__ void walk_kernel(const uint32_t* __restrict__ chain_in,
   probe_out[i] = probe;
 }
 
+// dx_walk at G lanes a walk lane: walk_kernel's step with every lookup the
+// group's dx_group_bucket, so every lane of the group holds the same b,
+// chain and probe.  The group steps while `open`: pending, probe below
+// max_probe and load[b] >= cap, read by every lane at one address, so
+// `open` agrees over the group.  The warp loops while any of its groups is
+// open; a lane past `count`, not pending or of a finished group joins every
+// collective with `open` false.  The group's first lane stores.
+template <int G>
+__global__ void dx_group_walk_kernel(const uint32_t* __restrict__ chain_in,
+                                     const int32_t* __restrict__ probe_in,
+                                     const uint8_t* __restrict__ pending,
+                                     int32_t* __restrict__ b_out,
+                                     uint32_t* __restrict__ chain_out,
+                                     int32_t* __restrict__ probe_out, int64_t count,
+                                     const int32_t* __restrict__ load, int32_t cap,
+                                     int32_t max_probe, Dx dx) {
+  const int64_t q = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+  const bool live = q < count;
+  uint32_t chain = live ? chain_in[q] : 0u;
+  int32_t probe = live ? probe_in[q] : 0;
+  int32_t b = dx_group_bucket<G>(dx, chain, live);
+  bool open = live && pending[q] && probe < max_probe && load[b] >= cap;
+  while (__any_sync(0xFFFFFFFFu, open)) {
+    if (open) chain = hash2(chain, static_cast<uint32_t>(++probe));
+    const int32_t next = dx_group_bucket<G>(dx, chain, open);
+    if (open) {
+      b = next;
+      open = probe < max_probe && load[b] >= cap;
+    }
+  }
+  if (live && (threadIdx.x & (G - 1u)) == 0) {
+    b_out[q] = b;
+    chain_out[q] = chain;
+    probe_out[q] = probe;
+  }
+}
+
 unsigned int blocks_for(long long count) {
   return static_cast<unsigned int>((count + kThreads - 1) / kThreads);
 }
@@ -693,6 +764,12 @@ int dx_diff_group(int max_probes_old, int max_probes_new) {
 // ceil(a/w) = 40, k = 3 and bounded k = 2 (PERF.md).
 int dx_replica_group(int max_probes) { return dx_group(max_probes); }
 
+// The lanes a dx_walk lane takes: dx_lookup's G (one thread a lane below
+// 2), since each lookup of a walk step probes as a lookup does; on an
+// NVIDIA H100 80GB HBM3 at 700.00 W it ran faster than G/2 at ceil(a/w) =
+// 40, one step of half the lanes at bounded_assign's cap (PERF.md).
+int dx_walk_group(int max_probes) { return dx_group(max_probes); }
+
 template <int G>
 int launch_dx_group(const void* keys, void* out, long long count, Dx dx, void* stream) {
   dx_group_kernel<G><<<blocks_for(count * G), kThreads, 0,
@@ -708,6 +785,19 @@ int launch_dx_group_diff(const void* keys, void* old_out, void* new_out, void* m
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
       static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count, old_dx, new_dx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int launch_dx_group_walk(const void* chain, const void* probe, const void* pending, void* b,
+                         void* chain_out, void* probe_out, long long count, const void* load,
+                         int cap, int max_probe, Dx dx, void* stream) {
+  dx_group_walk_kernel<G><<<blocks_for(count * G), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(chain), static_cast<const int32_t*>(probe),
+      static_cast<const uint8_t*>(pending), static_cast<int32_t*>(b),
+      static_cast<uint32_t*>(chain_out), static_cast<int32_t*>(probe_out), count,
+      static_cast<const int32_t*>(load), cap, max_probe, dx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -735,10 +825,16 @@ int launch_diff(const void* keys, void* old_out, void* new_out, void* moved,
 template <class Body>
 int launch_replica(const void* keys, void* out, long long count, int k, const void* load,
                    int cap, Body body, void* stream) {
-  replica_kernel<Body><<<blocks_for(count), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), count, k,
-      static_cast<const int32_t*>(load), cap, body);
+  if (load != nullptr)
+    replica_kernel<true, Body><<<blocks_for(count), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), count, k,
+        static_cast<const int32_t*>(load), cap, body);
+  else
+    replica_kernel<false, Body><<<blocks_for(count), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(keys), static_cast<int32_t*>(out), count, k,
+        nullptr, cap, body);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -986,8 +1082,27 @@ int dx_walk(const void* chain, const void* probe, const void* pending, void* b,
             void* chain_out, void* probe_out, long long count, const void* load, int cap,
             int max_probe, const void* words, int a, int max_probes, int fallback,
             void* stream) {
-  return launch_walk(chain, probe, pending, b, chain_out, probe_out, count, load, cap,
-                     max_probe, dx(words, a, max_probes, fallback), stream);
+  const Dx body = dx(words, a, max_probes, fallback);
+  switch (dx_walk_group(max_probes)) {
+    case 1:
+      return launch_walk(chain, probe, pending, b, chain_out, probe_out, count, load, cap,
+                         max_probe, body, stream);
+    case 2:
+      return launch_dx_group_walk<2>(chain, probe, pending, b, chain_out, probe_out, count,
+                                     load, cap, max_probe, body, stream);
+    case 4:
+      return launch_dx_group_walk<4>(chain, probe, pending, b, chain_out, probe_out, count,
+                                     load, cap, max_probe, body, stream);
+    case 8:
+      return launch_dx_group_walk<8>(chain, probe, pending, b, chain_out, probe_out, count,
+                                     load, cap, max_probe, body, stream);
+    case 16:
+      return launch_dx_group_walk<16>(chain, probe, pending, b, chain_out, probe_out, count,
+                                      load, cap, max_probe, body, stream);
+    default:
+      return launch_dx_group_walk<32>(chain, probe, pending, b, chain_out, probe_out, count,
+                                      load, cap, max_probe, body, stream);
+  }
 }
 
 int jump_replica(const void* keys, void* out, long long count, int k, const void* load,
@@ -1170,6 +1285,9 @@ int dx_diff_lane_group(int max_probes_old, int max_probes_new) {
 
 // The lanes dx_replica gives a key at this probe bound (dx_replica_group).
 int dx_replica_lane_group(int max_probes) { return dx_replica_group(max_probes); }
+
+// The lanes dx_walk gives a walk lane at this probe bound (dx_walk_group).
+int dx_walk_lane_group(int max_probes) { return dx_walk_group(max_probes); }
 
 const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -772,6 +772,13 @@ def dx_replica_lane_group(max_probes: int) -> int:
     return build.load("engine", _SIGNATURES).dx_replica_lane_group(ctypes.c_int(int(max_probes)))
 
 
+def dx_walk_lane_group(max_probes: int) -> int:
+    """The lanes ``dx_walk`` spreads each lookup of a walk lane over at this
+    probe bound (1: one thread a lane), as the built kernel library picks
+    them."""
+    return build.load("engine", _SIGNATURES).dx_walk_lane_group(ctypes.c_int(int(max_probes)))
+
+
 def memento_lookup(keys: torch.Tensor, repl: torch.Tensor, n: int) -> torch.Tensor:
     """The ``memento_lookup`` kernel (see :func:`kernel_lookup`)."""
     return kernel_lookup("memento", keys, [repl], [n])

@@ -912,3 +912,143 @@ def test_memento_replica_diff_kernel_walks_both_epochs_on_one_salt_walk(dev, tab
             if pair == "exhausted" and k == 9:  # the 4-bucket epoch kept first past its 4
                 few = got[0] if a == 1 else got[1]
                 assert torch.equal(few[:, 4:], few[:, :1].expand(-1, 5))
+
+
+def _host_walk(h, chain: int, probe: int, pending: bool, load, cap: int):
+    """The host's chain-walk step of one lane."""
+    from repro_torch.core.bounded import walk_probe_bound
+    from repro_torch.core.hashing import hash2_32
+
+    b = h.lookup(chain)
+    while pending and load[b] >= cap and probe < walk_probe_bound(len(load)):
+        probe += 1
+        chain = hash2_32(chain, probe)
+        b = h.lookup(chain)
+    return b, chain, probe
+
+
+@pytest.mark.parametrize("ratio", [1, 4, 8, 16, 32, 64, 128, 200])
+def test_dx_walk_kernel_for_every_lane_group(dev, ratio):
+    """``dx_walk`` takes one thread a walk lane (⌈a/w⌉ = 1, 4) or runs a
+    lane's step on G = 2 .. 32 lanes (⌈a/w⌉ = 8 .. 200), with no lane, half
+    the lanes and every lane pending: at a cap that three buckets in four
+    reach, where pending lanes take several steps, and with every bucket at
+    the cap, where each pending lane walks to max_probe (from a probe 0 to
+    4 below it).  Equal to its plain version at every key count around a
+    group, a warp and a block, and on 48 lanes to the host's walk."""
+    from repro_torch.core.bounded import walk_probe_bound
+
+    h = _dx_state(ratio, seed=ratio)
+    tables, scalars = _operands(h, dev)
+    lanes = {1: 1, 4: 1, 8: 2, 16: 4, 32: 8, 64: 16, 128: 32, 200: 32}[ratio]
+    assert engine.dx_walk_lane_group(scalars[1]) == lanes
+    counts = _edge_counts(dev)
+    rng = np.random.default_rng(ratio)
+    chain_np = rng.integers(0, 2**32, size=max(counts), dtype=np.uint32)
+    chain_np[:5] = [0, 1, 2**31 - 1, 2**31, 2**32 - 1]
+    chain = engine.key_tensor(chain_np, dev)
+    steps_load = _load(h.device_image(), seed=ratio)
+    max_probe = walk_probe_bound(len(steps_load))
+    near = max_probe - rng.integers(0, 5, size=len(chain_np))
+    for share in (0.0, 0.5, 1.0):
+        pending_np = rng.random(len(chain_np)) < share
+        for load_np, cap, probe_np in (
+                (steps_load, 1, rng.integers(0, 9, size=len(chain_np))),
+                (np.full_like(steps_load, 3), 3, near)):
+            load = torch.from_numpy(load_np).to(dev)
+            probe = torch.from_numpy(probe_np.astype(np.int32)).to(dev)
+            pending = torch.from_numpy(pending_np).to(dev)
+            want = engine.walk_plain("dx", chain, probe, pending, tables, scalars, load, cap)
+            host = [_host_walk(h, int(chain_np[i]), int(probe_np[i]), bool(pending_np[i]),
+                               load_np, cap) for i in range(48)]
+            got = list(zip(*(w[:48].cpu().tolist() for w in want)))
+            assert got == [(b, c - 2**32 if c >= 2**31 else c, p) for b, c, p in host]
+            if cap == 3:
+                assert (want[2][pending] == max_probe).all()
+            elif share:
+                assert int((want[2] - probe)[pending].max()) >= 4  # several steps
+            for count in counts:
+                before = engine.LAUNCHES["dx_walk"]
+                out = engine.kernel_walk("dx", chain[:count], probe[:count], pending[:count],
+                                         tables, scalars, load, cap)
+                torch.cuda.synchronize()
+                assert engine.LAUNCHES["dx_walk"] == before + (count > 0)
+                for g, w in zip(out, want):
+                    assert torch.equal(g, w[:count]), (share, cap, count)
+
+
+MEMENTO_LAYOUTS = {"dense": None, "int32": torch.int32, "int16": torch.int16,
+                   "int8": torch.int8, "compact": None}
+
+
+def _memento_layout(h: MementoHash, layout: str, dev):
+    """``h``'s image on the card in one of ``MEMENTO_LAYOUTS`` (packed with
+    its slots cast to the layout's type, or the compact table built from
+    the dense one): the image, its operands and the wrappers' ``table``."""
+    from repro_torch.core.packing import pack_image
+
+    img = h.device_image()
+    if MEMENTO_LAYOUTS[layout] is not None:
+        img = _narrowed(pack_image(img), MEMENTO_LAYOUTS[layout])
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    table = layout if layout in ("dense", "compact") else "packed"
+    return img, engine.image_operands(img, table), table
+
+
+@pytest.mark.parametrize("layout", sorted(MEMENTO_LAYOUTS))
+def test_memento_replica_kernel_at_every_layout(dev, layout):
+    """``memento_replica``, ``memento_packed_replica`` (int32, int16 and
+    int8 slots) and ``memento_compact_replica``, whose walk is one
+    instance unbounded and another bounded: k = 1, 2, 3, 4 and 9,
+    unbounded and bounded at a cap that half the buckets reach, so that
+    salt 0 is rejected for some keys and later salts for most; equal to
+    the plain version at every key count around a warp and a block, and
+    to the host.  Then salt exhaustion on three working buckets: k = 4, 5
+    and 9 keep the plain lookup past the three (the plain walk at k = 3
+    takes all three long before the salt cap, and no later candidate is
+    new), and with every bucket at the cap every slot keeps it."""
+    n = 100 if layout == "int8" else 3000
+    h = _churned(n, n // 2, seed=n + len(layout))
+    img, (tables, scalars), table = _memento_layout(h, layout, dev)
+    name = engine.kernel_name("memento", "replica", table)
+    counts = _edge_counts(dev)
+    keys_np = np.random.default_rng(n).integers(0, 2**32, size=max(counts), dtype=np.uint32)
+    keys_np[:5] = [0, 1, 2**31 - 1, 2**31, 2**32 - 1]
+    keys = engine.key_tensor(keys_np, dev)
+    load_np = _load(img, seed=n)
+    load = torch.from_numpy(load_np).to(dev)
+    first_np = engine.lookup_plain("memento", keys, tables, scalars, table=table).cpu().numpy()
+    assert 0 < int((load_np[first_np] >= 2).sum()) < len(keys_np)
+    for k in (1, 2, 3, 4, 9):
+        for ld, cap in ((None, None), (load, 2)):
+            want = engine.replica_plain("memento", keys, k, tables, scalars, ld, cap, table=table)
+            if ld is None:
+                host = [h.lookup_k(int(x), k) for x in keys_np[:50]]
+            else:
+                host = engine.bounded_replica_sets(h, keys_np[:50], k, load_np, cap).tolist()
+            assert want[:50].cpu().tolist() == host, (k, cap)
+            for count in counts:
+                before = engine.LAUNCHES[name]
+                out = engine.kernel_replica("memento", keys[:count], k, tables, scalars, ld, cap,
+                                            table=table)
+                torch.cuda.synchronize()
+                assert engine.LAUNCHES[name] == before + (count > 0)
+                assert torch.equal(out, want[:count]), (k, cap, count)
+    few = MementoHash(5, variant="32")
+    few.remove(1)
+    few.remove(3)
+    img, (tables, scalars), table = _memento_layout(few, layout, dev)
+    keys = engine.key_tensor(KEYS[:64], dev)
+    first = engine.lookup_plain("memento", keys, tables, scalars, table=table)[:, None]
+    every = engine.replica_plain("memento", keys, 3, tables, scalars, table=table)
+    assert torch.equal(every.sort(dim=1).values,
+                       torch.tensor([0, 2, 4], dtype=torch.int32, device=dev).expand(64, -1))
+    for k in (4, 5, 9):
+        out = engine.kernel_replica("memento", keys, k, tables, scalars, table=table)
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.cat([every, first.expand(-1, k - 3)], dim=1)), k
+    full = torch.ones(engine.bounded_load_len(img), dtype=torch.int32, device=dev)
+    for k in (1, 2, 3):
+        out = engine.kernel_replica("memento", keys, k, tables, scalars, full, 1, table=table)
+        torch.cuda.synchronize()
+        assert torch.equal(out, first.expand(-1, k)), k

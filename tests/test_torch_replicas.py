@@ -375,3 +375,62 @@ def test_memento_replica_diff_matches_reference_for_equal_and_changed_n(pair, pa
     np.testing.assert_array_equal(got.moved.numpy(), want.moved)
     np.testing.assert_array_equal(got.new.numpy(), ref_replica_sets(new, KEYS, 3))
     assert got.num_moved == want.num_moved > 0
+
+
+def _host_walk(h, chain: int, probe: int, pending: bool, load, cap: int):
+    """The host's chain-walk step of one lane."""
+    from repro_torch.core.hashing import hash2_32
+
+    b = h.lookup(chain)
+    while pending and load[b] >= cap and probe < walk_probe_bound(len(load)):
+        probe += 1
+        chain = hash2_32(chain, probe)
+        b = h.lookup(chain)
+    return b, chain, probe
+
+
+@pytest.mark.parametrize("plane", PLANES)
+@pytest.mark.parametrize("ratio", [8, 40, 128])
+def test_dx_chain_walk_matches_reference_where_the_card_takes_lane_groups(ratio, plane):
+    """DxHash chain-walk steps at ⌈a/w⌉ = 8, 40 and 128 (a = 6400): the
+    states on which ``dx_walk`` runs a lane's step on 2, 8 and 32 lanes, at
+    a cap that three buckets in four reach, so that pending lanes walk
+    several steps; equal to the reference engine and the host walk."""
+    ref_h, port_h = _dx_at_ratio(ratio)
+    img = ref_h.device_image()
+    chain, probe, pending, load = _walk_inputs(img, seed=ratio)
+    got = port.engine_chain_walk(chain, probe, pending, _port_image(img), load, 1,
+                                 device="cpu")
+    want = ref.engine_chain_walk(chain, probe, pending, img, load, 1, plane=plane)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert (got[2] - probe)[pending].max() >= 4
+    host = [_host_walk(port_h, int(c), int(p), bool(q), load, 1)
+            for c, p, q in zip(chain[:40], probe[:40], pending[:40])]
+    assert host == list(zip(*(g[:40].tolist() for g in got)))
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("table", ["dense", "packed", "compact"])
+def test_memento_bounded_sets_match_reference_at_a_cap_that_rejects_often(table, k):
+    """Memento bounded k = 2 and k = 4 sets on dense, packed and compact
+    images at a cap that half the buckets reach, so that the walk rejects
+    salt 0 for some keys and later salts for most (the states of the
+    card's bounded walk, one loop over the salts with salt 0 apart): equal
+    to the reference engine and the host."""
+    from repro.core import packing as rpk
+
+    ref_h = state("memento", 300, 150, seed=17)
+    img = ref_h.device_image()
+    if table == "packed":
+        img = rpk.pack_image(img)
+    port_img = image_from_arrays(img.algo, img.n, {n: np.asarray(v) for n, v in img.arrays.items()},
+                                 img.scalars, img.epoch, packed=img.packed)
+    load = np.random.default_rng(k).integers(0, 4, size=ref.bounded_load_len(img)).astype(np.int32)
+    kw = {"table": "compact"} if table == "compact" else {}
+    got = port.engine_lookup(KEYS, port_img, k=k, load=load, cap=2, device="cpu", **kw)
+    want = np.asarray(ref.engine_lookup(KEYS, img, k=k, load=load, cap=2,
+                                        plane="pallas" if table == "compact" else "jnp", **kw))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), ref.bounded_replica_sets(ref_h, KEYS, k, load, 2))
+    assert (load[got.numpy()] < 2).all()
