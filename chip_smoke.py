@@ -15,7 +15,9 @@
    on a stable state and after a one-shot removal of 90 % (capacity
    factor 4 for the fixed-capacity ones); for ``dx_lookup`` it also logs
    its lane group G, the probes a key and the warp rounds a key (a model),
-   and for ``dx_diff`` its lane group G.
+   for ``dx_diff`` its lane group G, and for ``anchor_lookup`` the passes
+   and successor reads a key and the round trips and distinct words a key
+   (a model) of ``anchor_one`` and of a loop that loads K[h] with A[h].
 3. Drives the first slice's path, ``SessionRouter.route_batch`` on 2^20
    session ids at n = 10^6, through the paper's scenarios (stable,
    one-shot 90 % removal, incremental removals) and failover in overlap
@@ -636,17 +638,18 @@ class Smoke:
                 plain_ms = self.time_ms(
                     lambda: memento_diff_plain(keys, repl_a, n_a, repl_b, n_b),
                     reps=2, warmup=1)
-                w_a: dict = {}
-                w_b: dict = {}
-                memento_lookup_plain(keys, repl_a, n_a, w_a)
-                memento_lookup_plain(keys, repl_b, n_b, w_b)
-                # two lookups and a compare per key; keys read once, 3 outputs
+                both: dict = {}
+                memento_lookup_plain(keys, repl_a, n_a, both)
+                memento_lookup_plain(keys, repl_b, n_b, both)
+                # two lookups and a compare per key, one jump32 for both at one
+                # n; keys read once, 3 outputs
                 bound_ms, bound_by = self.bound(
-                    self.lookup_ops(w_a, KEYS) + self.lookup_ops(w_b, KEYS) + KEYS,
+                    self.lookup_ops(both, 2 * KEYS) + KEYS
+                    - self.diff_shared_ops("memento", both, n_a, n_b),
                     16 * KEYS + 4 * (n_a + n_b))
-                log(f"time memento_diff stable -> oneshot: kernel {ms:.6f} ms, plain "
-                    f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by} of both "
-                    f"lookups), {bound_ms / ms:.1%} of the bound")
+                log(f"time memento_diff stable -> oneshot (n = {n_a} -> {n_b}): kernel "
+                    f"{ms:.6f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
+                    f"({bound_by} of both lookups), {bound_ms / ms:.1%} of the bound")
                 result = {"name": "memento_diff", "route": "cuda",
                           "source": "src/repro_torch/kernels/csrc/engine.cu",
                           "replaces": "src/repro/kernels/engine.py:526",
@@ -763,6 +766,16 @@ class Smoke:
                 + work.get("compare", 0) * OPS_PER_COMPARE
                 + work.get("walk", 0) * OPS_PER_WALK_STEP + walk)
 
+    @staticmethod
+    def diff_shared_ops(algo: str, work: dict, n_old: int, n_new: int) -> int:
+        """The operations of a k = 1 diff that its plain counters ``work``
+        (both epochs) count twice and the kernel makes once: for two Memento
+        epochs of one n, the jump32 steps of a key, one epoch's half of
+        ``work["step"]`` (both run the same steps); 0 otherwise."""
+        if algo != "memento" or n_old != n_new:
+            return 0
+        return work.get("step", 0) // 2 * OPS_PER_STEP
+
     def pair_shared_ops(self, algo: str, keys, work: dict, old, new, table: str) -> int:
         """The operations of a k = REPLICAS_K replica diff that its plain
         counters ``work`` (both epochs) count twice and the kernel makes
@@ -835,6 +848,8 @@ class Smoke:
                                   "bound_by": bound_by, "max_abs_err": err}
                 if algo == "dx":
                     self.dx_rounds(keys, tables, scalars, name)
+                if algo == "anchor":
+                    self.anchor_trips(work, name)
                 log(f"check {algo}_lookup {name}: keys={KEYS} kernel == plain"
                     f"{' == host sample' if name == 'oneshot' else ''}; kernel {ms:.6f} ms, "
                     f"plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
@@ -883,6 +898,22 @@ class Smoke:
             self.kept[algo] = (h, stable[3], oneshot[3])
         torch.cuda.synchronize()
         return rows
+
+    @staticmethod
+    def anchor_trips(work: dict, name: str) -> None:
+        """Log ``anchor_lookup``'s passes (removed buckets met) and successor
+        reads a key, from the plain version's counters, and a model of its
+        loads a key: ``anchor_one`` waits on 1 + 2 passes + 2 reads dependent
+        loads (A[b] is read again at each pass, the word the chain's last
+        test read) of 1 + passes + 2 reads distinct words; with K[h] loaded
+        beside every A[h] and the chain's last read kept (a design that ran
+        slower and was deleted) 1 + passes + reads round trips would load
+        1 + 2 passes + 2 reads distinct words."""
+        o, r = work.get("outer", 0) / KEYS, work.get("read", 0) / KEYS
+        log(f"anchor_lookup {name}: {o:.4f} passes and {r:.4f} successor reads a key (plain "
+            f"counters); model: anchor_one {1 + 2 * o + 2 * r:.4f} round trips and "
+            f"{1 + o + 2 * r:.4f} distinct words a key, K loaded with every A "
+            f"{1 + o + r:.4f} and {1 + 2 * o + 2 * r:.4f}")
 
     @staticmethod
     def dx_rounds(keys, tables, scalars, name: str) -> None:
@@ -2091,7 +2122,8 @@ class Smoke:
                 raise AssertionError(f"{algo}_packed_diff {label}: kernel != plain ({e})")
             ms = self.time_ms(lambda: engine.kernel_diff(algo, keys, old, new, **kw), reps=20)
             ops = (self.lookup_ops(both, 2 * KEYS) if algo == "memento"
-                   else self.algo_ops(algo, both, 2 * KEYS, n)) + KEYS
+                   else self.algo_ops(algo, both, 2 * KEYS, n)) + KEYS - self.diff_shared_ops(
+                       algo, both, old[1][0], n)
             by_mode["diff"][label] = self.packed_entry(
                 f"{algo}_packed_diff {label}, moved {int(got[2].sum())}", e, ms, plain_ms, ops,
                 16 * KEYS + tb + ob, both)

@@ -6,7 +6,7 @@ states, through the port's public wrappers: another commit's source (a
 
     git archive PARENT src/repro_torch/kernels/csrc | tar -x -C archive/parent
     python3 scripts/ab_engine.py archive/parent/src/repro_torch/kernels/csrc \
-        [--json PATH]
+        [--json PATH] [--only ENTRY,ENTRY,...]
 
 Each case is an entry, a state, one call of its wrapper and the plain
 version to hold it against (:func:`cases`); a redesign of another entry
@@ -17,7 +17,8 @@ version on the first ``check`` keys.  Both builds must export the same
 entries with the same arguments.
 
 Prints one JSON line a case; ``--json PATH`` also writes them all to
-PATH.  Needs a GPU and ``nvcc``.
+PATH; ``--only`` runs only the cases of the named entries, and builds only
+the states of their group (:data:`GROUPS`).  Needs a GPU and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -63,13 +64,14 @@ def dx_states(smoke):
         yield f"{name} + 1 removal", smoke.operands(h)
 
 
-def _int8(smoke, h):
-    """``h``'s packed image with its slots narrowed to int8 by hand (the
-    values fit), on the card."""
+def _narrowed(smoke, h, dtype=torch.int8):
+    """``h``'s packed image with its slots (Memento) or A/K (AnchorHash)
+    cast to ``dtype`` by hand (the values fit), on the card."""
     img = pack_image(h.device_image())
-    arrays = {k: (v.to(torch.int8) if k.startswith("slot") else v).to(smoke.dev)
+    names = ("slot_b", "slot_c") if img.algo == "memento" else ("A", "K")
+    arrays = {k: (v.to(dtype) if k in names else v).to(smoke.dev)
               for k, v in img.arrays.items()}
-    return DeviceImage("memento", img.n, arrays, dict(img.scalars), img.epoch, packed=True)
+    return DeviceImage(img.algo, img.n, arrays, dict(img.scalars), img.epoch, packed=True)
 
 
 def packed_states(smoke):
@@ -91,29 +93,89 @@ def packed_states(smoke):
     yield "int16 n=10^4", smoke.on_card(pack_image(small.device_image())), small.working, None
     tiny = MementoHash(cs.TINY_N, variant="32")
     smoke.remove_random(tiny, cs.TINY_N // 2)
-    yield "int8 n=100", _int8(smoke, tiny), tiny.working, None
+    yield "int8 n=100", _narrowed(smoke, tiny), tiny.working, None
 
 
 def packed_pairs(smoke, states):
     """(name, old image, new image) of packed Memento epoch pairs on the
     card: ``chip_smoke.py``'s three, all of equal n (int32 stable -> one-shot
     at n = 10^6, int16 n = 10^4 -> 20 removals later, int8 n = 100 -> one
-    removal later), and n = 10^6 unchurned -> its last bucket removed
-    (n - 1)."""
+    removal later), the n = 10^4 pair with its old epoch's slots widened to
+    int32, and n = 10^6 unchurned -> its last bucket removed (n - 1)."""
     yield "int32 stable -> one-shot", states["int32 stable"], states["int32 one-shot"]
     small = MementoHash(cs.SMALL_N, variant="32")
     old = smoke.on_card(pack_image(small.device_image()))
+    wide = _narrowed(smoke, small, torch.int32)
     smoke.remove_random(small, cs.SMALL_EVENTS[0])
-    yield "int16 n=10^4 -> 20 removals", old, smoke.on_card(pack_image(small.device_image()))
+    new = smoke.on_card(pack_image(small.device_image()))
+    yield "int16 n=10^4 -> 20 removals", old, new
+    yield "int32 -> int16 n=10^4 -> 20 removals", wide, new
     tiny = MementoHash(cs.TINY_N, variant="32")
     smoke.remove_random(tiny, cs.TINY_N // 2)
-    old = _int8(smoke, tiny)
+    old = _narrowed(smoke, tiny)
     smoke.remove_random(tiny, 1)
-    yield "int8 n=100 -> 1 removal", old, _int8(smoke, tiny)
+    yield "int8 n=100 -> 1 removal", old, _narrowed(smoke, tiny)
     m = MementoHash(cs.N, variant="32")
     old = smoke.on_card(pack_image(m.device_image()))
     m.remove(cs.N - 1)
     yield "int32 n=10^6 -> last bucket removed", old, smoke.on_card(pack_image(m.device_image()))
+
+
+def anchor_states(smoke):
+    """AnchorHash at a = 4·10^6 on the card: stable (w = 10^6), one-shot
+    90 % (w = 10^5) and one removal later: (name, (tables, scalars, table
+    bytes, image, working))."""
+    h = make_hash("anchor", cs.N, capacity=cs.CAPACITY_FACTOR * cs.N, variant="32")
+    yield "stable", (*smoke.operands(h), h.working)
+    smoke.remove_fraction(h, cs.ONESHOT_FRACTION)
+    yield "one-shot", (*smoke.operands(h), h.working)
+    h.remove(int(smoke.rng.choice(sorted(h.working_set()))))
+    yield "one-shot + 1 removal", (*smoke.operands(h), h.working)
+
+
+def anchor_small_states(smoke):
+    """AnchorHash's narrow packed images on the card: a = 32000, w = 8000
+    after 20 removals (int16), and a = 100 after 50 removals, narrowed to
+    int8 by hand."""
+    small = make_hash("anchor", cs.ANCHOR_W, capacity=cs.ANCHOR_A, variant="32")
+    for v in smoke.rng.permutation(sorted(small.working_set()))[:cs.SMALL_EVENTS[0]].tolist():
+        small.remove(v)
+    yield "int16 a=32000", smoke.on_card(pack_image(small.device_image()))
+    tiny = make_hash("anchor", cs.TINY_N, capacity=cs.TINY_N, variant="32")
+    smoke.remove_fraction(tiny, 0.5)
+    yield "int8 a=100", _narrowed(smoke, tiny)
+
+
+def anchor_cases(smoke, keys_np, anchor):
+    """The cases of the entries that share ``anchor_one``, beyond the
+    replica sets' (:func:`shared_walk_sets`): ``anchor_lookup`` stable and
+    one-shot at a = 4·10^6, ``anchor_diff`` stable -> one-shot and one-shot
+    -> one removal later, ``anchor_walk`` one-shot (half the lanes pending,
+    ``bounded_assign``'s load and cap) and ``anchor_packed_lookup`` at int16
+    and int8."""
+    for name in ("stable", "one-shot"):
+        yield ("anchor_lookup", name,
+               lambda keys, t=anchor[name][:2]: engine.kernel_lookup("anchor", keys, *t),
+               lambda keys, t=anchor[name][:2]: engine.lookup_plain("anchor", keys, *t), PREFIX)
+    for old, new in (("stable", "one-shot"), ("one-shot", "one-shot + 1 removal")):
+        e = (anchor[old][:2], anchor[new][:2])
+        yield ("anchor_diff", f"{old} -> {new}",
+               lambda keys, e=e: engine.kernel_diff("anchor", keys, *e),
+               lambda keys, e=e: engine.diff_plain("anchor", keys, *e), PREFIX)
+    tables, scalars, _, img, working = anchor["one-shot"]
+    walk = (tables, scalars, *_bounded_load(smoke, keys_np, img, working))
+    probe = torch.zeros(cs.KEYS, dtype=torch.int32, device=smoke.dev)
+    pending = torch.from_numpy(smoke.rng.random(cs.KEYS) < 0.5).to(smoke.dev)
+    yield ("anchor_walk", f"one-shot cap={walk[3]}",
+           lambda keys: engine.kernel_walk("anchor", keys, probe[:len(keys)],
+                                           pending[:len(keys)], *walk),
+           lambda keys: engine.walk_plain("anchor", keys, probe[:len(keys)],
+                                          pending[:len(keys)], *walk), PREFIX)
+    for name, img in anchor_small_states(smoke):
+        t = engine.image_operands(img)
+        yield ("anchor_packed_lookup", name,
+               lambda keys, t=t: engine.kernel_lookup("anchor", keys, *t, table="packed"),
+               lambda keys, t=t: engine.lookup_plain("anchor", keys, *t, table="packed"), None)
 
 
 def _bounded_load(smoke, keys_np, img, working):
@@ -147,18 +209,22 @@ def memento_sets(smoke, keys_np, state, img, working):
                                                                       table=t), check)
 
 
-def shared_walk_sets(smoke, keys_np):
+def shared_walk_sets(smoke, keys_np, anchor):
     """The cases of the other entries that share ``replica_row`` with
-    Memento's sets: AnchorHash (a = 4·10^6), JumpHash and PowerHash at
-    w = 10^6, one-shot k = 3 and bounded k = 2 (``bounded_assign``'s load
-    and cap), and the k = 3 diff stable -> one-shot."""
+    Memento's sets: AnchorHash (a = 4·10^6, ``anchor``'s states), JumpHash
+    and PowerHash at w = 10^6, one-shot k = 3 and bounded k = 2
+    (``bounded_assign``'s load and cap), and the k = 3 diff stable ->
+    one-shot."""
     for algo in (a for a in ALGORITHMS if a not in ("memento", "dx")):
-        h = make_hash(algo, cs.N, capacity=cs.CAPACITY_FACTOR * cs.N, variant="32")
-        stable = smoke.operands(h)[:2]
-        smoke.remove_fraction(h, cs.ONESHOT_FRACTION)
-        tables, scalars, _, img = smoke.operands(h)
+        if algo == "anchor":
+            stable, (tables, scalars, _, img, working) = anchor["stable"][:2], anchor["one-shot"]
+        else:
+            h = make_hash(algo, cs.N, capacity=cs.CAPACITY_FACTOR * cs.N, variant="32")
+            stable = smoke.operands(h)[:2]
+            smoke.remove_fraction(h, cs.ONESHOT_FRACTION)
+            (tables, scalars, _, img), working = smoke.operands(h), h.working
         sets = ((cs.REPLICAS_K, None, None),
-                (cs.BOUNDED_K, *_bounded_load(smoke, keys_np, img, h.working)))
+                (cs.BOUNDED_K, *_bounded_load(smoke, keys_np, img, working)))
         for k, ld, c in sets:
             args = (k, tables, scalars, ld, c)
             yield (f"{algo}_replica", f"one-shot {'bounded ' if ld is not None else ''}k={k}",
@@ -172,12 +238,8 @@ def shared_walk_sets(smoke, keys_np):
                    al, keys, cs.REPLICAS_K, *e), PREFIX)
 
 
-def cases(smoke, keys_np):
-    """(entry, state, call, plain, check) for every case: ``call(keys)``
-    runs the entry's public wrapper, ``plain(keys)`` its plain version,
-    held on the first ``check`` keys (None: all).  A bounded set's load,
-    and a walk's, is ``bounded_assign``'s of ``keys_np``; a walk has half
-    its lanes pending."""
+def dx_cases(smoke, keys_np):
+    """The DxHash entries' cases at a = 4·10^6 (:func:`dx_states`)."""
     dx = dict(dx_states(smoke))
     for name in ("stable", "one-shot"):
         yield ("dx_lookup", name,
@@ -210,6 +272,12 @@ def cases(smoke, keys_np):
                                                        pending[:len(keys)], *w),
                lambda keys, w=walk: engine.walk_plain("dx", keys, probe[:len(keys)],
                                                       pending[:len(keys)], *w), PREFIX)
+
+
+def memento_cases(smoke, keys_np):
+    """The Memento entries' cases on every packed state (:func:`packed_states`),
+    their dense images, and the epoch pairs (:func:`packed_pairs`, and the
+    dense n = 10^6 -> n - 1)."""
     states, dense = {}, {}
     for name, img, working, dense_img in packed_states(smoke):
         states[name] = img
@@ -241,18 +309,54 @@ def cases(smoke, keys_np):
                    "memento", keys, p[:len(keys)], q[:len(keys)], *w, table="packed"),
                lambda keys, w=walk, p=probe, q=pending: engine.walk_plain(
                    "memento", keys, p[:len(keys)], q[:len(keys)], *w, table="packed"), None)
-    yield from shared_walk_sets(smoke, keys_np)
-    pairs = [("memento_replica_diff", "stable -> one-shot",
-              (dense["int32 stable"], dense["int32 one-shot"]), {})]
-    pairs += [("memento_packed_replica_diff", name,
-               (engine.image_operands(old), engine.image_operands(new)), {"table": "packed"})
-              for name, old, new in packed_pairs(smoke, states)]
-    for entry, state, epochs, kw in pairs:
-        yield (entry, f"{state} k={cs.REPLICAS_K}",
+    m = MementoHash(cs.N, variant="32")
+    last = smoke.on_card(m.device_image())
+    m.remove(cs.N - 1)
+    pairs = [("stable -> one-shot", (dense["int32 stable"], dense["int32 one-shot"]), {}),
+             ("n=10^6 -> last bucket removed",
+              (engine.image_operands(last), engine.image_operands(smoke.on_card(
+                  m.device_image()))), {})]
+    pairs += [(name, (engine.image_operands(old), engine.image_operands(new)),
+               {"table": "packed"}) for name, old, new in packed_pairs(smoke, states)]
+    for state, epochs, kw in pairs:  # the k = 1 diffs
+        yield (engine.kernel_name("memento", "diff", kw.get("table", "dense")), state,
+               lambda keys, e=epochs, kw=kw: engine.kernel_diff("memento", keys, *e, **kw),
+               lambda keys, e=epochs, kw=kw: engine.diff_plain("memento", keys, *e, **kw),
+               PREFIX)
+    for state, epochs, kw in pairs[:1] + pairs[2:]:  # the k = 3 diffs
+        yield (engine.kernel_name("memento", "replica_diff", kw.get("table", "dense")),
+               f"{state} k={cs.REPLICAS_K}",
                lambda keys, e=epochs, kw=kw: engine.kernel_replica_diff(
                    "memento", keys, cs.REPLICAS_K, *e, **kw),
                lambda keys, e=epochs, kw=kw: engine.replica_diff_plain(
                    "memento", keys, cs.REPLICAS_K, *e, **kw), PREFIX)
+
+
+def anchor_and_shared_cases(smoke, keys_np):
+    """The AnchorHash entries' cases and the other entries that share
+    ``replica_row`` (:func:`anchor_cases`, :func:`shared_walk_sets`)."""
+    anchor = dict(anchor_states(smoke))
+    yield from anchor_cases(smoke, keys_np, anchor)
+    yield from shared_walk_sets(smoke, keys_np, anchor)
+
+
+#: each group of cases, and the entry prefixes it serves
+GROUPS = ((dx_cases, ("dx_",)), (memento_cases, ("memento_",)),
+          (anchor_and_shared_cases, ("anchor_", "jump_", "power_")))
+
+
+def cases(smoke, keys_np, only=None):
+    """(entry, state, call, plain, check) for every case: ``call(keys)``
+    runs the entry's public wrapper, ``plain(keys)`` its plain version,
+    held on the first ``check`` keys (None: all).  A bounded set's load,
+    and a walk's, is ``bounded_assign``'s of ``keys_np``; a walk has half
+    its lanes pending.  Each group draws its states from its own seed, so
+    they are the same whichever groups run; a group none of whose entries
+    are in ``only`` is not built."""
+    for g, (group, prefixes) in enumerate(GROUPS):
+        if only is None or any(e.startswith(prefixes) for e in only):
+            smoke.rng = np.random.default_rng(cs.SEED + 1 + g)
+            yield from group(smoke, keys_np)
 
 
 def _equal(a, b) -> bool:
@@ -273,6 +377,7 @@ def main(argv: list[str]) -> int:
         return 2
     builds = {"old": Path(argv[1]) / "engine.cu", "new": build.CSRC / "engine.cu"}
     out = Path(argv[argv.index("--json") + 1]) if "--json" in argv else None
+    only = set(argv[argv.index("--only") + 1].split(",")) if "--only" in argv else None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
@@ -285,7 +390,9 @@ def main(argv: list[str]) -> int:
     smoke = cs.Smoke(torch)
     keys_np, keys = smoke.keys()
     rows = []
-    for entry, state, call, plain, check in cases(smoke, keys_np):
+    for entry, state, call, plain, check in cases(smoke, keys_np, only):
+        if only is not None and entry not in only:
+            continue
         got = {}
         for label, src in builds.items():
             with build.built_from("engine", src):

@@ -68,7 +68,9 @@
 //
 // Memento's Alg. 4 reads repl(d) once: the inner loop's last read is the
 // next pass's (memento_from), one round trip a pass fewer than the
-// reference's loop.
+// reference's loop.  A k = 1 Memento diff of two epochs of one n runs both
+// lookups of a key through memento_pair: one jump32 for both, both first
+// reads in flight together (memento_pair_diff_kernel).
 //
 // The salted replica walks.  Each tests a candidate with row_takes and
 // fills a row whose salts ran out with row_keep_first, so they share the
@@ -139,7 +141,14 @@
 // one loop over the salts in both modes with salt 0 in it (bounded -5 to
 // -12 %, but unbounded stable +1.0 to +4.2 % and int16 and int8 bounded +1
 // to +2.7 %), and a loop a slot in both modes (packed one-shot bounded
-// +1.9 %).
+// +1.9 %).  For anchor_one (every AnchorHash entry; anchor_lookup at a =
+// 4*10^6 against the loop below): K[h] loaded with every A[h], so a chain
+// step is one round trip (stable +64.5 %, one-shot +24.7 %: a K word more
+// every pass, and the stable state's K, idle before, now shares the L2
+// with A); K[h] loaded with A[h] only once a chain is followed (one-shot
+// +0.7 %); the pass's last read of A kept as the next pass's A[b] with the
+// start by fastmod (one-shot +0.1 %, packed int16 -5.4 % and int8 -9.7 %:
+// no gain where the time is).
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -658,6 +667,23 @@ __global__ void replica_pair_kernel(const uint32_t* __restrict__ keys, int32_t* 
   moved[i] = row_moved(o, w, k);
 }
 
+// The k = 1 diff of two Memento epochs of one n: each key's two lookups by
+// memento_pair, one jump32 for both and both first reads in flight together.
+template <class RO, class RN>
+__global__ void memento_pair_diff_kernel(const uint32_t* __restrict__ keys,
+                                         int32_t* __restrict__ old_out,
+                                         int32_t* __restrict__ new_out,
+                                         int32_t* __restrict__ moved, int64_t count,
+                                         MementoT<RO> old_body, MementoT<RN> new_body) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  int32_t o = 0, w = 0;
+  memento_pair(keys[i], old_body, new_body, true, true, o, w);
+  old_out[i] = o;
+  new_out[i] = w;
+  moved[i] = o != w;
+}
+
 // chain_walk_body: b = lookup(chain) for every lane; a pending lane steps
 // probe += 1, chain = hash2(chain, probe), b = lookup(chain) while
 // load[b] >= cap and probe < max_probe (64 * len(load) + 64, below 2^31).
@@ -850,6 +876,26 @@ int launch_replica_diff(const void* keys, void* old_out, void* new_out, void* mo
   return static_cast<int>(cudaGetLastError());
 }
 
+// Two Memento epochs of one n share each key's jump32 (memento_pair); of
+// different n (the last bucket removed, a bucket added) they share
+// nothing, and diff_kernel runs them one after the other.  Against
+// diff_kernel at every n the pair ran int16 n = 10^4 -40.9 %, int8 n = 100
+// -16.9 %, dense stable -> one-shot -5.2 % and packed int32 -1.9 %
+// (NVIDIA H100 80GB HBM3, 700.00 W).
+template <class RO, class RN>
+int launch_memento_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                        long long count, MementoT<RO> old_body, MementoT<RN> new_body,
+                        void* stream) {
+  if (old_body.n != new_body.n)
+    return launch_diff(keys, old_out, new_out, moved, count, old_body, new_body, stream);
+  memento_pair_diff_kernel<RO, RN><<<blocks_for(count), kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
+      static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count, old_body,
+      new_body);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Two Memento epochs of one n share each salt's jump32: the pair walk.
 // Of different n they share nothing, and two replica_rows ran faster
 // (PERF.md).  Against the single read alone (two replica_rows at every n)
@@ -949,8 +995,8 @@ int memento_lookup(const void* keys, void* out, long long count,
 int memento_diff(const void* keys, void* old_out, void* new_out, void* moved,
                  long long count, const void* repl_old, int n_old,
                  const void* repl_new, int n_new, void* stream) {
-  return launch_diff(keys, old_out, new_out, moved, count, memento(repl_old, n_old),
-                     memento(repl_new, n_new), stream);
+  return launch_memento_diff(keys, old_out, new_out, moved, count, memento(repl_old, n_old),
+                             memento(repl_new, n_new), stream);
 }
 
 int anchor_lookup(const void* keys, void* out, long long count, const void* A,
@@ -1159,7 +1205,7 @@ int memento_packed_diff(const void* keys, void* old_out, void* new_out, void* mo
                         void* stream) {
   return with_width(width_old, [&](auto to) {
     return with_width(width_new, [&](auto tn) {
-      return launch_diff(
+      return launch_memento_diff(
           keys, old_out, new_out, moved, count,
           memento_packed<decltype(to)>(state_old, slot_b_old, slot_c_old, nslots_old, n_old),
           memento_packed<decltype(tn)>(state_new, slot_b_new, slot_c_new, nslots_new, n_new),

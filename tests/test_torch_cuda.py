@@ -1052,3 +1052,143 @@ def test_memento_replica_kernel_at_every_layout(dev, layout):
         out = engine.kernel_replica("memento", keys, k, tables, scalars, full, 1, table=table)
         torch.cuda.synchronize()
         assert torch.equal(out, first.expand(-1, k)), k
+
+
+def _anchor_run(a: int, ratio: int, removal: str, seed: int):
+    """AnchorHash of capacity ``a``, all working at first, brought down to
+    ``a // ratio`` working buckets (at least three) by removals of random
+    buckets, or by a LIFO run: the working list's head first, then each
+    removal takes the bucket that replaced the last one removed (the list's
+    tail), so that K chains grow as long as the run."""
+    h = make_hash("anchor", a, capacity=a, variant="32")
+    victims = np.random.default_rng(seed).permutation(a).tolist()
+    b = None
+    while h.working > max(3, a // ratio):
+        if removal == "random":
+            b = int(victims.pop())
+        elif b is None or not h.is_working(h.K[b]):  # start a run
+            b = int(h.W[0])
+        else:
+            b = int(h.K[b])
+        h.remove(b)
+    return h
+
+
+ANCHOR_LAYOUTS = {"dense": None, "int32": torch.int32, "int16": torch.int16,
+                  "int8": torch.int8}
+
+
+def _anchor_layout(h, layout: str, dev):
+    """``h``'s image on the card in one of ``ANCHOR_LAYOUTS`` (packed with
+    A/K cast to the layout's type): its operands and the wrappers' table."""
+    from repro_torch.core.packing import pack_image
+
+    img = h.device_image()
+    if ANCHOR_LAYOUTS[layout] is not None:
+        img = _narrowed(pack_image(img), ANCHOR_LAYOUTS[layout])
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    table = "dense" if layout == "dense" else "packed"
+    return engine.image_operands(img, table), table
+
+
+@pytest.mark.parametrize("removal", ["random", "LIFO run"])
+@pytest.mark.parametrize("ratio", [1, 4, 40, 400])
+@pytest.mark.parametrize("layout", sorted(ANCHOR_LAYOUTS))
+def test_anchor_kernels_at_every_chain_length(dev, layout, ratio, removal):
+    """``anchor_one``, the body of every AnchorHash entry, through
+    ``anchor_lookup``, ``_diff`` both ways and ``_replica`` k = 3, dense and
+    packed at every width, at a/w = 1, 4, 40 and 400 (a = 4000; a = 120 at int8, where a/w
+    stops at 40, three buckets for the replica set), after random removals
+    or a LIFO run (long K chains): equal to the plain versions, 100 keys to
+    the host, one launch each.  The diff's other epoch is one removal
+    later."""
+    a = 120 if layout == "int8" else 4000
+    h = _anchor_run(a, ratio, removal, seed=ratio)
+    other = _anchor_run(a, ratio, removal, seed=ratio)
+    other.remove(sorted(other.working_set())[0])
+    (tables, scalars), table = _anchor_layout(h, layout, dev)
+    epochs = (tables, scalars), _anchor_layout(other, layout, dev)[0]
+    keys = engine.key_tensor(KEYS[:4000], dev)
+    if removal == "LIFO run" and ratio >= 40:  # the run's chains are long
+        work: dict = {}
+        engine.lookup_plain("anchor", keys, tables, scalars, work, table=table)
+        assert work["read"] > 5 * keys.numel()
+    calls = {
+        "lookup": (lambda: engine.kernel_lookup("anchor", keys, tables, scalars, table=table),
+                   lambda: engine.lookup_plain("anchor", keys, tables, scalars, table=table)),
+        "replica": (lambda: engine.kernel_replica("anchor", keys, 3, tables, scalars,
+                                                  table=table),
+                    lambda: engine.replica_plain("anchor", keys, 3, tables, scalars,
+                                                 table=table)),
+    }
+    for mode, (kernel, plain) in calls.items():
+        name = engine.kernel_name("anchor", mode, table)
+        before = engine.LAUNCHES[name]
+        out = kernel()
+        torch.cuda.synchronize()
+        assert engine.LAUNCHES[name] == before + 1
+        assert torch.equal(out, plain()), mode
+        if mode == "lookup":
+            assert out[:100].cpu().tolist() == [h.lookup(int(k)) for k in KEYS[:100]]
+        else:
+            assert out[:100].cpu().tolist() == [h.lookup_k(int(k), 3) for k in KEYS[:100]]
+    name = engine.kernel_name("anchor", "diff", table)
+    for old, new in (epochs, epochs[::-1]):
+        before = engine.LAUNCHES[name]
+        got = engine.kernel_diff("anchor", keys, old, new, table=table)
+        torch.cuda.synchronize()
+        assert engine.LAUNCHES[name] == before + 1
+        for g, w in zip(got, engine.diff_plain("anchor", keys, old, new, table=table)):
+            assert torch.equal(g, w)
+
+
+def _memento_diff_pair(pair: str, n: int):
+    """Two host states of one Memento cluster of n buckets, old and new:
+    one removal inside a churned state and a one-shot removal of 90 % (n
+    kept: one jump32 serves both epochs), the last bucket removed (n - 1)
+    and a bucket added (n + 1)."""
+    if pair == "one-shot":
+        return MementoHash(n, variant="32"), _churned(n, int(0.9 * n), seed=3)
+    churned = pair == "one removal"
+    old, new = ((_churned(n, n // 3, seed=1) if churned else MementoHash(n, variant="32"))
+                for _ in range(2))
+    if churned:
+        new.remove(new.lookup(int(KEYS[0])))  # a key moves
+    elif pair == "last bucket":
+        new.remove(n - 1)
+    else:
+        new.add()
+    return old, new
+
+
+@pytest.mark.parametrize("pair", ["one removal", "one-shot", "last bucket", "add"])
+@pytest.mark.parametrize("layout", ["dense", "int32 -> int16", "int8 -> int16"])
+def test_memento_diff_kernels_of_equal_and_different_n(dev, layout, pair):
+    """``memento_diff`` and ``memento_packed_diff``, whose epochs of one n
+    share each key's jump32 (and of two n run one after the other), each way
+    round, packed epochs of two slot widths: equal to the plain version at
+    key counts 0, 1, 33 and 257 and over 4000 keys, 100 keys to the host,
+    one launch a call with keys."""
+    n = 100 if layout == "int8 -> int16" else 3000
+    hosts = _memento_diff_pair(pair, n)
+    assert (hosts[0].n == hosts[1].n) == (pair in ("one removal", "one-shot"))
+    epochs = []
+    for h, width in zip(hosts, layout.split(" -> ") if layout != "dense" else ("dense",) * 2):
+        epochs.append(_memento_layout(h, width, dev)[1])
+    table = "dense" if layout == "dense" else "packed"
+    name = engine.kernel_name("memento", "diff", table)
+    keys = engine.key_tensor(KEYS[:4000], dev)
+    for (a, b), (ha, hb) in (((0, 1), hosts), ((1, 0), hosts[::-1])):
+        want = engine.diff_plain("memento", keys, epochs[a], epochs[b], table=table)
+        assert want[0][:100].cpu().tolist() == [ha.lookup(int(k)) for k in KEYS[:100]]
+        assert want[1][:100].cpu().tolist() == [hb.lookup(int(k)) for k in KEYS[:100]]
+        if pair in ("one removal", "one-shot"):
+            assert want[2].any()
+        for count in (0, 1, 33, 257, keys.numel()):
+            before = engine.LAUNCHES[name]
+            got = engine.kernel_diff("memento", keys[:count], epochs[a], epochs[b],
+                                     table=table)
+            torch.cuda.synchronize()
+            assert engine.LAUNCHES[name] == before + (count > 0)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w[:count]), (count, a)
