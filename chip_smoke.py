@@ -168,7 +168,13 @@ ALGO_OPS = {
 #                           read and compare 2, loop = 23; per walk lane:
 #                           chain, probe and pending loads, three stores,
 #                           first load read and compare = 8
+#   per DxHash probe two epochs of one a share: probe i of a salted key
+#                           draws the same candidate hash2(key', i) % a in
+#                           both; hash2 18, modulo, word-index shift = 20
+#                           are made once (the word read, bit test and loop
+#                           stay each epoch's)
 OPS_PER_TRY, OPS_PER_BOUNDED_TRY, OPS_PER_COMPARE = 21, 3, 2
+OPS_PER_SHARED_PROBE = 20
 OPS_PER_WALK_STEP, OPS_PER_WALK_LANE = 23, 8
 # The packed and compact readers (phase 6), over the plain readers'
 # counters ("bit", "start", "slot"), on top of the dense read's load and
@@ -208,14 +214,16 @@ def replica_sectors(work: dict, keys: int, bounded: bool) -> float:
     return (3 * bit + 2 * (slot - start) + load) / keys
 
 
-def dx_probes(keys, words, a: int, max_probes: int):
-    """The probes each key's DxHash lookup makes: the index of its first
-    hit plus one, or max_probes (int64, on the keys' device)."""
+def dx_probes(keys, words, a: int, max_probes: int, fallback: int):
+    """Each key's DxHash lookup: its bucket, and the probes it makes: the
+    index of its first hit plus one, or max_probes (int64, on the keys'
+    device)."""
     import torch
 
     from repro_torch.kernels.primitives import as_u32, gather1d, hash2
 
     k = as_u32(keys)
+    b = torch.full(k.shape, fallback, dtype=torch.int64, device=k.device)
     probes = torch.full(k.shape, max_probes, dtype=torch.int64, device=k.device)
     lanes = torch.arange(k.numel(), device=k.device)
     for i in range(max_probes):
@@ -223,9 +231,9 @@ def dx_probes(keys, words, a: int, max_probes: int):
             break
         c = hash2(k[lanes], i) % a
         hit = ((gather1d(words, c >> 5) >> (c & 31)) & 1) == 1
-        probes[lanes[hit]] = i + 1
+        b[lanes[hit]], probes[lanes[hit]] = c[hit], i + 1
         lanes = lanes[~hit]
-    return probes
+    return b, probes
 
 
 def packed_read_trips(idx, state, slot_b, slot_c):
@@ -285,24 +293,25 @@ def lookup_trips(keys, tables, n: int):
     return b, trips
 
 
-def pair_walk_work(keys, k: int, lookups, n: int) -> dict:
-    """The salted tries and jump32 steps of ``replica_pair_row``, the
-    unbounded k-slot replica walk of two Memento epochs of one n on one
-    salt walk: each salt that either epoch's row still needs is hashed and
-    its jump32 run once for both (salt 0, the key itself, too).  Each
-    epoch's row fills as ``replica_body``'s does: salt s at its s-th try,
-    a bucket of an earlier slot rejected.  ``lookups`` are the two epochs'
-    plain lookups of int64-carried keys.  Returns {"try": salted tries,
-    "step": jump32 steps, "tries": each epoch's own salted tries}.  A model
+def pair_salt_walk(keys, k: int, lookups):
+    """The unbounded k-slot replica rows of two epochs on one salt walk, as
+    ``replica_pair_row`` walks them: salt 0 is the key itself, whose
+    lookup is each row's slot 0; each later salt that either epoch's row
+    still needs is drawn once for both, and each row fills as
+    ``replica_body``'s does: salt s at its s-th try, a bucket of an
+    earlier slot rejected.  ``lookups`` are the two epochs' lookups of
+    int64-carried keys, each returning (buckets, cost).  Yields (salt,
+    candidates, tried): the keys drawn at that salt and, for each epoch,
+    the mask of those its row tries and its lookup's cost there.  A model
     over the plain lookups, not a device count."""
     import torch
 
     from repro_torch.core.protocol import REPLICA_SALT_CAP
-    from repro_torch.kernels.primitives import hash2, jump32
+    from repro_torch.kernels.primitives import hash2
 
-    work = {"try": 0, "tries": [0, 0]}
-    jump32(keys, n, work)
-    rows = [lookup(keys)[:, None].repeat(1, k) for lookup in lookups]
+    firsts = [lookup(keys) for lookup in lookups]
+    yield 0, keys, [(torch.ones_like(keys, dtype=torch.bool), c) for _, c in firsts]
+    rows = [b[:, None].repeat(1, k) for b, _ in firsts]
     filled = [torch.ones_like(keys) for _ in lookups]
     slots = torch.arange(k, device=keys.device)
     for salt in range(1, REPLICA_SALT_CAP + 1):
@@ -311,17 +320,63 @@ def pair_walk_work(keys, k: int, lookups, n: int) -> dict:
         if not idx.numel():
             break
         cand = hash2(keys[idx], salt)
-        jump32(cand, n, work)
-        work["try"] += idx.numel()
+        tried = []
         for e, lookup in enumerate(lookups):
             sub = wants[e][idx]
-            lanes, b = idx[sub], lookup(cand[sub])
+            b, cost = lookup(cand[sub])
+            tried.append((sub, cost))
+            lanes = idx[sub]
             j = filled[e][lanes]
-            work["tries"][e] += lanes.numel()
             taken = ((rows[e][lanes] == b[:, None]) & (slots < j[:, None])).any(dim=1)
             lanes, j, b = lanes[~taken], j[~taken], b[~taken]
             rows[e][lanes, j] = b
             filled[e][lanes] += 1
+        yield salt, cand, tried
+
+
+def pair_walk_work(keys, k: int, lookups, n: int) -> dict:
+    """The salted tries and jump32 steps of ``replica_pair_row``, the
+    unbounded k-slot replica walk of two Memento epochs of one n on one
+    salt walk (:func:`pair_salt_walk`): each salt drawn is hashed and its
+    jump32 run once for both epochs (salt 0, the key itself, too).
+    ``lookups`` are the two epochs' plain lookups of int64-carried keys.
+    Returns {"try": salted tries, "step": jump32 steps, "tries": each
+    epoch's own salted tries}."""
+    from repro_torch.kernels.primitives import jump32
+
+    work = {"try": 0, "tries": [0, 0]}
+    for salt, cand, tried in pair_salt_walk(
+            keys, k, [lambda kk, f=f: (f(kk), None) for f in lookups]):
+        jump32(cand, n, work)
+        if salt:
+            work["try"] += cand.numel()
+            for e, (sub, _) in enumerate(tried):
+                work["tries"][e] += int(sub.sum())
+    return work
+
+
+def dx_pair_walk_work(keys, k: int, epochs) -> dict:
+    """The salted tries and probes of the unbounded k-slot replica rows of
+    two DxHash epochs of one capacity a on one salt walk
+    (:func:`pair_salt_walk`).  Probe i of a salted key draws the candidate
+    hash2(key', i) % a in both epochs, so on a salt that both rows try the
+    lesser of the two epochs' probe counts is drawn once for both.
+    ``epochs`` are the two epochs' (words, a, max_probes, fallback).
+    Returns {"try": salts drawn, "tries": each epoch's own salted tries,
+    "probe": each epoch's probes, "shared": the probes drawn once for
+    both}."""
+    import torch
+
+    work = {"try": 0, "tries": [0, 0], "probe": [0, 0], "shared": 0}
+    for salt, cand, tried in pair_salt_walk(
+            keys, k, [lambda kk, e=e: dx_probes(kk, *e) for e in epochs]):
+        probes = []
+        for e, (sub, p) in enumerate(tried):
+            work["probe"][e] += int(p.sum())
+            work["tries"][e] += int(sub.sum()) if salt else 0
+            probes.append(torch.zeros_like(cand).masked_scatter_(sub, p))
+        work["try"] += cand.numel() if salt else 0
+        work["shared"] += int(torch.minimum(*probes).sum())
     return work
 
 
@@ -776,30 +831,49 @@ class Smoke:
             return 0
         return work.get("step", 0) // 2 * OPS_PER_STEP
 
-    def pair_shared_ops(self, algo: str, keys, work: dict, old, new, table: str) -> int:
+    def pair_shared_ops(self, algo: str, keys, works: list[dict], old, new,
+                        table: str) -> int:
         """The operations of a k = REPLICAS_K replica diff that its plain
-        counters ``work`` (both epochs) count twice and the kernel makes
-        once: for two Memento epochs of one n, the pair walk's salted tries
-        and jump32 steps (:func:`pair_walk_work`, whose own tries must
-        equal the plain counters'); 0 otherwise."""
+        counters ``works`` (each epoch's, or one of both for Memento) count
+        twice and the function needs once, both epochs' rows walked on one
+        salt walk: each salt either row tries, drawn once; for two Memento
+        epochs of one n, its jump32 steps once (:func:`pair_walk_work`);
+        for two DxHash epochs of one a, the probes both make on a salt once
+        (:func:`dx_pair_walk_work`).  The model's tries, and DxHash's
+        probes an epoch, must equal the plain counters'.  0 otherwise."""
         from repro_torch.kernels import engine
         from repro_torch.kernels.primitives import as_u32
 
-        if algo != "memento" or old[1][0] != new[1][0]:
+        if algo not in ("memento", "dx") or old[1][0] != new[1][0]:
             return 0
+        tries = sum(w.get("try", 0) for w in works)
+        per_key = keys.numel()
+        if algo == "dx":
+            pair = dx_pair_walk_work(as_u32(keys), REPLICAS_K,
+                                     [(t[0], *s) for t, s in (old, new)])
+            plain = [[w.get(c, 0) for w in works] for c in ("try", "probe")]
+            if [pair["tries"], pair["probe"]] != plain:
+                raise AssertionError(f"dx replica diff: pair walk model tries and probes "
+                                     f"{pair['tries']}, {pair['probe']} != the plain "
+                                     f"counters' {plain[0]}, {plain[1]}")
+            log(f"  pair walk (a = {old[1][0]} both): {pair['try'] / per_key:.3f} salted "
+                f"tries and {pair['shared'] / per_key:.3f} probes a key drawn once for both "
+                f"epochs, where the two walks make {tries / per_key:.3f} and "
+                f"{sum(pair['probe']) / per_key:.3f} (model)")
+            return (tries - pair["try"]) * OPS_PER_TRY + pair["shared"] * OPS_PER_SHARED_PROBE
+        steps = sum(w.get("step", 0) for w in works)
         pair = pair_walk_work(as_u32(keys), REPLICAS_K,
                               [lambda kk, e=e: engine.lookup_plain(algo, kk, *e,
                                                                    table=table).long()
                                for e in (old, new)], old[1][0])
-        if sum(pair["tries"]) != work.get("try", 0):
+        if sum(pair["tries"]) != tries:
             raise AssertionError(f"memento replica diff ({table}): pair walk model tries "
-                                 f"{pair['tries']} != the plain counters' {work.get('try', 0)}")
-        log(f"  pair walk ({table}, n = {old[1][0]} both): {pair['try'] / keys.numel():.3f} "
-            f"salted tries and {pair['step'] / keys.numel():.3f} jump32 steps a key for both "
-            f"epochs, where the two walks make {work.get('try', 0) / keys.numel():.3f} and "
-            f"{work.get('step', 0) / keys.numel():.3f} (model)")
-        return ((work.get("try", 0) - pair["try"]) * OPS_PER_TRY
-                + (work.get("step", 0) - pair["step"]) * OPS_PER_STEP)
+                                 f"{pair['tries']} != the plain counters' {tries}")
+        log(f"  pair walk ({table}, n = {old[1][0]} both): {pair['try'] / per_key:.3f} "
+            f"salted tries and {pair['step'] / per_key:.3f} jump32 steps a key for both "
+            f"epochs, where the two walks make {tries / per_key:.3f} and "
+            f"{steps / per_key:.3f} (model)")
+        return (tries - pair["try"]) * OPS_PER_TRY + (steps - pair["step"]) * OPS_PER_STEP
 
     def phase_algo_kernels(self) -> list[dict]:
         """``{algo}_lookup`` and ``{algo}_diff`` of every algorithm but
@@ -923,7 +997,7 @@ class Smoke:
         from repro_torch.kernels import engine
 
         a, max_probes = scalars[0], scalars[1]
-        probes = dx_probes(keys, tables[0], a, max_probes)
+        _, probes = dx_probes(keys, tables[0], a, max_probes, scalars[2])
         g = engine.dx_lane_group(max_probes)
         log(f"dx_lookup {name}: a={a} max_probes={max_probes}, G={g} lanes a key; "
             f"{float(probes.double().mean()):.4f} probes a key (max {int(probes.max())}); "
@@ -1432,7 +1506,10 @@ class Smoke:
             log("dx_replica and dx_walk: " + ", ".join(
                 f"{name} G={engine.dx_replica_lane_group(sc[1])} and "
                 f"{engine.dx_walk_lane_group(sc[1])} lanes a key (max_probes {sc[1]})"
-                for name, (_, sc) in ops_of.items()))
+                for name, (_, sc) in ops_of.items())
+                + "; dx_replica_diff stable -> oneshot G="
+                f"{engine.dx_replica_diff_lane_group(*(sc[1] for _, sc in ops_of.values()))} "
+                "(at G >= 8 each epoch's rows at dx_replica's G, then a compare pass)")
 
         # {algo}_replica_diff, k = 3, stable -> one-shot
         d = run["diff"]
@@ -1448,7 +1525,8 @@ class Smoke:
                 for k in set(works["stable"]) | set(works["oneshot"])}
         ops = (self.mode_ops(algo, works["stable"], KEYS, old[1][0], REPLICAS_K)
                + self.mode_ops(algo, works["oneshot"], KEYS, new[1][0], REPLICAS_K)
-               + 2 * REPLICAS_K * KEYS - self.pair_shared_ops(algo, keys, both, old, new, "dense"))
+               + 2 * REPLICAS_K * KEYS - self.pair_shared_ops(
+                   algo, keys, [works["stable"], works["oneshot"]], old, new, "dense"))
         diff = {f"stable -> oneshot k={REPLICAS_K}": entry(
             f"replica_diff stable -> oneshot, moved {d.num_moved}", e, ms, plain_ms, ops,
             4 * KEYS * (2 + 2 * REPLICAS_K) + tbytes["stable"] + tbytes["oneshot"], both)}
@@ -2150,7 +2228,7 @@ class Smoke:
             ms = self.time_ms(lambda: engine.kernel_replica_diff(algo, keys, REPLICAS_K, old,
                                                                  new, **kw), reps=10, warmup=1)
             ops = (self.mode_ops(algo, both, 2 * KEYS, n, REPLICAS_K) + 2 * REPLICAS_K * KEYS
-                   - self.pair_shared_ops(algo, keys, both, old, new, "packed"))
+                   - self.pair_shared_ops(algo, keys, [both], old, new, "packed"))
             by_mode["replica_diff"][f"{label} k={REPLICAS_K}"] = self.packed_entry(
                 f"{algo}_packed_replica_diff {label} k={REPLICAS_K}, moved "
                 f"{int(got[2].sum())}", e, ms, plain_ms, ops,

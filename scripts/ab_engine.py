@@ -84,7 +84,8 @@ def packed_states(smoke):
     yield "int32 stable", store.image(), h.working, smoke.on_card(h.device_image())
     smoke.remove_random(h, cs.PACKED_REMOVALS)
     store.sync()
-    yield f"int32 {cs.PACKED_REMOVALS} removals", store.image(), h.working, None
+    yield (f"int32 {cs.PACKED_REMOVALS} removals", store.image(), h.working,
+           smoke.on_card(h.device_image()))
     smoke.remove_random(h, int(cs.ONESHOT_FRACTION * cs.N) - cs.PACKED_REMOVALS)
     store.sync()
     yield "int32 one-shot", store.image(), h.working, smoke.on_card(h.device_image())
@@ -187,17 +188,27 @@ def _bounded_load(smoke, keys_np, img, working):
     return torch.from_numpy(load).to(smoke.dev), cap
 
 
+def compact_lookup_case(state, img):
+    """The case of ``memento_compact_lookup`` on the compact table of a dense
+    image."""
+    ops = engine.image_operands(img, "compact")
+    return ("memento_compact_lookup", state,
+            lambda keys: engine.kernel_lookup("memento", keys, *ops, table="compact"),
+            lambda keys: engine.lookup_plain("memento", keys, *ops, table="compact"), PREFIX)
+
+
 def memento_sets(smoke, keys_np, state, img, working):
     """The cases of ``memento_replica`` on a dense image (k = 3; one-shot
     also bounded k = 2 under ``bounded_assign``'s load and cap) and, one-shot,
-    of ``memento_compact_replica`` on its compact table (k = 3, bounded
-    k = 2)."""
+    of ``memento_compact_lookup`` and ``memento_compact_replica`` (k = 3,
+    bounded k = 2) on its compact table."""
     sets = [(cs.REPLICAS_K, None, None)]
     if state == "one-shot":
         sets.append((cs.BOUNDED_K, *_bounded_load(smoke, keys_np, img, working)))
     layouts = [("memento_replica", "dense", None)]
     if state == "one-shot":
         layouts.append(("memento_compact_replica", "compact", PREFIX))
+        yield compact_lookup_case(state, img)
     for entry, table, check in layouts:
         tables, scalars = engine.image_operands(img, table)
         for k, ld, c in sets:
@@ -259,10 +270,13 @@ def dx_cases(smoke, keys_np):
         yield ("dx_replica", f"{name} {'bounded ' if ld is not None else ''}k={k}",
                lambda keys, a=args: engine.kernel_replica("dx", keys, *a),
                lambda keys, a=args: engine.replica_plain("dx", keys, *a), PREFIX)
-    epochs = (dx["stable"][:2], dx["one-shot"][:2])
-    yield ("dx_replica_diff", f"stable -> one-shot k={cs.REPLICAS_K}",
-           lambda keys: engine.kernel_replica_diff("dx", keys, cs.REPLICAS_K, *epochs),
-           lambda keys: engine.replica_diff_plain("dx", keys, cs.REPLICAS_K, *epochs), PREFIX)
+    for old, new in (("stable", "one-shot"), ("w=5*10^5", "w=5*10^5 + 1 removal"),
+                     ("one-shot", "one-shot + 1 removal")):
+        e = (dx[old][:2], dx[new][:2])
+        yield ("dx_replica_diff", f"{old} -> {new} k={cs.REPLICAS_K}",
+               lambda keys, e=e: engine.kernel_replica_diff("dx", keys, cs.REPLICAS_K, *e),
+               lambda keys, e=e: engine.replica_diff_plain("dx", keys, cs.REPLICAS_K, *e),
+               PREFIX)
     probe = torch.zeros(cs.KEYS, dtype=torch.int32, device=smoke.dev)
     pending = torch.from_numpy(smoke.rng.random(cs.KEYS) < 0.5).to(smoke.dev)
     for name, working in (("stable", cs.N), ("one-shot", cs.N // 10)):
@@ -276,13 +290,16 @@ def dx_cases(smoke, keys_np):
 
 def memento_cases(smoke, keys_np):
     """The Memento entries' cases on every packed state (:func:`packed_states`),
-    their dense images, and the epoch pairs (:func:`packed_pairs`, and the
-    dense n = 10^6 -> n - 1)."""
+    their dense images (after 1024 removals only ``memento_compact_lookup``),
+    and the epoch pairs (:func:`packed_pairs`, and the dense n = 10^6 ->
+    n - 1)."""
     states, dense = {}, {}
     for name, img, working, dense_img in packed_states(smoke):
         states[name] = img
         tables, scalars = engine.image_operands(img)
-        if dense_img is not None and name != f"int32 {cs.PACKED_REMOVALS} removals":
+        if name == f"int32 {cs.PACKED_REMOVALS} removals":
+            yield compact_lookup_case(name.split(" ", 1)[1], dense_img)
+        elif dense_img is not None:
             dense[name] = engine.image_operands(dense_img)
             state = name.split(" ", 1)[1]
             for entry, ops, kw in (("memento_lookup", dense[name], {}),

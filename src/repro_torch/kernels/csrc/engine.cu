@@ -63,8 +63,11 @@
 // with more probes, whose group probes both epochs), so a warp waits for
 // the slowest of 32 / G keys and each round tests G probes of a key; a key
 // then loads ~G/2 bitmap words past its hit, and these G balanced the two
-// in sweeps (PERF.md).  DxHash's probe remainder divides by a fixed a with
-// multiplies (fastmod).
+// in sweeps (PERF.md).  dx_replica_diff runs each epoch's rows as
+// dx_replica does, at its own G, once the epoch with more probes takes 8
+// lanes or more, and then compares the rows in a pass of its own
+// (dx_replica_diff_group).  DxHash's probe remainder divides by a fixed a
+// with multiplies (fastmod).
 //
 // Memento's Alg. 4 reads repl(d) once: the inner loop's last read is the
 // next pass's (memento_from), one round trip a pass fewer than the
@@ -80,15 +83,17 @@
 //                            {algo}_replica but dx_replica at G >= 2, dense,
 //                            packed and compact, and the replica diffs
 //                            whose epochs share nothing (every algorithm
-//                            but Memento, and Memento at two n).  Unbounded
-//                            and bounded are two instances, each with the
-//                            loop that ran fastest for it.
+//                            but Memento, and Memento at two n; DxHash
+//                            below G = 8).  Unbounded and bounded are two
+//                            instances, each with the loop that ran
+//                            fastest for it.
 //   replica_pair_row         the Memento replica diffs of one n: both
 //                            epochs' rows on one salt walk, each salt's
 //                            jump32 run once for both, both epochs' first
 //                            reads in flight together.
 //   dx_group_replica_kernel  dx_replica at G >= 2: replica_row's walk run
-//                            by a lane group.
+//                            by a lane group (and each epoch of
+//                            dx_replica_diff at G >= 8 whose own G is).
 //
 // Memento's table is read through a reader functor (DenseRepl, PackedRepl<T>,
 // CompactRepl) and AnchorHash's A/K through their element type T, so the
@@ -148,7 +153,19 @@
 // with A); K[h] loaded with A[h] only once a chain is followed (one-shot
 // +0.7 %); the pass's last read of A kept as the next pass's A[b] with the
 // start by fastmod (one-shot +0.1 %, packed int16 -5.4 % and int8 -9.7 %:
-// no gain where the time is).
+// no gain where the time is).  For CompactRepl (memento_compact_lookup and
+// memento_compact_replica), a reader that loaded the aligned group of g
+// slots holding a probe slot, one vector load a table, and went on through
+// the group in registers: fewer round trips a read (a model, PERF.md), yet
+// slower the wider the load (one-shot k = 3 against this reader: g = 2
+// +52 %, g = 4 +78.9 %, g = 8 +148 %; lookup one-shot at g = 4 +73.8 %),
+// and its first form, whose slot loop kept the group in local memory, x3.8.
+// For dx_replica_diff, both epochs' rows on one salt walk of a lane group,
+// each candidate drawn once and tested in both bitmaps (stable -> one-shot
+// at G = 8 +9.4 % against one thread a key; +9.7 % with one ballot a round
+// telling the warp which epochs it still probes; +11.9 % with the rows
+// tested over the group's lanes; G/2 slower still), and the split of
+// dx_replica_diff_group at G = 2 in both epochs (+24.4 %).
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -614,6 +631,14 @@ __global__ void replica_diff_kernel(const uint32_t* __restrict__ keys, int32_t* 
   moved[i] = row_moved(o, w, k);
 }
 
+// The moved mask of two epochs' replica sets written by earlier launches.
+__global__ void rows_moved_kernel(const int32_t* __restrict__ old_out,
+                                  const int32_t* __restrict__ new_out,
+                                  int32_t* __restrict__ moved, int64_t count, int32_t k) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < count) moved[i] = row_moved(old_out + i * k, new_out + i * k, k);
+}
+
 // Both lookups of one candidate key ck under two Memento epochs of one n,
 // for the epochs that want one (go, gn): one jump32 starts both chains,
 // and both epochs' first reads are issued before either is waited for.
@@ -795,6 +820,21 @@ int dx_replica_group(int max_probes) { return dx_group(max_probes); }
 // NVIDIA H100 80GB HBM3 at 700.00 W it ran faster than G/2 at ceil(a/w) =
 // 40, one step of half the lanes at bounded_assign's cap (PERF.md).
 int dx_walk_group(int max_probes) { return dx_group(max_probes); }
+
+// The lanes a dx_replica_diff key takes in the epoch with more probes:
+// dx_replica's G there when it is at least 8, and then each epoch's rows
+// are dx_replica's (its own G, one thread a key below 2) and a pass
+// compares them; else one thread a key for both epochs
+// (replica_diff_kernel).  On an NVIDIA H100 80GB HBM3 at 700.00 W, against
+// one thread a key, the split ran stable -> one-shot (G = 1 and 8) -3.7 %
+// and between two one-shot epochs (G = 8) -8.3 %, but at G = 2 in both
+// epochs (w = 5*10^5) +24.4 % (PERF.md).  G = 4 (ceil(a/w) 16 to 31) was
+// not timed: it keeps one thread a key, the kernel it had before the split.
+int dx_replica_diff_group(int max_probes_old, int max_probes_new) {
+  const int g =
+      dx_replica_group(max_probes_old > max_probes_new ? max_probes_old : max_probes_new);
+  return g >= 8 ? g : 1;
+}
 
 template <int G>
 int launch_dx_group(const void* keys, void* out, long long count, Dx dx, void* stream) {
@@ -1119,9 +1159,21 @@ int dx_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
                     long long count, int k, const void* words_old, int a_old,
                     int max_probes_old, int fallback_old, const void* words_new,
                     int a_new, int max_probes_new, int fallback_new, void* stream) {
-  return launch_replica_diff(keys, old_out, new_out, moved, count, k,
-                             dx(words_old, a_old, max_probes_old, fallback_old),
-                             dx(words_new, a_new, max_probes_new, fallback_new), stream);
+  if (dx_replica_diff_group(max_probes_old, max_probes_new) == 1)
+    return launch_replica_diff(keys, old_out, new_out, moved, count, k,
+                               dx(words_old, a_old, max_probes_old, fallback_old),
+                               dx(words_new, a_new, max_probes_new, fallback_new), stream);
+  // each epoch's rows by dx_replica, at its own G, then the moved pass
+  int rc = dx_replica(keys, old_out, count, k, nullptr, 0, words_old, a_old, max_probes_old,
+                      fallback_old, stream);
+  if (rc == 0)
+    rc = dx_replica(keys, new_out, count, k, nullptr, 0, words_new, a_new, max_probes_new,
+                    fallback_new, stream);
+  if (rc != 0) return rc;
+  rows_moved_kernel<<<blocks_for(count), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(old_out), static_cast<const int32_t*>(new_out),
+      static_cast<int32_t*>(moved), count, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int dx_walk(const void* chain, const void* probe, const void* pending, void* b,
@@ -1334,6 +1386,12 @@ int dx_replica_lane_group(int max_probes) { return dx_replica_group(max_probes);
 
 // The lanes dx_walk gives a walk lane at this probe bound (dx_walk_group).
 int dx_walk_lane_group(int max_probes) { return dx_walk_group(max_probes); }
+
+// The lanes dx_replica_diff gives a key in the epoch with more probes, for
+// these two epochs' probe bounds (dx_replica_diff_group).
+int dx_replica_diff_lane_group(int max_probes_old, int max_probes_new) {
+  return dx_replica_diff_group(max_probes_old, max_probes_new);
+}
 
 const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -779,6 +779,15 @@ def dx_walk_lane_group(max_probes: int) -> int:
     return build.load("engine", _SIGNATURES).dx_walk_lane_group(ctypes.c_int(int(max_probes)))
 
 
+def dx_replica_diff_lane_group(max_probes_old: int, max_probes_new: int) -> int:
+    """The lanes ``dx_replica_diff`` gives a key in the epoch with more
+    probes, for these probe bounds (1: one thread a key for both epochs;
+    else each epoch's rows run as ``dx_replica`` runs them), as the built
+    kernel library picks them."""
+    return build.load("engine", _SIGNATURES).dx_replica_diff_lane_group(
+        ctypes.c_int(int(max_probes_old)), ctypes.c_int(int(max_probes_new)))
+
+
 def memento_lookup(keys: torch.Tensor, repl: torch.Tensor, n: int) -> torch.Tensor:
     """The ``memento_lookup`` kernel (see :func:`kernel_lookup`)."""
     return kernel_lookup("memento", keys, [repl], [n])

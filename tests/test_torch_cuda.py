@@ -1192,3 +1192,154 @@ def test_memento_diff_kernels_of_equal_and_different_n(dev, layout, pair):
             assert engine.LAUNCHES[name] == before + (count > 0)
             for g, w in zip(got, want):
                 assert torch.equal(g, w[:count]), (count, a)
+
+
+def _clustered_compact(window: int, dev):
+    """A Memento state of 3000 buckets whose compact table (128 slots) has
+    one long cluster: 45 removed buckets whose probes start in slots
+    ``window`` .. ``window + 5`` and 15 others.  The cluster runs far past 8
+    slots and, from window 122, wraps past the last slot to slot 0.
+    Returns the host state, its dense image on the card and the compact
+    table."""
+    from repro_torch.core.packing import _probe_start
+
+    n = 3000
+    near = [b for b in range(n) if window <= _probe_start(b, 127) < window + 6][:45]
+    rest = [b for b in np.random.default_rng(window).permutation(n).tolist()
+            if b not in near][:15]
+    m = MementoHash(n, variant="32")
+    for b in np.random.default_rng(window + 1).permutation(near + rest).tolist():
+        m.remove(int(b))
+    img = m.device_image()
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    compact = list(engine.build_compact_table(img.arrays["repl"]))
+    assert compact[0].numel() == 128
+    return m, img, compact
+
+
+@pytest.mark.parametrize("window", [0, 61, 122])
+def test_compact_kernels_read_long_and_wrapping_clusters(dev, window):
+    """``memento_compact_lookup`` and ``memento_compact_replica`` (k = 2, 3
+    and bounded k = 2) on hand-built tables whose cluster runs past 8 slots
+    and (window 122) wraps past the last slot to slot 0, so that probes
+    cross every alignment of slots: equal to the plain version, the dense
+    kernels and the host."""
+    m, img, compact = _clustered_compact(window, dev)
+    taken = (compact[0] >= 0).cpu().numpy()
+    run, longest = 0, 0
+    for s in range(window, window + 128):
+        run = run + 1 if taken[s % 128] else 0
+        longest = max(longest, run)
+    assert longest > 8
+    if window == 122:
+        assert taken[127] and taken[0]
+    repl = img.arrays["repl"]
+    keys_np = np.random.default_rng(window).integers(0, 2**32, size=20_000, dtype=np.uint32)
+    keys = engine.key_tensor(keys_np, dev)
+    out = engine.compact_lookup(keys, *compact, m.n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, engine.lookup_plain("memento", keys, compact, [m.n], table="compact"))
+    assert torch.equal(out, engine.memento_lookup(keys, repl, m.n))
+    assert out[:200].cpu().tolist() == [m.lookup(int(k)) for k in keys_np[:200]]
+    load = torch.from_numpy(_load(img, seed=window)).to(dev)
+    for k, ld, cap in ((2, None, None), (3, None, None), (2, load, 3)):
+        got = engine.kernel_replica("memento", keys, k, compact, [m.n], ld, cap, table="compact")
+        torch.cuda.synchronize()
+        assert torch.equal(got, engine.replica_plain("memento", keys, k, compact, [m.n], ld, cap,
+                                                     table="compact")), (k, cap)
+        assert torch.equal(got, engine.kernel_replica("memento", keys, k, [repl], [m.n], ld, cap))
+    assert got[:50].cpu().tolist() == engine.bounded_replica_sets(
+        m, keys_np[:50], 2, load.cpu().numpy(), 3).tolist()
+
+
+def _dx_pair(ratios, capacities=(6400, 6400), seed: int = 0):
+    """Two DxHash states: of capacity ``capacities[e]`` with all but a /
+    ``ratios[e]`` buckets removed."""
+    hosts = []
+    for e, (a, ratio) in enumerate(zip(capacities, ratios)):
+        h = make_hash("dx", a, capacity=a, variant="32")
+        for b in np.random.default_rng(seed + e).permutation(a)[: a - a // ratio].tolist():
+            h.remove(int(b))
+        hosts.append(h)
+    return hosts
+
+
+@pytest.mark.parametrize("pair", ["stable -> 4", "stable -> 8", "stable -> 40", "40 -> 128",
+                                  "128 -> 8", "two capacities", "uneven bounds"])
+def test_dx_replica_diff_kernel_at_every_lane_group(dev, pair):
+    """``dx_replica_diff`` between epochs at ⌈a/w⌉ = 1, 4, 8, 40 and 128:
+    one thread a key for both epochs while the epoch with more probes
+    takes ``dx_replica`` fewer than 8 lanes, else each epoch's rows at its
+    own G (1, 2, 8 or 32) and a pass that compares them; two images of
+    different capacities, and probe bounds that are no multiple of G (2563
+    and 37, G = 8 and 1): k = 2 and 3, each way round, equal to its plain
+    version at every key count around a group, a warp and a block, and 50
+    keys to the host."""
+    ratios, caps = {"stable -> 4": ((1, 4), (6400, 6400)), "stable -> 8": ((1, 8), (6400, 6400)),
+                    "stable -> 40": ((1, 40), (6400, 6400)), "40 -> 128": ((40, 128), (6400, 6400)),
+                    "128 -> 8": ((128, 8), (6400, 6400)),
+                    "two capacities": ((4, 40), (6400, 4000)),
+                    "uneven bounds": ((40, 40), (6400, 6400))}[pair]
+    hosts = _dx_pair(ratios, caps)
+    epochs = [_operands(h, dev) for h in hosts]
+    if pair == "uneven bounds":  # the plain version takes any bound; the fallback stays
+        epochs = [(t, [sc[0], bound, sc[2]]) for (t, sc), bound in zip(epochs, (2563, 37))]
+    lanes = {"stable -> 4": [1, 1], "stable -> 8": [1, 2], "stable -> 40": [1, 8],
+             "40 -> 128": [8, 32], "128 -> 8": [32, 2], "two capacities": [1, 8],
+             "uneven bounds": [8, 1]}[pair]
+    assert [engine.dx_replica_lane_group(sc[1]) for _, sc in epochs] == lanes
+    split = max(lanes) if max(lanes) >= 8 else 1
+    assert engine.dx_replica_diff_lane_group(epochs[0][1][1], epochs[1][1][1]) == split
+    counts = _edge_counts(dev)
+    keys_np = np.random.default_rng(len(pair)).integers(0, 2**32, size=max(counts),
+                                                         dtype=np.uint32)
+    keys_np[:5] = [0, 1, 2**31 - 1, 2**31, 2**32 - 1]
+    keys = engine.key_tensor(keys_np, dev)
+    for (a, b) in ((0, 1), (1, 0)):
+        for k in (2, 3):
+            want = engine.replica_diff_plain("dx", keys, k, epochs[a], epochs[b])
+            if pair != "uneven bounds":
+                assert want[0][:50].cpu().tolist() == [hosts[a].lookup_k(int(x), k)
+                                                       for x in keys_np[:50]]
+                assert want[1][:50].cpu().tolist() == [hosts[b].lookup_k(int(x), k)
+                                                       for x in keys_np[:50]]
+            assert want[2].any()
+            for count in counts:
+                before = engine.LAUNCHES["dx_replica_diff"]
+                got = engine.kernel_replica_diff("dx", keys[:count], k, epochs[a], epochs[b])
+                torch.cuda.synchronize()
+                assert engine.LAUNCHES["dx_replica_diff"] == before + (count > 0)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w[:count]), (a, k, count)
+
+
+def test_exhausted_dx_replica_diff_group_walk_keeps_the_plain_lookup(dev):
+    """``dx_replica_diff`` with each epoch's rows on G = 16 lanes a key
+    (⌈a/w⌉ = 64, w = 10 and 9, one removal apart) at k = 13, whose rows run
+    out of salts, where the group fills the rest of each row with the key's
+    plain lookup.  The
+    plain walk at k = w takes every working bucket long before the salt
+    cap, and no later candidate is new, so each plain row at k = 13 is that
+    row and then the plain lookup (a plain run to the salt cap would take
+    hours on the card)."""
+    h = make_hash("dx", 640, capacity=640, variant="32")
+    for b in np.random.default_rng(64).permutation(640)[10:].tolist():
+        h.remove(int(b))
+    old, every_old = _operands(h, dev), sorted(h.working_set())
+    h.remove(every_old[0])
+    new, every_new = _operands(h, dev), sorted(h.working_set())
+    assert engine.dx_replica_diff_lane_group(old[1][1], new[1][1]) == 16
+    keys = engine.key_tensor(KEYS[:33], dev)
+    rows = []
+    for (tables, scalars), every in ((old, every_old), (new, every_new)):
+        first = engine.lookup_plain("dx", keys, tables, scalars)[:, None]
+        full = engine.replica_plain("dx", keys, len(every), tables, scalars)
+        every = torch.tensor(every, dtype=torch.int32, device=dev)
+        assert torch.equal(full.sort(dim=1).values, every.expand(len(keys), -1))
+        rows.append(torch.cat([full, first.expand(-1, 13 - len(every))], dim=1))
+    before = engine.LAUNCHES["dx_replica_diff"]
+    got = engine.kernel_replica_diff("dx", keys, 13, old, new)
+    torch.cuda.synchronize()
+    assert engine.LAUNCHES["dx_replica_diff"] == before + 1
+    assert torch.equal(got[0], rows[0]) and torch.equal(got[1], rows[1])
+    assert torch.equal(got[2], (rows[0] != rows[1]).any(dim=1))

@@ -337,6 +337,31 @@ def test_dx_replica_sets_match_reference_where_the_card_takes_lane_groups(ratio,
     np.testing.assert_array_equal(got.numpy(), host)
 
 
+@pytest.mark.parametrize("old", ["stable", "other capacity"])
+@pytest.mark.parametrize("ratio", [8, 40, 128])
+def test_dx_replica_diff_matches_reference_where_the_card_takes_lane_groups(ratio, old):
+    """DxHash k = 3 diffs into a state at ⌈a/w⌉ = 8, 40 and 128 (a = 6400:
+    the states on which ``dx_replica_diff`` runs both epochs' walks on 2, 8
+    and 32 lanes a key), from the stable state of that capacity and from a
+    churned state of another (a = 4000, ⌈a/w⌉ = 4, whose candidates
+    differ): equal to the reference engine's diff and to the host's sets."""
+    ref_new, port_new = _dx_at_ratio(ratio)
+    if old == "stable":
+        ref_old = ref_make_hash("dx", 6400, capacity=6400, variant="32")
+        port_old = make_hash("dx", 6400, capacity=6400, variant="32")
+    else:
+        ref_old, port_old = _dx_at_ratio(4, a=4000)
+    imgs = [h.device_image() for h in (ref_old, ref_new)]
+    got = port.engine_diff(KEYS, *map(_port_image, imgs), k=3, device="cpu")
+    want = ref.engine_diff(KEYS, *imgs, k=3, plane="jnp")
+    np.testing.assert_array_equal(got.old.numpy(), want.old)
+    np.testing.assert_array_equal(got.new.numpy(), want.new)
+    np.testing.assert_array_equal(got.moved.numpy(), want.moved)
+    np.testing.assert_array_equal(got.old.numpy(), replica_sets(port_old, KEYS, 3))
+    np.testing.assert_array_equal(got.new.numpy(), replica_sets(port_new, KEYS, 3))
+    assert 0 < got.num_moved == want.num_moved
+
+
 def _memento_epochs(pair: str):
     """Two reference Memento states, old and new: one removal inside a
     churned state (n kept), the last bucket removed from an unchurned
