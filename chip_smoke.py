@@ -43,7 +43,12 @@
    result is held against its plain version on the card and 2048 keys
    against the host, and each kernel is timed beside its bound;
    ``dx_replica``'s and ``dx_walk``'s lane groups are logged from the
-   library.
+   library; ``memento_walk``'s lookup rounds and lane lookups a warp (a
+   model over the plain walk's steps) at one step a round and with a
+   look-ahead of 2, 4 and 32 steps; then the card's random-word rate
+   (``torch.index_select`` of 2^24 random int32 words from tables of 4 to
+   128 MB, a yardstick no entry calls) beside each AnchorHash entry's words
+   a key, G words/s and gather-rate ms (its words at that rate).
 6. Drives the fourth slice's path, the packed and compact layouts:
    ``SessionRouter(10^6, compact_images=True).route_batch`` on 2^20 ids
    through stable, 1024 removals (one sync), 128 single removals (one
@@ -66,7 +71,8 @@
    gives at its time; ``memento_packed_walk`` on every width, logging the
    round trips a lane (a model, checked against the plain walk's
    counters), the lane use one thread a lane leaves over warps of 32 and
-   the round trips a second at its time.
+   the round trips a second at its time; each packed AnchorHash entry's
+   words a key, G words/s and gather-rate ms.
 7. Drives the fifth slice's path on phase 6's one-shot state: Memento's
    compact table at k = 3 and bounded k = 2 (c = 1.25) through
    ``engine_lookup(table="compact")``, and a cross-algorithm
@@ -194,6 +200,11 @@ SMALL_EVENTS = (20, 5)    # phase 6: removals, then restores, on the small route
 BREAKDOWN_REPS = 5        # phase 6: iterations of each state's breakdown
 BATCH_EVERY = 8           # phase 6: a batch after every 8th single removal or restore
 FLUSH_BYTES = 128 << 20   # phase 7: written before each cold launch (the L2 is 50 MB)
+GATHER_WORDS = 2**24      # phase 5: random int32 words of each gather-rate probe
+GATHER_TABLE_MB = (4, 16, 32, 48, 64, 128)  # phase 5: the probe's table sizes (10^6 bytes)
+# phase 5: steps a round of the memento_walk look-ahead that engine.cu's
+# header lists among the designs that lost, for the walk's warp model
+WALK_LOOKAHEAD_STEPS = (2, 4, 32)
 COLD_REPS = 15            # phase 7: cold launches a median is taken over
 
 
@@ -428,6 +439,41 @@ def warp_rounds(probes, g: int) -> float:
     return float(rounds.sum()) / probes.numel()
 
 
+def walk_rounds(steps, probe, max_probe: int, s_max: int) -> tuple[float, float]:
+    """Lookup rounds a warp and lane lookups a warp of a walk step whose
+    lanes take ``steps`` steps from ``probe`` (int64, one a lane; 32
+    consecutive lanes a warp) when a round looks up at most ``s_max`` steps
+    of each open lane on the warp's lanes (the look-ahead among engine.cu's
+    designs that lost: with w lanes open, min(s_max, 32 // w) steps each,
+    none past max_probe); at s_max = 1, one step a lane a round
+    (``walk_kernel``).  The first round
+    looks up every lane's chain.  A model over the step counts, not a device
+    count."""
+    import torch
+
+    live = torch.nn.functional.pad(torch.ones_like(steps), (0, -steps.numel() % 32))
+    rem = torch.nn.functional.pad(steps, (0, -steps.numel() % 32)).reshape(-1, 32)
+    p = torch.nn.functional.pad(probe, (0, -probe.numel() % 32)).reshape(-1, 32)
+    rounds, lookups = rem.shape[0], int(live.sum())
+    while bool((rem > 0).any()):
+        open_ = rem > 0
+        w = open_.sum(dim=1, keepdim=True)
+        s = torch.clamp(32 // w.clamp_min(1), max=s_max)
+        lookups += int((torch.minimum(s, max_probe - p) * open_).sum())
+        adv = torch.minimum(rem, s) * open_
+        rem, p = rem - adv, p + adv
+        rounds += int((w > 0).sum())
+    return rounds / rem.shape[0], lookups / rem.shape[0]
+
+
+def anchor_words(work: dict, keys: int, load_reads: int = 0) -> int:
+    """Distinct words an AnchorHash run reads, from the plain version's
+    counters: 1 + passes + 2 successor reads a lookup (A[b] of the start,
+    A[h] of each pass, K and A of each successor), plus ``load_reads``."""
+    return (work.get("lookups", keys) + work.get("outer", 0) + 2 * work.get("read", 0)
+            + load_reads)
+
+
 def main() -> int:
     import torch
 
@@ -490,6 +536,10 @@ class Smoke:
         # card), kept from phase 2 for phase 5: no state is built twice
         self.kept: dict = {}
         self.flush = None  # phase 7's L2 flush buffer
+        # AnchorHash entries: name -> (words read, footprint bytes, kernel ms),
+        # and the gather-rate probe's G words/s by table MB (phase 5)
+        self.anchor_reads: dict = {}
+        self.gather: dict = {}
 
     # -- helpers ---------------------------------------------------------------
     def time_ms(self, fn, reps: int, warmup: int = 3) -> float:
@@ -924,6 +974,8 @@ class Smoke:
                     self.dx_rounds(keys, tables, scalars, name)
                 if algo == "anchor":
                     self.anchor_trips(work, name)
+                    self.anchor_reads[f"anchor_lookup {name}"] = (
+                        anchor_words(work, KEYS), table_bytes, ms)
                 log(f"check {algo}_lookup {name}: keys={KEYS} kernel == plain"
                     f"{' == host sample' if name == 'oneshot' else ''}; kernel {ms:.6f} ms, "
                     f"plain {plain_ms:.3f} ms, bound {bound_ms:.6f} ms ({bound_by}: "
@@ -960,6 +1012,9 @@ class Smoke:
                 16 * KEYS + stable[2] + oneshot[2])
             lanes = (f", G={engine.dx_diff_lane_group(old[1][1], new[1][1])} lanes a key"
                      if algo == "dx" else "")
+            if algo == "anchor":
+                self.anchor_reads["anchor_diff stable -> oneshot"] = (
+                    anchor_words(w_a, KEYS) + anchor_words(w_b, KEYS), stable[2] + oneshot[2], ms)
             log(f"check {algo}_diff stable -> oneshot{lanes}: kernel == plain, moved "
                 f"{int(got[2].sum())} of {KEYS}; kernel {ms:.6f} ms, plain {plain_ms:.3f} ms, "
                 f"bound {bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.1%} of the bound")
@@ -1292,6 +1347,7 @@ class Smoke:
         rows = []
         for algo in ALGORITHMS:
             rows += self.check_replica_kernels(algo, runs[algo], launches)
+        self.gather_rate()
         self.check_assign(runs["memento"])
         self.replica_breakdown(ids)
         log(f"phase 5 checks and timing: {time.perf_counter() - t0:.1f} s")
@@ -1480,6 +1536,9 @@ class Smoke:
                 f"replica {name} k={REPLICAS_K}", e, ms, plain_ms,
                 self.mode_ops(algo, works[name], KEYS, scalars[0], REPLICAS_K),
                 4 * KEYS * (1 + REPLICAS_K) + tbytes[name], works[name])
+            if algo == "anchor":
+                self.anchor_reads[f"anchor_replica {name} k={REPLICAS_K}"] = (
+                    anchor_words(works[name], KEYS), tbytes[name], ms)
         host = [h.lookup_k(int(x), REPLICAS_K) for x in keys_np[sample]]
         if host != run["oneshot"][sample].tolist():
             raise AssertionError(f"{algo}_replica one-shot: kernel != host lookup_k")
@@ -1501,6 +1560,10 @@ class Smoke:
             f"replica bounded k={BOUNDED_K} cap={cap}", e, ms, plain_ms,
             self.mode_ops(algo, work, KEYS, scalars[0], BOUNDED_K, bounded=True),
             4 * KEYS * (1 + BOUNDED_K) + tbytes["oneshot"] + 4 * load_t.numel(), work)
+        if algo == "anchor":
+            self.anchor_reads[f"anchor_replica oneshot bounded k={BOUNDED_K}"] = (
+                anchor_words(work, KEYS, work.get("try", 0)),
+                tbytes["oneshot"] + 4 * load_t.numel(), ms)
 
         if algo == "dx":  # the lanes a key, beside dx_lookup's and dx_diff's (phase 2)
             log("dx_replica and dx_walk: " + ", ".join(
@@ -1530,6 +1593,9 @@ class Smoke:
         diff = {f"stable -> oneshot k={REPLICAS_K}": entry(
             f"replica_diff stable -> oneshot, moved {d.num_moved}", e, ms, plain_ms, ops,
             4 * KEYS * (2 + 2 * REPLICAS_K) + tbytes["stable"] + tbytes["oneshot"], both)}
+        if algo == "anchor":
+            self.anchor_reads[f"anchor_replica_diff stable -> oneshot k={REPLICAS_K}"] = (
+                anchor_words(both, 2 * KEYS), tbytes["stable"] + tbytes["oneshot"], ms)
 
         # {algo}_walk on a mixed pending mask
         chain_np, probe_np, pending_np, load_t, cap = run["walk_in"]
@@ -1553,11 +1619,74 @@ class Smoke:
             f"walk ({int(pending_np.sum())} pending, {work.get('walk', 0)} steps)", e, ms,
             plain_ms, self.mode_ops(algo, work, KEYS, scalars[0], walk=True),
             21 * KEYS + tbytes["oneshot"] + 4 * load_t.numel(), work)}
+        if algo == "anchor":
+            self.anchor_reads[f"anchor_walk oneshot cap={cap}"] = (
+                anchor_words(work, KEYS, int(pending_np.sum()) + work.get("walk", 0)),
+                tbytes["oneshot"] + 4 * load_t.numel(), ms)
+        if algo == "memento":
+            self.walk_model(probe, pending, plain[2], load_t.numel(), work)
         log(f"check {algo}: {KERNEL_SAMPLE} keys of the replica sets, the bounded sets and "
             f"the walk equal the host (lookup_k, bounded_replica_sets, the host walk)")
         return [row("replica", replica, f"oneshot k={REPLICAS_K}"),
                 row("replica_diff", diff, f"stable -> oneshot k={REPLICAS_K}"),
                 row("walk", walk, f"oneshot cap={cap}")]
+
+    def walk_model(self, probe, pending, probe_out, load_len: int, work: dict) -> None:
+        """Log ``memento_walk``'s lookup rounds a warp and lane lookups a
+        warp (a model, :func:`walk_rounds`) at one step a round, as
+        ``walk_kernel`` runs it, and at each of WALK_LOOKAHEAD_STEPS, from
+        the plain walk's per-lane steps, whose sum must equal its counter."""
+        from repro_torch.core.bounded import walk_probe_bound
+
+        steps = (probe_out.long() - probe.long()) * pending
+        if int(steps.sum()) != work.get("walk", 0):
+            raise AssertionError(f"memento_walk model: {int(steps.sum())} steps != the plain "
+                                 f"walk's counter {work.get('walk', 0)}")
+        max_probe = walk_probe_bound(load_len)
+        rounds = {s: walk_rounds(steps, probe.long(), max_probe, s)
+                  for s in (1, *WALK_LOOKAHEAD_STEPS)}
+        log(f"memento_walk model ({int(steps.sum())} steps == the plain walk's counter, "
+            f"warps of 32): lookup rounds and lane lookups a warp at one step a round "
+            f"(walk_kernel) {rounds[1][0]:.4f} and {rounds[1][1]:.4f}; with up to S steps "
+            f"of each open lane a round on the warp's lanes (a look-ahead that ran slower "
+            f"one-shot and was deleted) " + ", ".join(
+                f"S={s} {r:.4f} and {q:.4f}" for s, (r, q) in rounds.items() if s > 1))
+
+    def gather_rate(self) -> None:
+        """The card's random-word rate, a yardstick: ``torch.index_select``
+        of GATHER_WORDS uniformly random int32 indices from int32 tables of
+        each GATHER_TABLE_MB (each table written, then warmed by a call, then
+        timed by CUDA events), in G words/s; beside it each AnchorHash entry's
+        words a key (:func:`anchor_words`, its plain counters), the G words/s
+        its kernel time gives, and its gather-rate ms: its words at the
+        probe's rate for its footprint (the smallest table at least as large,
+        else the largest).  No entry calls ``index_select``."""
+        torch = self.torch
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED)
+        for mb in GATHER_TABLE_MB:
+            words = mb * 10**6 // 4
+            table = torch.empty(words, dtype=torch.int32, device=self.dev)
+            idx = torch.randint(0, words, (GATHER_WORDS,), generator=gen, device=self.dev,
+                                dtype=torch.int32)
+            table.random_(generator=gen)
+            ms = self.time_ms(lambda: torch.index_select(table, 0, idx), reps=20)
+            self.gather[mb] = GATHER_WORDS / (ms * 1e-3) / 1e9
+            del table, idx
+        log(f"gather rate (index_select of {GATHER_WORDS} random int32 words, G words/s): "
+            + ", ".join(f"{mb} MB {r:.3f}" for mb, r in self.gather.items())
+            + "; AnchorHash entries (words a key: 1 + passes + 2 successor reads a lookup, "
+            "+ load reads): " + "; ".join(self.anchor_read_text(name, *v)
+                                          for name, v in self.anchor_reads.items()))
+
+    def anchor_read_text(self, name: str, words: int, footprint: int, ms: float) -> str:
+        """An AnchorHash entry's words a key, the G words/s its kernel time
+        gives, and its gather-rate ms: ``words`` at the probe's rate for a
+        footprint of ``footprint`` bytes."""
+        sizes = [mb for mb in self.gather if mb * 10**6 >= footprint] or [max(self.gather)]
+        gather_ms = words / (self.gather[min(sizes)] * 1e9) * 1e3
+        return (f"{name} {words / KEYS:.4f} words a key, {words / (ms * 1e-3) / 1e9:.3f} "
+                f"G words/s, gather-rate ms {gather_ms:.6f} ({footprint / 1e6:.3f} MB)")
 
     def check_assign(self, run: dict) -> None:
         """The path's Memento ``bounded_assign`` against the same loop
@@ -2133,6 +2262,11 @@ class Smoke:
                 sec = replica_sectors(work, KEYS, bounded)
                 log(f"  memento_packed_replica {what}: table sectors a key (model) {sec:.3f}, "
                     f"{sec * KEYS / (ms * 1e-3) / 1e9:.3f} G sectors/s at the kernel's time")
+            else:
+                log("  " + self.anchor_read_text(
+                    f"anchor_packed_replica {what}",
+                    anchor_words(work, KEYS, work.get("try", 0) if bounded else 0),
+                    tb + (4 * load.numel() if bounded else 0), ms))
             rows[what] = entry
             sets = got if sets is None else sets
         return sets
@@ -2177,6 +2311,9 @@ class Smoke:
                    else self.algo_ops(algo, work, KEYS, n))
             by_mode["lookup"][label] = self.packed_entry(
                 f"{algo}_packed_lookup {label}", e, ms, plain_ms, ops, 8 * KEYS + tb, work)
+            if algo == "anchor":
+                log("  " + self.anchor_read_text(f"anchor_packed_lookup {label}",
+                                                 anchor_words(work, KEYS), tb, ms))
             for name, img in st.get("lookups", []):  # earlier states of the path
                 t, sc = engine.image_operands(img)
                 work = {}
@@ -2205,6 +2342,9 @@ class Smoke:
             by_mode["diff"][label] = self.packed_entry(
                 f"{algo}_packed_diff {label}, moved {int(got[2].sum())}", e, ms, plain_ms, ops,
                 16 * KEYS + tb + ob, both)
+            if algo == "anchor":
+                log("  " + self.anchor_read_text(f"anchor_packed_diff {label}",
+                                                 anchor_words(both, 2 * KEYS), tb + ob, ms))
 
             got = self.check_packed_replica(algo, label, keys, new, (load_t, cap),
                                             by_mode["replica"])
@@ -2233,6 +2373,10 @@ class Smoke:
                 f"{algo}_packed_replica_diff {label} k={REPLICAS_K}, moved "
                 f"{int(got[2].sum())}", e, ms, plain_ms, ops,
                 4 * KEYS * (2 + 2 * REPLICAS_K) + tb + ob, both)
+            if algo == "anchor":
+                log("  " + self.anchor_read_text(
+                    f"anchor_packed_replica_diff {label} k={REPLICAS_K}",
+                    anchor_words(both, 2 * KEYS), tb + ob, ms))
 
             chain = keys
             probe = torch.zeros(KEYS, dtype=torch.int32, device=self.dev)
@@ -2254,6 +2398,11 @@ class Smoke:
                 21 * KEYS + tb + 4 * load_t.numel(), work)
             if algo == "memento":
                 self.log_walk_trips(label, chain, probe, pending, new, load_t, cap, work, ms)
+            else:
+                log("  " + self.anchor_read_text(
+                    f"anchor_packed_walk {label} cap={cap}",
+                    anchor_words(work, KEYS, int(pending.sum()) + work.get("walk", 0)),
+                    tb + 4 * load_t.numel(), ms))
         rows = []
         for mode, by_state in by_mode.items():
             head = next(iter(by_state))

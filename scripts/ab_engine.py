@@ -222,10 +222,10 @@ def memento_sets(smoke, keys_np, state, img, working):
 
 def shared_walk_sets(smoke, keys_np, anchor):
     """The cases of the other entries that share ``replica_row`` with
-    Memento's sets: AnchorHash (a = 4·10^6, ``anchor``'s states), JumpHash
-    and PowerHash at w = 10^6, one-shot k = 3 and bounded k = 2
-    (``bounded_assign``'s load and cap), and the k = 3 diff stable ->
-    one-shot."""
+    Memento's sets: AnchorHash (a = 4·10^6, ``anchor``'s states; also
+    stable k = 3), JumpHash and PowerHash at w = 10^6, one-shot k = 3 and
+    bounded k = 2 (``bounded_assign``'s load and cap), and the k = 3 diff
+    stable -> one-shot."""
     for algo in (a for a in ALGORITHMS if a not in ("memento", "dx")):
         if algo == "anchor":
             stable, (tables, scalars, _, img, working) = anchor["stable"][:2], anchor["one-shot"]
@@ -234,11 +234,14 @@ def shared_walk_sets(smoke, keys_np, anchor):
             stable = smoke.operands(h)[:2]
             smoke.remove_fraction(h, cs.ONESHOT_FRACTION)
             (tables, scalars, _, img), working = smoke.operands(h), h.working
-        sets = ((cs.REPLICAS_K, None, None),
-                (cs.BOUNDED_K, *_bounded_load(smoke, keys_np, img, working)))
-        for k, ld, c in sets:
-            args = (k, tables, scalars, ld, c)
-            yield (f"{algo}_replica", f"one-shot {'bounded ' if ld is not None else ''}k={k}",
+        sets = [("one-shot", tables, scalars, cs.REPLICAS_K, None, None),
+                ("one-shot", tables, scalars, cs.BOUNDED_K,
+                 *_bounded_load(smoke, keys_np, img, working))]
+        if algo == "anchor":
+            sets.insert(0, ("stable", *stable, cs.REPLICAS_K, None, None))
+        for state, t, sc, k, ld, c in sets:
+            args = (k, t, sc, ld, c)
+            yield (f"{algo}_replica", f"{state} {'bounded ' if ld is not None else ''}k={k}",
                    lambda keys, a=args, al=algo: engine.kernel_replica(al, keys, *a),
                    lambda keys, a=args, al=algo: engine.replica_plain(al, keys, *a), PREFIX)
         epochs = (stable, (tables, scalars))
@@ -290,9 +293,10 @@ def dx_cases(smoke, keys_np):
 
 def memento_cases(smoke, keys_np):
     """The Memento entries' cases on every packed state (:func:`packed_states`),
-    their dense images (after 1024 removals only ``memento_compact_lookup``),
-    and the epoch pairs (:func:`packed_pairs`, and the dense n = 10^6 ->
-    n - 1)."""
+    their dense images (after 1024 removals only ``memento_compact_lookup``
+    and ``memento_walk``, whose dense cases take the packed walk's lanes and
+    their own image's ``bounded_assign`` load and cap), and the epoch pairs
+    (:func:`packed_pairs`, and the dense n = 10^6 -> n - 1)."""
     states, dense = {}, {}
     for name, img, working, dense_img in packed_states(smoke):
         states[name] = img
@@ -326,6 +330,14 @@ def memento_cases(smoke, keys_np):
                    "memento", keys, p[:len(keys)], q[:len(keys)], *w, table="packed"),
                lambda keys, w=walk, p=probe, q=pending: engine.walk_plain(
                    "memento", keys, p[:len(keys)], q[:len(keys)], *w, table="packed"), None)
+        if name.startswith("int32"):  # the dense walk on the same lanes
+            walk = (*engine.image_operands(dense_img),
+                    *_bounded_load(smoke, keys_np, dense_img, working))
+            yield ("memento_walk", f"{name.split(' ', 1)[1]} cap={walk[3]}",
+                   lambda keys, w=walk, p=probe, q=pending: engine.kernel_walk(
+                       "memento", keys, p[:len(keys)], q[:len(keys)], *w),
+                   lambda keys, w=walk, p=probe, q=pending: engine.walk_plain(
+                       "memento", keys, p[:len(keys)], q[:len(keys)], *w), PREFIX)
     m = MementoHash(cs.N, variant="32")
     last = smoke.on_card(m.device_image())
     m.remove(cs.N - 1)
@@ -349,12 +361,42 @@ def memento_cases(smoke, keys_np):
                    "memento", keys, cs.REPLICAS_K, *e, **kw), PREFIX)
 
 
+def anchor_sizes(smoke, keys_np, anchor):
+    """``anchor_replica`` one-shot k = 3 at a = 10^6, 2·10^6 and (``anchor``'s
+    state) 4·10^6, each with w = a/4 before a 90 % one-shot removal: the
+    entry against its footprint (A and K, 8 bytes a bucket).  Logs each
+    state's words a key (``chip_smoke.anchor_words`` of the plain counters
+    on the first PREFIX keys), whose rate at the kernel's time each row
+    gives."""
+    states = []
+    for a in (10**6, 2 * 10**6):
+        h = make_hash("anchor", a // 4, capacity=a, variant="32")
+        smoke.remove_fraction(h, cs.ONESHOT_FRACTION)
+        states.append((f"a={a // 10**6}*10^6", smoke.operands(h)[:2]))
+    states.append(("a=4*10^6", anchor["one-shot"][:2]))
+    for label, (tables, scalars) in states:
+        work: dict = {}
+        engine.replica_plain("anchor", engine.key_tensor(keys_np[:PREFIX], smoke.dev),
+                             cs.REPLICAS_K, tables, scalars, work=work)
+        words = cs.anchor_words(work, PREFIX)
+        print(f"anchor_replica one-shot k={cs.REPLICAS_K} {label}: {words / PREFIX:.4f} words "
+              f"a key (plain counters, {PREFIX} keys), footprint "
+              f"{sum(4 * t.numel() for t in tables) / 1e6:.1f} MB", flush=True)
+        if label != "a=4*10^6":  # that state's case is shared_walk_sets'
+            args = (cs.REPLICAS_K, tables, scalars, None, None)
+            yield ("anchor_replica", f"one-shot k={cs.REPLICAS_K} {label}",
+                   lambda keys, a=args: engine.kernel_replica("anchor", keys, *a),
+                   lambda keys, a=args: engine.replica_plain("anchor", keys, *a), PREFIX)
+
+
 def anchor_and_shared_cases(smoke, keys_np):
     """The AnchorHash entries' cases and the other entries that share
-    ``replica_row`` (:func:`anchor_cases`, :func:`shared_walk_sets`)."""
+    ``replica_row`` (:func:`anchor_cases`, :func:`shared_walk_sets`,
+    :func:`anchor_sizes`)."""
     anchor = dict(anchor_states(smoke))
     yield from anchor_cases(smoke, keys_np, anchor)
     yield from shared_walk_sets(smoke, keys_np, anchor)
+    yield from anchor_sizes(smoke, keys_np, anchor)
 
 
 #: each group of cases, and the entry prefixes it serves

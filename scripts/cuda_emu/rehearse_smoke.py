@@ -52,7 +52,8 @@ for k, v in dict(N=12000, KEYS=2**12, DELTA_TABLE=24000, DELTA_UPDATES=256,
                  REPLICA_PROBE_KEYS=256, ASSIGN_HOST_KEYS=256, PACKED_REMOVALS=128,
                  INCREMENTAL_EVENTS=16, PACKED_RESTORES=8, SMALL_N=1000, ANCHOR_A=3200,
                  ANCHOR_W=800, BREAKDOWN_REPS=2, HOST_SAMPLE=256, KERNEL_SAMPLE=256,
-                 FLUSH_BYTES=1 << 20, COLD_REPS=3).items():
+                 FLUSH_BYTES=1 << 20, COLD_REPS=3, GATHER_WORDS=2**12,
+                 GATHER_TABLE_MB=(1, 2)).items():
     setattr(cs, k, v)
 _init = cs.Smoke.__init__
 

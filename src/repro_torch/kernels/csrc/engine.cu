@@ -165,7 +165,21 @@
 // at G = 8 +9.4 % against one thread a key; +9.7 % with one ballot a round
 // telling the warp which epochs it still probes; +11.9 % with the rows
 // tested over the group's lanes; G/2 slower still), and the split of
-// dx_replica_diff_group at G = 2 in both epochs (+24.4 %).
+// dx_replica_diff_group at G = 2 in both epochs (+24.4 %).  For
+// memento_walk (stable and after 1024 removals at cap 2, one-shot 90 %
+// removed at cap 14, half the lanes pending), a walk that looked up an open
+// lane's next steps on its warp's idle lanes (with w lanes open, min(S, 32
+// / w) steps each a round, the lowest hitting step taken by ballot and
+// shuffles; 28 registers): S = 2 stable -15.7 %, 1024 removals -16.0 %,
+// one-shot +5.1 %; S = 4 -23.0, -23.7, +7.6 %; S = 32 -16.5, -16.4, +18.0 %:
+// fewer rounds pay where a lookup is jump32 alone, and the extra lookups
+// cost more where lookups follow chains.  For anchor_replica, the lookups
+// of the next min(k - j, F) salts advanced together, one read a chain a
+// step, bounded with their load words read together (F = 3, 40 registers:
+// stable k = 3 +5.0 %, one-shot k = 3 +2.4 %, bounded k = 2 +22.2 %; F = 2,
+// 30 registers: +6.8, +1.9, +5.2 %), and F = 3 with A and K read under an
+// L2 evict_last policy, keys and rows streamed (within 1.1 % of F = 3):
+// AnchorHash's sets ran at one rate of random words whatever their shape.
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so

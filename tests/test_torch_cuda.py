@@ -1343,3 +1343,85 @@ def test_exhausted_dx_replica_diff_group_walk_keeps_the_plain_lookup(dev):
     assert engine.LAUNCHES["dx_replica_diff"] == before + 1
     assert torch.equal(got[0], rows[0]) and torch.equal(got[1], rows[1])
     assert torch.equal(got[2], (rows[0] != rows[1]).any(dim=1))
+
+
+@pytest.mark.parametrize("pending", ["10 %", "60 %", "every lane", "one lane a warp"])
+def test_memento_walk_kernel_at_every_pending_share_and_near_max_probe(dev, pending):
+    """``memento_walk`` with 10 % or 60 % of the lanes pending, every lane,
+    or one lane in each warp: at cap 1 on a load that 15 buckets in 16
+    reach, where some lanes walk more than 32 steps, and with every bucket
+    at the cap from probes 1 to 3 below max_probe, where every pending lane
+    walks to the bound (one open lane a warp, or the whole warp).  Equal to
+    its plain version at key counts 1, 31, 33 and 1000, one launch a call,
+    and on 48 lanes to the host's walk."""
+    from repro_torch.core.bounded import walk_probe_bound
+
+    m = _churned(3000, 1500, seed=21)
+    img = m.device_image()
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    tables, scalars = engine.image_operands(img)
+    rng = np.random.default_rng(22)
+    chain_np = rng.integers(0, 2**32, size=1000, dtype=np.uint32)
+    chain_np[:5] = [0, 1, 2**31 - 1, 2**31, 2**32 - 1]
+    chain = engine.key_tensor(chain_np, dev)
+    share = {"10 %": 0.1, "60 %": 0.6, "every lane": 1.0}
+    pending_np = (rng.random(1000) < share[pending] if pending in share
+                  else np.arange(1000) % 32 == 7)
+    pending_t = torch.from_numpy(pending_np).to(dev)
+    steps_load = _load(img, seed=23, high=16)
+    max_probe = walk_probe_bound(len(steps_load))
+    for load_np, cap, probe_np in (
+            (steps_load, 1, rng.integers(0, 9, size=1000)),
+            (np.full_like(steps_load, 3), 3, max_probe - rng.integers(1, 4, size=1000))):
+        load = torch.from_numpy(load_np).to(dev)
+        probe = torch.from_numpy(probe_np.astype(np.int32)).to(dev)
+        want = engine.walk_plain("memento", chain, probe, pending_t, tables, scalars, load, cap)
+        host = [_host_walk(m, int(chain_np[i]), int(probe_np[i]), bool(pending_np[i]),
+                           load_np, cap) for i in range(48)]
+        got = list(zip(*(w[:48].cpu().tolist() for w in want)))
+        assert got == [(b, c - 2**32 if c >= 2**31 else c, p) for b, c, p in host]
+        if cap == 3:
+            assert (want[2][pending_t] == max_probe).all()
+        else:
+            assert int((want[2] - probe)[pending_t].max()) > 32
+        for count in (1, 31, 33, 1000):
+            before = engine.LAUNCHES["memento_walk"]
+            out = engine.kernel_walk("memento", chain[:count], probe[:count],
+                                     pending_t[:count], tables, scalars, load, cap)
+            torch.cuda.synchronize()
+            assert engine.LAUNCHES["memento_walk"] == before + 1
+            for g, w in zip(out, want):
+                assert torch.equal(g, w[:count]), (cap, count)
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+@pytest.mark.parametrize("state", ["a/w = 40", "w = 3"])
+def test_anchor_replica_kernel_at_every_k_and_few_buckets(dev, state, bounded):
+    """``anchor_replica`` at k = 1 to 5, unbounded and bounded (a cap that
+    half the buckets reach), at a/w = 40 (a = 4000) and with 3 of 400
+    buckets working, where salts collide and rows run out of salts.  Equal
+    to its plain version at key counts 1, 31 and 33 (and 2000 at a/w = 40),
+    one launch a call, and 20 keys to the host where its salts do not run
+    out."""
+    h = _anchor_run(400, 400, "random", seed=3) if state == "w = 3" else \
+        _anchor_run(4000, 40, "random", seed=40)
+    img = h.device_image()
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    tables, scalars = engine.image_operands(img)
+    load = torch.from_numpy(_load(img, seed=24)).to(dev) if bounded else None
+    cap = 2 if bounded else None
+    counts = (1, 31, 33) if state == "w = 3" else (1, 31, 33, 2000)
+    keys = engine.key_tensor(KEYS[:max(counts)], dev)
+    for k in range(1, 6):
+        want = engine.replica_plain("anchor", keys, k, tables, scalars, load, cap)
+        if bounded and state == "a/w = 40":
+            host = engine.bounded_replica_sets(h, KEYS[:20], k, load.cpu().numpy(), cap)
+            assert want[:20].cpu().tolist() == host.tolist()
+        elif not bounded and k <= h.working:  # the host raises where salts run out
+            assert want[:20].cpu().tolist() == [h.lookup_k(int(x), k) for x in KEYS[:20]]
+        for count in counts:
+            before = engine.LAUNCHES["anchor_replica"]
+            out = engine.kernel_replica("anchor", keys[:count], k, tables, scalars, load, cap)
+            torch.cuda.synchronize()
+            assert engine.LAUNCHES["anchor_replica"] == before + 1
+            assert torch.equal(out, want[:count]), (k, count)

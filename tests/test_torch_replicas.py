@@ -459,3 +459,58 @@ def test_memento_bounded_sets_match_reference_at_a_cap_that_rejects_often(table,
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), ref.bounded_replica_sets(ref_h, KEYS, k, load, 2))
     assert (load[got.numpy()] < 2).all()
+
+
+@pytest.mark.parametrize("start", ["probe 0 to 8", "probe 1 to 3 below max_probe"])
+def test_memento_chain_walk_of_every_lane_matches_reference(start):
+    """Memento chain-walk steps with every lane pending at cap 1, a cap
+    that three buckets in four reach, so that lanes walk more steps than
+    a round of the card's walk looks up, from probes 0 to 8, or from 1 to
+    3 below max_probe, where the steps a round would look up cross the
+    bound: equal to the reference engine (jnp plane) and the host walk."""
+    ref_h, port_h = _pair("memento", "churned")
+    img = ref_h.device_image()
+    chain, probe, _, load = _walk_inputs(img, seed=23)
+    max_probe = ref_walk_probe_bound(len(load))
+    if start != "probe 0 to 8":
+        probe = (max_probe - np.random.default_rng(24).integers(1, 4, size=len(KEYS))).astype(
+            np.int32)
+    pending = np.ones(len(KEYS), bool)
+    got = port.engine_chain_walk(chain, probe, pending, _port_image(img), load, 1,
+                                 device="cpu")
+    want = ref.engine_chain_walk(chain, probe, pending, img, load, 1, plane="jnp")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    steps = got[2] - probe
+    if start == "probe 0 to 8":
+        assert steps.max() >= 5
+    else:
+        assert (got[2] == max_probe).any() and (steps < max_probe - probe).any()
+    host = [_host_walk(port_h, int(c), int(p), True, load, 1)
+            for c, p in zip(chain[:40], probe[:40])]
+    assert host == list(zip(*(g[:40].tolist() for g in got)))
+
+
+@pytest.mark.parametrize("working", [1, 2, 3])
+def test_anchor_replica_sets_of_few_buckets_match_reference(working):
+    """AnchorHash k = 3 sets with 1, 2 or 3 of 64 buckets working, where
+    salts collide on the same buckets and, below 3, every row runs out of
+    salts and keeps the key's own bucket in its open slots: equal to the
+    reference engine (jnp plane), and at 3 to the reference's replica
+    sets and the host."""
+    ref_h = state("anchor", 16, 16 - working, seed=3)
+    port_h = make_hash("anchor", 16, capacity=64, variant="32")
+    churn(port_h, 16 - working, seed=3)
+    assert port_h.working_set() == ref_h.working_set()
+    img = ref_h.device_image()
+    got = port.replica_lookup(KEYS, _port_image(img), 3, device="cpu")
+    want = np.asarray(ref.replica_lookup(KEYS, img, 3, plane="jnp"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    first = port.engine_lookup(KEYS, _port_image(img), device="cpu").numpy()
+    np.testing.assert_array_equal(got.numpy()[:, 0], first)
+    if working < 3:
+        np.testing.assert_array_equal(got.numpy()[:, working:],
+                                      np.repeat(first[:, None], 3 - working, axis=1))
+    else:
+        np.testing.assert_array_equal(got.numpy(), ref_replica_sets(ref_h, KEYS, 3))
+        np.testing.assert_array_equal(got.numpy(), replica_sets(port_h, KEYS, 3))
