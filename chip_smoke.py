@@ -45,7 +45,8 @@
    ``dx_replica``'s and ``dx_walk``'s lane groups are logged from the
    library; ``memento_walk``'s lookup rounds and lane lookups a warp (a
    model over the plain walk's steps) at one step a round and with a
-   look-ahead of 2, 4 and 32 steps; then the card's random-word rate
+   look-ahead of 2, 4 and 32 steps, and ``jump_walk``'s the same; then
+   the card's random-word rate
    (``torch.index_select`` of 2^24 random int32 words from tables of 4 to
    128 MB, a yardstick no entry calls) beside each AnchorHash entry's words
    a key, G words/s and gather-rate ms (its words at that rate).
@@ -64,7 +65,9 @@
    mode.  Every ``{memento,anchor}_packed_*`` kernel,
    ``memento_compact_lookup`` and the int16 and int8 delta applies must
    be launched on that path; then each is held against its plain version
-   on the card at every width and timed beside its bound;
+   on the card at every width and timed beside its bound (each delta
+   apply in the form its length takes, ``delta_apply.apply_form``, beside
+   a launch floor: one ``add_`` of a one-element tensor, a yardstick);
    ``memento_packed_replica`` on every state of the path (stable, 1024
    removals, one-shot, int16, int8), logging the table sectors a key it
    loads (a model over the plain reader's counters) and the rate that
@@ -202,8 +205,9 @@ BATCH_EVERY = 8           # phase 6: a batch after every 8th single removal or r
 FLUSH_BYTES = 128 << 20   # phase 7: written before each cold launch (the L2 is 50 MB)
 GATHER_WORDS = 2**24      # phase 5: random int32 words of each gather-rate probe
 GATHER_TABLE_MB = (4, 16, 32, 48, 64, 128)  # phase 5: the probe's table sizes (10^6 bytes)
-# phase 5: steps a round of the memento_walk look-ahead that engine.cu's
-# header lists among the designs that lost, for the walk's warp model
+# phase 5: steps a round of the memento_walk and jump_walk look-ahead that
+# engine.cu's header lists among the designs that lost, for the walks' warp
+# models
 WALK_LOOKAHEAD_STEPS = (2, 4, 32)
 COLD_REPS = 15            # phase 7: cold launches a median is taken over
 
@@ -565,6 +569,13 @@ class Smoke:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    def launch_floor_ms(self) -> float:
+        """A yardstick for the smallest kernels: the device time of one
+        launch of a one-element torch elementwise op (``add_``), timed as
+        :meth:`time_ms` times the kernels.  Not a bound."""
+        one = self.torch.zeros(1, dtype=self.torch.int32, device=self.dev)
+        return self.time_ms(lambda: one.add_(1), reps=100)
+
     def time_cold_ms(self, fn, reps: int = COLD_REPS) -> float:
         """Median device time of one call of ``fn`` on a cold L2: before each
         call a 128 MiB buffer is written, outside the call's event pair.
@@ -765,7 +776,7 @@ class Smoke:
         return result
 
     def check_apply(self) -> dict:
-        from repro_torch.kernels.delta_apply import (_pad_updates, dedup_last,
+        from repro_torch.kernels.delta_apply import (_pad_updates, apply_form, dedup_last,
                                                      delta_apply, delta_apply_plain,
                                                      scatter_update)
 
@@ -801,20 +812,31 @@ class Smoke:
             scatter_update(table, idx, vals)
         torch.cuda.synchronize()
         wrapper_ms = (time.perf_counter() - t0) / 20 * 1e3
+        form = apply_form(DELTA_TABLE, torch.int32)
         bound_ms, _ = self.bound(0, 2 * 4 * DELTA_TABLE + 8 * count)
         log(f"check delta_apply: {DELTA_UPDATES} updates ({count} distinct indices) into "
             f"{DELTA_TABLE} int32: kernel == plain == index_put == in-order host apply, "
-            f"input unchanged; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, index_put "
-            f"{library_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes: 2 x {4 * DELTA_TABLE} "
-            f"table + {8 * count} update bytes at {HBM_BYTES_PER_S:.3g} B/s), "
-            f"{bound_ms / ms:.1%} of the bound; scatter_update incl. host dedup and "
-            f"copy {wrapper_ms:.4f} ms")
+            f"input unchanged; form {form}; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+            f"index_put {library_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes: 2 x "
+            f"{4 * DELTA_TABLE} table + {8 * count} update bytes at {HBM_BYTES_PER_S:.3g} "
+            f"B/s{self.form_bytes_text(form, count, 4)}), {bound_ms / ms:.1%} of the bound; "
+            f"launch floor {self.launch_floor_ms():.6f} ms (a yardstick, not a bound); "
+            f"scatter_update incl. host dedup and copy {wrapper_ms:.4f} ms")
         return {"name": "delta_apply", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/delta_apply.cu",
                 "replaces": "src/repro/kernels/delta_apply.py:52",
                 "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
-                "wrapper_ms": wrapper_ms}
+                "wrapper_ms": wrapper_ms, "form": form}
+
+    @staticmethod
+    def form_bytes_text(form: str, count: int, size: int) -> str:
+        """What the delta apply's form moves beyond the function's bytes: the
+        copy and the scatter write each updated word twice."""
+        if form == "one block":
+            return "; the one-block form moves just these"
+        return f"; the copy and the scatter also write the {count} updated words twice, " \
+            f"+{count * size} bytes"
 
     # -- phase 2, the other algorithms' kernels ---------------------------------
     def remove_fraction(self, h, frac: float) -> float:
@@ -1623,32 +1645,35 @@ class Smoke:
             self.anchor_reads[f"anchor_walk oneshot cap={cap}"] = (
                 anchor_words(work, KEYS, int(pending_np.sum()) + work.get("walk", 0)),
                 tbytes["oneshot"] + 4 * load_t.numel(), ms)
-        if algo == "memento":
-            self.walk_model(probe, pending, plain[2], load_t.numel(), work)
+        if algo in ("memento", "jump"):
+            self.walk_model(algo, probe, pending, plain[2], load_t.numel(), work)
         log(f"check {algo}: {KERNEL_SAMPLE} keys of the replica sets, the bounded sets and "
             f"the walk equal the host (lookup_k, bounded_replica_sets, the host walk)")
         return [row("replica", replica, f"oneshot k={REPLICAS_K}"),
                 row("replica_diff", diff, f"stable -> oneshot k={REPLICAS_K}"),
                 row("walk", walk, f"oneshot cap={cap}")]
 
-    def walk_model(self, probe, pending, probe_out, load_len: int, work: dict) -> None:
-        """Log ``memento_walk``'s lookup rounds a warp and lane lookups a
-        warp (a model, :func:`walk_rounds`) at one step a round, as
-        ``walk_kernel`` runs it, and at each of WALK_LOOKAHEAD_STEPS, from
-        the plain walk's per-lane steps, whose sum must equal its counter."""
+    def walk_model(self, algo: str, probe, pending, probe_out, load_len: int,
+                   work: dict) -> None:
+        """Log ``{algo}_walk``'s lookup rounds a warp and lane lookups a warp
+        (a model, :func:`walk_rounds`) at one step a round, as
+        ``walk_kernel`` runs it, and with up to S steps of each open lane a
+        round on the warp's lanes for each of WALK_LOOKAHEAD_STEPS (a design
+        that lost on both walks).  From the plain walk's per-lane steps,
+        whose sum must equal its counter."""
         from repro_torch.core.bounded import walk_probe_bound
 
         steps = (probe_out.long() - probe.long()) * pending
         if int(steps.sum()) != work.get("walk", 0):
-            raise AssertionError(f"memento_walk model: {int(steps.sum())} steps != the plain "
+            raise AssertionError(f"{algo}_walk model: {int(steps.sum())} steps != the plain "
                                  f"walk's counter {work.get('walk', 0)}")
         max_probe = walk_probe_bound(load_len)
         rounds = {s: walk_rounds(steps, probe.long(), max_probe, s)
                   for s in (1, *WALK_LOOKAHEAD_STEPS)}
-        log(f"memento_walk model ({int(steps.sum())} steps == the plain walk's counter, "
+        log(f"{algo}_walk model ({int(steps.sum())} steps == the plain walk's counter, "
             f"warps of 32): lookup rounds and lane lookups a warp at one step a round "
             f"(walk_kernel) {rounds[1][0]:.4f} and {rounds[1][1]:.4f}; with up to S steps "
-            f"of each open lane a round on the warp's lanes (a look-ahead that ran slower "
+            f"of each open lane a round on the warp's lanes (a look-ahead that lost "
             f"one-shot and was deleted) " + ", ".join(
                 f"S={s} {r:.4f} and {q:.4f}" for s, (r, q) in rounds.items() if s > 1))
 
@@ -2477,11 +2502,16 @@ class Smoke:
         """The int16 and int8 delta applies at the path's shapes (a small
         store's int16 slot table, an int8 image's table) against the plain
         version and ``index_put``."""
-        from repro_torch.kernels.delta_apply import (KERNELS, _pad_updates, dedup_last,
-                                                     delta_apply, delta_apply_plain)
+        from repro_torch.kernels.delta_apply import (KERNELS, _pad_updates, apply_form,
+                                                     dedup_last, delta_apply,
+                                                     delta_apply_plain)
 
         np, torch = self.np, self.torch
         rows = []
+        floor_ms = self.launch_floor_ms()
+        log(f"launch floor: one add_ of a one-element int32 tensor {floor_ms:.6f} ms (CUDA "
+            f"events over 100 launches behind a GPU sleep, as the kernels are timed): a "
+            f"yardstick for the K2 rows below, not a bound")
         for dtype, st in ((torch.int16, sets["memento"][1]), (torch.int8, sets["memento"][2])):
             name = KERNELS[dtype]
             table = st["new"].arrays["slot_b"]
@@ -2505,16 +2535,20 @@ class Smoke:
             library_ms = self.time_ms(lambda: table.index_put((ti,), tv), reps=100)
             nbytes = 2 * table.numel() * table.element_size() + 8 * count
             bound_ms, bound_by = self.bound(0, nbytes)
+            form = apply_form(table.numel(), dtype)
             log(f"check {name}: {count} updates into {table.numel()} {dtype} ({st['label']}): "
-                f"kernel == plain == index_put; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-                f"index_put {library_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes: {nbytes}), "
-                f"{bound_ms / ms:.1%} of the bound")
+                f"kernel == plain == index_put; form {form}; kernel {ms:.6f} ms, plain "
+                f"{plain_ms:.6f} ms, index_put {library_ms:.6f} ms, bound {bound_ms:.9f} ms "
+                f"(bytes: {nbytes}{self.form_bytes_text(form, count, table.element_size())}), "
+                f"{bound_ms / ms:.4%} of the bound; launch floor {floor_ms:.6f} ms "
+                f"({ms / floor_ms:.2f} x)")
             rows.append({"name": name, "route": "cuda",
                          "source": "src/repro_torch/kernels/csrc/delta_apply.cu",
                          "replaces": "src/repro/kernels/delta_apply.py:169",
                          "launches": launches[name], "max_abs_err": e, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": library_ms, "state": st["label"]})
+                         "library_ms": library_ms, "state": st["label"], "form": form,
+                         "launch_floor_ms": floor_ms})
         return rows
 
     # -- phase 7: this slice's path --------------------------------------------

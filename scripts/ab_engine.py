@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time two builds of ``csrc/engine.cu`` on one GPU, in turns, on the same
-states, through the port's public wrappers: another commit's source (a
-``git archive`` of its ``csrc`` unpacked into a directory that
-``.gitignore`` lists) and this tree's.
+"""Time two builds of ``csrc/engine.cu`` and ``csrc/delta_apply.cu`` on one
+GPU, in turns, on the same states, through the port's public wrappers:
+another commit's sources (a ``git archive`` of its ``csrc`` unpacked into a
+directory that ``.gitignore`` lists) and this tree's.
 
     git archive PARENT src/repro_torch/kernels/csrc | tar -x -C archive/parent
     python3 scripts/ab_engine.py archive/parent/src/repro_torch/kernels/csrc \
@@ -22,6 +22,7 @@ the states of their group (:data:`GROUPS`).  Needs a GPU and ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -39,10 +40,14 @@ from repro_torch.core.memento import MementoHash  # noqa: E402
 from repro_torch.core.packing import pack_image  # noqa: E402
 from repro_torch.core.protocol import ALGORITHMS, DeviceImage, make_hash  # noqa: E402
 from repro_torch.kernels import build, engine  # noqa: E402
+from repro_torch.kernels import delta_apply as da  # noqa: E402
 from repro_torch.serve.router import SessionRouter  # noqa: E402
 
 REPS = 20
 PREFIX = 2**14  # keys held against a plain version that takes minutes on all
+SOURCES = ("engine", "delta_apply")  # the csrc files each build takes from its directory
+APPLY_LENGTHS = (128, 2**12, 2**15, 2**17, 2**20)  # the delta applies' sweep of table lengths
+APPLY_SWEEP_UPDATES = 8  # updates drawn for each length of the sweep
 
 
 def dx_states(smoke):
@@ -220,20 +225,40 @@ def memento_sets(smoke, keys_np, state, img, working):
                                                                       table=t), check)
 
 
+def walk_case(algo: str, state: str, walk, pending):
+    """The case of ``{algo}_walk`` on ``walk`` = (tables, scalars, load, cap)
+    from probe 0, ``pending`` lanes pending."""
+    probe = torch.zeros(cs.KEYS, dtype=torch.int32, device=pending.device)
+    return (f"{algo}_walk", f"{state} cap={walk[3]}",
+            lambda keys: engine.kernel_walk(algo, keys, probe[:len(keys)],
+                                            pending[:len(keys)], *walk),
+            lambda keys: engine.walk_plain(algo, keys, probe[:len(keys)],
+                                           pending[:len(keys)], *walk), PREFIX)
+
+
 def shared_walk_sets(smoke, keys_np, anchor):
     """The cases of the other entries that share ``replica_row`` with
     Memento's sets: AnchorHash (a = 4·10^6, ``anchor``'s states; also
     stable k = 3), JumpHash and PowerHash at w = 10^6, one-shot k = 3 and
     bounded k = 2 (``bounded_assign``'s load and cap), and the k = 3 diff
-    stable -> one-shot."""
+    stable -> one-shot; and of ``jump_walk`` and ``power_walk``, stable
+    (w = 10^6) and one-shot, half the lanes pending, ``bounded_assign``'s
+    load and cap."""
+    pending = torch.from_numpy(np.random.default_rng(cs.SEED).random(cs.KEYS) < 0.5).to(
+        smoke.dev)
     for algo in (a for a in ALGORITHMS if a not in ("memento", "dx")):
         if algo == "anchor":
             stable, (tables, scalars, _, img, working) = anchor["stable"][:2], anchor["one-shot"]
         else:
             h = make_hash(algo, cs.N, capacity=cs.CAPACITY_FACTOR * cs.N, variant="32")
-            stable = smoke.operands(h)[:2]
+            tables, scalars, _, img = smoke.operands(h)
+            stable = (tables, scalars)
+            yield walk_case(algo, "stable", (*stable, *_bounded_load(
+                smoke, keys_np, img, h.working)), pending)
             smoke.remove_fraction(h, cs.ONESHOT_FRACTION)
             (tables, scalars, _, img), working = smoke.operands(h), h.working
+            yield walk_case(algo, "one-shot", (tables, scalars, *_bounded_load(
+                smoke, keys_np, img, working)), pending)
         sets = [("one-shot", tables, scalars, cs.REPLICAS_K, None, None),
                 ("one-shot", tables, scalars, cs.BOUNDED_K,
                  *_bounded_load(smoke, keys_np, img, working))]
@@ -399,9 +424,46 @@ def anchor_and_shared_cases(smoke, keys_np):
     yield from anchor_sizes(smoke, keys_np, anchor)
 
 
+def apply_case(smoke, dtype, length: int, idx, vals, label: str):
+    """The case of ``dtype``'s delta apply of (idx, vals), deduplicated
+    keep-last and padded as ``scatter_update`` does, into a random table of
+    ``length`` elements on the card."""
+    info = torch.iinfo(dtype)
+    table = torch.from_numpy(smoke.rng.integers(info.min, info.max, size=length,
+                                                endpoint=True)).to(dtype).to(smoke.dev)
+    pidx, pval, count = da._pad_updates(*da.dedup_last(idx, vals), sentinel=-1)
+    meta = torch.from_numpy(np.concatenate([pidx, pval])).to(smoke.dev)
+    return (da.KERNELS[dtype],
+            f"{label}: {count} updates into {length} {str(dtype).split('.')[1]} "
+            f"({da.apply_form(length, dtype)})",
+            lambda keys: da.delta_apply(table, meta, count),
+            lambda keys: da.delta_apply_plain(table, meta, count), None)
+
+
+def apply_cases(smoke, keys_np):
+    """The delta applies' cases: each width at its path's shape
+    (``chip_smoke.py``'s: 4096 updates, 512 of them repeated, into the
+    2·10^6-word int32 store table; 8 draws into 128 int16 and int8 slots),
+    then at every length of APPLY_LENGTHS with APPLY_SWEEP_UPDATES draws."""
+    idx = smoke.rng.integers(0, cs.DELTA_TABLE, size=cs.DELTA_UPDATES)
+    idx[-512:] = idx[:512]
+    yield apply_case(smoke, torch.int32, cs.DELTA_TABLE, idx,
+                     smoke.rng.integers(-1, cs.N, size=cs.DELTA_UPDATES), "path")
+    for dtype in (torch.int16, torch.int8):
+        yield apply_case(smoke, dtype, 128, smoke.rng.integers(0, 128, size=8),
+                         smoke.rng.integers(-2, cs.TINY_N, size=8), "path")
+    for dtype in (torch.int32, torch.int16, torch.int8):
+        for length in APPLY_LENGTHS:
+            yield apply_case(smoke, dtype, length,
+                             smoke.rng.integers(0, length, size=APPLY_SWEEP_UPDATES),
+                             smoke.rng.integers(-2, cs.TINY_N, size=APPLY_SWEEP_UPDATES),
+                             "sweep")
+
+
 #: each group of cases, and the entry prefixes it serves
 GROUPS = ((dx_cases, ("dx_",)), (memento_cases, ("memento_",)),
-          (anchor_and_shared_cases, ("anchor_", "jump_", "power_")))
+          (anchor_and_shared_cases, ("anchor_", "jump_", "power_")),
+          (apply_cases, ("delta_apply",)))
 
 
 def cases(smoke, keys_np, only=None):
@@ -430,11 +492,20 @@ def _head(out, check):
     return out[:check] if isinstance(out, torch.Tensor) else tuple(o[:check] for o in out)
 
 
+@contextlib.contextmanager
+def using(csrc: Path):
+    """Within the block, the wrappers run the SOURCES of directory ``csrc``."""
+    with contextlib.ExitStack() as stack:
+        for name in SOURCES:
+            stack.enter_context(build.built_from(name, csrc / f"{name}.cu"))
+        yield
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("ab_engine: no CUDA device", file=sys.stderr)
         return 2
-    builds = {"old": Path(argv[1]) / "engine.cu", "new": build.CSRC / "engine.cu"}
+    builds = {"old": Path(argv[1]), "new": build.CSRC}
     out = Path(argv[argv.index("--json") + 1]) if "--json" in argv else None
     only = set(argv[argv.index("--only") + 1].split(",")) if "--only" in argv else None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -442,9 +513,10 @@ def main(argv: list[str]) -> int:
     print(smi, flush=True)
     t0 = time.perf_counter()
     for label, src in builds.items():
-        with build.built_from("engine", src):
-            built = build.build(["engine"])["engine"]
-        print(f"built {label} in {built.seconds:.1f} s", flush=True)
+        with using(src):
+            built = build.build(list(SOURCES))
+        print(f"built {label} in " + ", ".join(f"{n} {b.seconds:.1f} s"
+                                               for n, b in built.items()), flush=True)
     print(f"both built in {time.perf_counter() - t0:.1f} s", flush=True)
     smoke = cs.Smoke(torch)
     keys_np, keys = smoke.keys()
@@ -454,7 +526,7 @@ def main(argv: list[str]) -> int:
             continue
         got = {}
         for label, src in builds.items():
-            with build.built_from("engine", src):
+            with using(src):
                 got[label] = call(keys)
         want = plain(keys[:check])
         for label, o in got.items():
@@ -462,7 +534,7 @@ def main(argv: list[str]) -> int:
                 raise AssertionError(f"{entry} {state}: {label} != old / plain")
         ms: dict = {label: [] for label in builds}
         for label in [*builds, *reversed(builds)]:
-            with build.built_from("engine", builds[label]):
+            with using(builds[label]):
                 ms[label].append(smoke.time_ms(lambda: call(keys), reps=REPS))
         row = {"entry": entry, "state": state, "ms": ms}
         rows.append(row)

@@ -2,10 +2,11 @@
 // build.py): no device; every launch runs its blocks one after another, and
 // a block's threads as fibers on one OS thread.  A fiber runs until it
 // meets a warp collective (__ballot_sync, __any_sync, __shfl_sync), where
-// it waits for the rest of its warp.  A round in which no fiber moves is a
-// deadlock (a collective that a lane of its warp never reaches, having
-// exited or diverged): the process aborts with a message.  Warp
-// collectives take the full-warp mask only.
+// it waits for the rest of its warp, or a __syncthreads, where it waits for
+// the rest of its block.  A round in which no fiber moves is a deadlock (a
+// collective or barrier that a thread never reaches, having exited or
+// diverged): the process aborts with a message.  Warp collectives take the
+// full-warp mask only.
 #pragma once
 #include <cmath>
 #include <csetjmp>
@@ -38,6 +39,7 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+struct alignas(16) int4 { int x, y, z, w; };
 
 namespace emu {
 constexpr size_t kStack = 128 << 10;
@@ -48,6 +50,7 @@ inline std::vector<Fiber> fibers;
 inline char* stacks;  // uninitialised: only the pages a fiber touches are mapped
 inline size_t stack_bytes;
 inline std::vector<Barrier> warps;
+inline Barrier block;  // __syncthreads
 inline std::vector<unsigned long long> slots;
 inline unsigned live, cur;
 inline bool moved;
@@ -106,6 +109,7 @@ inline void run_block() {
     stacks = static_cast<char*>(std::malloc(stack_bytes = n * kStack));
   }
   warps.assign((n + 31) / 32, Barrier());
+  block = Barrier();
   slots.assign(n, 0);
   live = n;
   while (live) {
@@ -155,6 +159,8 @@ T __shfl_sync(unsigned mask, T var, int src, int width = 32) {
   std::memcpy(&var, &bits, sizeof(T));
   return var;
 }
+
+inline void __syncthreads() { emu::wait(emu::block, blockDim.x); }
 
 template <class K, class... A>
 void emu_launch(dim3 g, dim3 b, K k, A... a) {

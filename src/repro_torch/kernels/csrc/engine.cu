@@ -180,6 +180,17 @@
 // 30 registers: +6.8, +1.9, +5.2 %), and F = 3 with A and K read under an
 // L2 evict_last policy, keys and rows streamed (within 1.1 % of F = 3):
 // AnchorHash's sets ran at one rate of random words whatever their shape.
+// For jump_walk (stable w = 10^6 cap 2, one-shot cap 14, half the lanes
+// pending), memento_walk's look-ahead above (S = 2, 4, 32 steps: 28, 31,
+// 30 registers): S = 4 stable -18.2 %, but one-shot -1.1 %, and S = 2 and
+// 32 slower than S = 4 (one-shot +4.1 and +8.0 %): a one-shot warp's tail
+// has ~3 open lanes, most of which stop at their next step, and a round of
+// 8-12 lookups waits for a longer jump32 loop than a round of 3.  Measured
+// beside it and not kept here: the lanes of a block still open after
+// their first lookup queued in shared memory and stepped in full warps,
+// two barriers a round (256 lanes a block: stable -23.7 %, one-shot
+// -17.2 %; 512 and 1024 slower, 128 even with 256), which ROADMAP.md's
+// redesign queue holds for jump_walk and power_walk.
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so

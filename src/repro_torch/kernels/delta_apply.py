@@ -9,9 +9,11 @@ epoch N+1 is materialized.
 
 The kernels (``csrc/delta_apply.cu``, :func:`delta_apply`) replace the
 reference's Pallas kernel ``_apply_scatter_i32`` and, for the int16 and
-int8 tables of packed images, its functional scatter: a device-to-device
-copy, then one thread per update, one entry per element width
-(``delta_apply``, ``delta_apply_int16``, ``delta_apply_int8``).  Their
+int8 tables of packed images, its functional scatter, one entry per
+element width (``delta_apply``, ``delta_apply_int16``,
+``delta_apply_int8``).  A table of up to :data:`ONE_BLOCK_MAX` elements is
+copied and scattered by one block in one launch; a longer one takes a
+device-to-device copy, then one thread per update (:func:`apply_form`).  Their
 plain torch version is :func:`delta_apply_plain` (an ``index_put`` into a
 copy).  The Pallas loop applies updates in order, so the last write wins
 on a duplicate index; :func:`scatter_update` keeps that rule by
@@ -29,6 +31,13 @@ from . import build
 #: the kernel of each table element type
 KERNELS = {torch.int32: "delta_apply", torch.int16: "delta_apply_int16",
            torch.int8: "delta_apply_int8"}
+
+#: the longest table (elements) of each type whose kernel copies and
+#: scatters it in one launch of one block: a copy of ``csrc/delta_apply.cu``'s
+#: ``kOneBlockMaxInt32``, ``…Int16``, ``…Int8``, which choose the form; this
+#: one only names it in logs and tests, and a tier-1 test that reads the
+#: source keeps the two equal
+ONE_BLOCK_MAX = {torch.int32: 1 << 12, torch.int16: 1 << 12, torch.int8: 1 << 15}
 
 #: kernel launches since the last reset (set the values to 0)
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS.values()}
@@ -80,6 +89,13 @@ def dedup_last(idx, vals) -> tuple[np.ndarray, np.ndarray]:
     _, first_rev = np.unique(idx[::-1], return_index=True)
     keep = np.sort(len(idx) - 1 - first_rev)
     return idx[keep], vals[keep]
+
+
+def apply_form(length: int, dtype: torch.dtype) -> str:
+    """The form the ``delta_apply`` kernel of ``dtype`` takes for a table of
+    ``length`` elements: ``"one block"`` (the copy, then the updates, in one
+    launch) up to ``ONE_BLOCK_MAX[dtype]``, else ``"copy and scatter"``."""
+    return "one block" if length <= ONE_BLOCK_MAX[dtype] else "copy and scatter"
 
 
 def delta_apply_plain(table: torch.Tensor, meta: torch.Tensor,

@@ -1425,3 +1425,103 @@ def test_anchor_replica_kernel_at_every_k_and_few_buckets(dev, state, bounded):
             torch.cuda.synchronize()
             assert engine.LAUNCHES["anchor_replica"] == before + 1
             assert torch.equal(out, want[:count]), (k, count)
+
+
+@pytest.mark.parametrize("pending", ["10 %", "60 %", "every lane", "one lane a warp"])
+def test_jump_walk_kernel_at_every_pending_share_and_near_max_probe(dev, pending):
+    """``jump_walk`` with 10 % or 60 % of the lanes pending, every lane, or
+    one lane in each warp: at cap 1 on a load that 15 buckets in 16 reach,
+    where some lanes walk more than 32 steps, and on that load from probes
+    1 to 3 below max_probe, where some lanes stop at the bound and others
+    below it, and with every bucket at the cap from there, where every
+    pending lane walks to the bound.  Equal to its plain version at key
+    counts 1, 31, 33 and 1000, one launch a call, and on 48 lanes to the
+    host's walk."""
+    from repro_torch.core.bounded import walk_probe_bound
+
+    h = _algo_state("jump", 3000, 0.5, seed=25)
+    img = h.device_image()
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    tables, scalars = engine.image_operands(img)
+    rng = np.random.default_rng(26)
+    chain_np = rng.integers(0, 2**32, size=1000, dtype=np.uint32)
+    chain_np[:5] = [0, 1, 2**31 - 1, 2**31, 2**32 - 1]
+    chain = engine.key_tensor(chain_np, dev)
+    share = {"10 %": 0.1, "60 %": 0.6, "every lane": 1.0}
+    pending_np = (rng.random(1000) < share[pending] if pending in share
+                  else np.arange(1000) % 32 == 7)
+    pending_t = torch.from_numpy(pending_np).to(dev)
+    steps_load = _load(img, seed=28, high=16)
+    max_probe = walk_probe_bound(len(steps_load))
+    for load_np, cap, probe_np in (
+            (steps_load, 1, rng.integers(0, 9, size=1000)),
+            (steps_load, 1, max_probe - rng.integers(1, 4, size=1000)),
+            (np.full_like(steps_load, 3), 3, max_probe - rng.integers(1, 4, size=1000))):
+        load = torch.from_numpy(load_np).to(dev)
+        probe = torch.from_numpy(probe_np.astype(np.int32)).to(dev)
+        want = engine.walk_plain("jump", chain, probe, pending_t, tables, scalars, load, cap)
+        host = [_host_walk(h, int(chain_np[i]), int(probe_np[i]), bool(pending_np[i]),
+                           load_np, cap) for i in range(48)]
+        got = list(zip(*(w[:48].cpu().tolist() for w in want)))
+        assert got == [(b, c - 2**32 if c >= 2**31 else c, p) for b, c, p in host]
+        if cap == 3:
+            assert (want[2][pending_t] == max_probe).all()
+        elif int(probe.min()) > 8:
+            assert (want[2][pending_t] == max_probe).any()
+            assert (want[2][pending_t] < max_probe).any()
+        else:
+            assert int((want[2] - probe)[pending_t].max()) > 32
+        for count in (1, 31, 33, 1000):
+            before = engine.LAUNCHES["jump_walk"]
+            out = engine.kernel_walk("jump", chain[:count], probe[:count],
+                                     pending_t[:count], tables, scalars, load, cap)
+            torch.cuda.synchronize()
+            assert engine.LAUNCHES["jump_walk"] == before + 1
+            for g, w in zip(out, want):
+                assert torch.equal(g, w[:count]), (cap, count)
+
+
+def _apply_lengths(dtype) -> list[int]:
+    """Table lengths at either form's edges: 1, 127, 128 and one below, at
+    and above the longest one-block table (and the path's 2·10^6 int32
+    words)."""
+    top = da.ONE_BLOCK_MAX[dtype]
+    return [1, 127, 128, top - 1, top, top + 1] + ([2_000_000] if dtype == torch.int32 else [])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16, torch.int8])
+def test_delta_apply_kernels_at_both_forms_edges(dev, dtype):
+    """Each width's delta apply at lengths around the longest table it
+    copies in one block (:func:`_apply_lengths`), and at the longest one
+    starting one element into its buffer (not 16-byte aligned): no update,
+    updates at the first and last index among random ones with -1 padding,
+    and indices at and past the table's end, which never write.  Equal to
+    the plain version and to an in-order host apply, the input left
+    unchanged, one launch a call."""
+    name = da.KERNELS[dtype]
+    info = torch.iinfo(dtype)
+    top = da.ONE_BLOCK_MAX[dtype]
+    for length, offset in [(n, 0) for n in _apply_lengths(dtype)] + [(top, 1)]:
+        rng = np.random.default_rng(length + offset)
+        base = rng.integers(info.min, info.max, size=length, endpoint=True)
+        table = torch.from_numpy(np.concatenate([base[:offset], base])).to(dtype).to(dev)[offset:]
+        picks = rng.choice(length, size=min(length, 9), replace=False)
+        idx = np.unique(np.concatenate([[0, length - 1], picks]))
+        vals = rng.integers(info.min, info.max, size=len(idx), endpoint=True)
+        for upd_idx, upd_vals in ((idx[:0], vals[:0]), (idx, vals),
+                                  (np.append(idx, [length, length + 7]),
+                                   np.append(vals, [1, 2]))):
+            pidx, pval, count = da._pad_updates(upd_idx, upd_vals, sentinel=-1)
+            assert (pidx[count:] == -1).all()
+            meta = torch.from_numpy(np.concatenate([pidx, pval])).to(dev)
+            before = da.LAUNCHES[name]
+            out = da.delta_apply(table, meta, count)
+            torch.cuda.synchronize()
+            assert da.LAUNCHES[name] == before + 1
+            want = base.copy()
+            for i, v in zip(upd_idx.tolist(), upd_vals.tolist()):
+                if i < length:
+                    want[i] = v
+            assert torch.equal(out, da.delta_apply_plain(table, meta, count)), (length, count)
+            assert (out.cpu().numpy().astype(np.int64) == want).all(), (length, count)
+            assert (table.cpu().numpy().astype(np.int64) == base).all()

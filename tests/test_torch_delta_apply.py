@@ -115,3 +115,63 @@ def test_apply_updates_passes_untouched_arrays_by_reference(plane):
                              plane=plane)
     for name in arrays:
         np.testing.assert_array_equal(got[name].numpy(), np.asarray(want[name]))
+
+
+#: each kernel's table type: torch's, numpy's, and its bits
+WIDTHS = {"int32": (torch.int32, np.int32, 32), "int16": (torch.int16, np.int16, 16),
+          "int8": (torch.int8, np.int8, 8)}
+
+
+@pytest.mark.parametrize("plane", ["pallas", "jnp"])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_plain_apply_around_the_longest_one_block_table_matches_reference(width, edge, plane):
+    """The plain version of each width's delta apply on a table one element
+    shorter than, as long as, and one longer than the longest it copies in
+    one block (``ONE_BLOCK_MAX``), with updates at the first and last index
+    and -1 padding: equal to the reference's apply and an in-order loop,
+    the input left unchanged."""
+    dtype, np_dtype, _ = WIDTHS[width]
+    length = port.ONE_BLOCK_MAX[dtype] + edge
+    info = np.iinfo(np_dtype)
+    rng = np.random.default_rng(length)
+    base = rng.integers(info.min, info.max, size=length, endpoint=True).astype(np_dtype)
+    idx = np.concatenate([[0, length - 1], rng.integers(0, length, size=9)]).astype(np.int32)
+    vals = rng.integers(info.min, info.max, size=len(idx), endpoint=True).astype(np.int32)
+    uidx, uvals = port.dedup_last(idx, vals)
+    pidx, pval, count = port._pad_updates(uidx, uvals, sentinel=-1)
+    assert (pidx[count:] == -1).all()
+    table = torch.from_numpy(base.copy())
+    got = port.delta_apply_plain(table, torch.from_numpy(np.concatenate([pidx, pval])), count)
+    want = np.asarray(ref.scatter_update(base, idx, vals, plane=plane))
+    assert got.numpy().dtype == want.dtype and got.numpy().tobytes() == want.tobytes()
+    loop = base.copy()
+    for i, v in zip(idx.tolist(), vals.tolist()):
+        loop[i] = v
+    np.testing.assert_array_equal(got.numpy(), loop)
+    np.testing.assert_array_equal(table.numpy(), base)
+
+
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_apply_form_is_one_block_up_to_the_longest_table(width):
+    """The wrapper's choice of form by length: one block from an empty
+    table up to ``ONE_BLOCK_MAX[dtype]`` elements, the copy and the scatter
+    above it (the path's 2·10^6-word int32 table among them)."""
+    dtype = WIDTHS[width][0]
+    top = port.ONE_BLOCK_MAX[dtype]
+    for length in (0, 1, 127, 128, top - 1, top):
+        assert port.apply_form(length, dtype) == "one block"
+    for length in (top + 1, 2 * top, 2_000_000):
+        assert port.apply_form(length, dtype) == "copy and scatter"
+
+
+def test_one_block_lengths_match_the_kernel_source():
+    """``ONE_BLOCK_MAX`` is ``csrc/delta_apply.cu``'s ``kOneBlockMaxInt32``,
+    ``…Int16`` and ``…Int8``: the lengths at which the kernels switch form."""
+    import re
+    from pathlib import Path
+
+    src = (Path(port.__file__).parent / "csrc" / "delta_apply.cu").read_text()
+    found = dict(re.findall(r"constexpr long long kOneBlockMaxInt(\d+) = 1 << (\d+);", src))
+    assert port.ONE_BLOCK_MAX == {dtype: 1 << int(found[str(bits)])
+                                  for dtype, _, bits in WIDTHS.values()}

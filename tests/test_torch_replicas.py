@@ -491,6 +491,36 @@ def test_memento_chain_walk_of_every_lane_matches_reference(start):
     assert host == list(zip(*(g[:40].tolist() for g in got)))
 
 
+@pytest.mark.parametrize("start", ["probe 0 to 8", "probe 1 to 3 below max_probe"])
+def test_jump_chain_walk_of_every_lane_matches_reference(start):
+    """JumpHash chain-walk steps with every lane pending at cap 1, a cap
+    that three buckets in four reach, so that lanes walk several steps (the
+    rounds of ``jump_walk``'s queue), from probes 0 to 8, or from 1 to 3
+    below max_probe, where lanes stop at the bound: equal to the reference
+    engine (jnp plane) and the host walk."""
+    ref_h, port_h = _pair("jump", "churned")
+    img = ref_h.device_image()
+    chain, probe, _, load = _walk_inputs(img, seed=25)
+    max_probe = ref_walk_probe_bound(len(load))
+    if start != "probe 0 to 8":
+        probe = (max_probe - np.random.default_rng(26).integers(1, 4, size=len(KEYS))).astype(
+            np.int32)
+    pending = np.ones(len(KEYS), bool)
+    got = port.engine_chain_walk(chain, probe, pending, _port_image(img), load, 1,
+                                 device="cpu")
+    want = ref.engine_chain_walk(chain, probe, pending, img, load, 1, plane="jnp")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    steps = got[2] - probe
+    if start == "probe 0 to 8":
+        assert steps.max() >= 5
+    else:
+        assert (got[2] == max_probe).any() and (steps < max_probe - probe).any()
+    host = [_host_walk(port_h, int(c), int(p), True, load, 1)
+            for c, p in zip(chain[:40], probe[:40])]
+    assert host == list(zip(*(g[:40].tolist() for g in got)))
+
+
 @pytest.mark.parametrize("working", [1, 2, 3])
 def test_anchor_replica_sets_of_few_buckets_match_reference(working):
     """AnchorHash k = 3 sets with 1, 2 or 3 of 64 buckets working, where
