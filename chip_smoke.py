@@ -15,9 +15,12 @@
    on a stable state and after a one-shot removal of 90 % (capacity
    factor 4 for the fixed-capacity ones); for ``dx_lookup`` it also logs
    its lane group G, the probes a key and the warp rounds a key (a model),
-   for ``dx_diff`` its lane group G, and for ``anchor_lookup`` the passes
+   for ``dx_diff`` its lane group G, for ``anchor_lookup`` the passes
    and successor reads a key and the round trips and distinct words a key
-   (a model) of ``anchor_one`` and of a loop that loads K[h] with A[h].
+   (a model) of ``anchor_one`` and of a loop that loads K[h] with A[h], and
+   for ``power_lookup`` its draws and levels a key and warp issue slots a
+   key (a model, ``power_rounds``); ``power_diff`` also across one
+   removal (n = 10^6 -> 10^6 - 1, one top level: the pair kernel).
 3. Drives the first slice's path, ``SessionRouter.route_batch`` on 2^20
    session ids at n = 10^6, through the paper's scenarios (stable,
    one-shot 90 % removal, incremental removals) and failover in overlap
@@ -153,16 +156,19 @@ OPS_PER_KEY, OPS_PER_STEP, OPS_PER_OUTER, OPS_PER_READ = 6, 22, 21, 3
 #   dx:     per key index, key load, store, return = 4; per probe: hash2
 #           18, modulo, shift, word read, shift, and, test, loop 2 = 26
 #   jump:   per key 4; per step as above, 22
-#   power:  per key index, key load, store 3, top-level loop 3 per level
-#           (added below), masks and salt 4, first draw hash2 18 + and +
-#           compare, accept test 3 = 31; per extra draw: hash2 18, add,
-#           and, compare 2, counter 2 = 24; per level descended: hash2 18,
-#           salt 2, mask 3, compare 2, loop 2 = 27
+#   power:  per key index, key load, store 3, masks and salt index 4 (the
+#           top level L and its mask are the launch's, made once), first
+#           draw: its salt's inner mix loaded from the compiler's table,
+#           xor, fmix32 8 = 10 (hash2 is 18: the inner mix is the salt's
+#           alone), and, compare, accept test 3 = 23; per extra draw: the
+#           mix 10, add, and, compare 2, counter 2 = 16; per level
+#           descended: the mix 10, salt index 2, mask 3, compare 2, loop 2
+#           = 19
 ALGO_OPS = {
     "anchor": (14, {"outer": 24, "read": 3}),
     "dx": (4, {"probe": 26}),
     "jump": (4, {"step": OPS_PER_STEP}),
-    "power": (31, {"draw": 24, "level": 27}),
+    "power": (23, {"draw": 16, "level": 19}),
 }
 # The phase-5 kernels, counted the same way over the plain versions'
 # counters ("lookups", "try", "compare", "walk"):
@@ -182,7 +188,12 @@ ALGO_OPS = {
 #                           both; hash2 18, modulo, word-index shift = 20
 #                           are made once (the word read, bit test and loop
 #                           stay each epoch's)
+#   per key two PowerHash epochs of one top level share: index and key
+#                           load 2, masks and salt index 4, the first draw's
+#                           mix 10 and its mask = 17 (each epoch keeps its
+#                           accept test, and the diff its stores)
 OPS_PER_TRY, OPS_PER_BOUNDED_TRY, OPS_PER_COMPARE = 21, 3, 2
+OPS_PER_POWER_SHARED_KEY = 17
 OPS_PER_SHARED_PROBE = 20
 OPS_PER_WALK_STEP, OPS_PER_WALK_LANE = 23, 8
 # The packed and compact readers (phase 6), over the plain readers'
@@ -209,6 +220,10 @@ GATHER_TABLE_MB = (4, 16, 32, 48, 64, 128)  # phase 5: the probe's table sizes (
 # engine.cu's header lists among the designs that lost, for the walks' warp
 # models
 WALK_LOOKAHEAD_STEPS = (2, 4, 32)
+# PowerHash's warp model (power_rounds): ALGO_OPS["power"] with every draw
+# hashed in full (hash2 18 where the kept kernel loads the salt's mix, 10),
+# as PR 24's kernel and the top level made once a launch ran them
+POWER_HASH2_OPS = (31, 24, 27)
 COLD_REPS = 15            # phase 7: cold launches a median is taken over
 
 
@@ -468,6 +483,68 @@ def walk_rounds(steps, probe, max_probe: int, s_max: int) -> tuple[float, float]
         rem, p = rem - adv, p + adv
         rounds += int((w > 0).sum())
     return rounds / rem.shape[0], lookups / rem.shape[0]
+
+
+def power_level_of(n: int) -> int:
+    """PowerHash's top level L = floor(log2(n - 1)), 0 at n <= 2."""
+    return max(0, (n - 1).bit_length() - 1)
+
+
+def power_work(keys, n: int):
+    """Each key's extra top draws and levels descended under PowerHash at
+    ``n`` (int64; ``keys`` int32 bit patterns or uint32 words): the plain
+    version's counters ("draw", "level"), a key each, as ``power32`` draws
+    them."""
+    import torch
+
+    from repro_torch.core.power import POWER_SALT, POWER_TRY_CAP
+    from repro_torch.kernels.primitives import as_u32, hash2
+
+    keys = as_u32(keys)
+    L = power_level_of(n)
+    hi, base = (2 << L) - 1, POWER_SALT + (L << 6)
+    v = hash2(keys, base) & hi
+    draws = torch.zeros_like(keys)
+    for t in range(1, POWER_TRY_CAP):
+        redo = v >= n
+        if not bool(redo.any()):
+            break
+        draws += redo
+        v = torch.where(redo, hash2(keys, base + t) & hi, v)
+    out = torch.where((v < n) & (v >= (1 << L)), v, -1)
+    levels = torch.zeros_like(keys)
+    for j in range(L - 1, -1, -1):
+        pending = out < 0
+        if not bool(pending.any()):
+            break
+        levels += pending
+        cand = hash2(keys, POWER_SALT + (j << 6)) & ((2 << j) - 1)
+        out = torch.where(pending & (cand >= (1 << j)), cand, out)
+    return draws, levels
+
+
+def power_rounds(draws, levels, L: int) -> dict:
+    """Warp issue slots a key of ``power_lookup`` (a model over each key's
+    extra top draws and levels, :func:`power_work`; 32 consecutive keys a
+    warp, a warp's slots its operations as OPS above, one a lane at a time,
+    so a warp runs its deepest lane's draws and levels): "PR 24", every
+    draw hashed in full (POWER_HASH2_OPS) and the top level's shift loop
+    in each thread (3 a level); "step 1", without the loop; "kept", each
+    draw's inner mix loaded (the kernel, ALGO_OPS)."""
+    import torch
+
+    pad = -draws.numel() % 32
+    d = torch.nn.functional.pad(draws, (0, pad)).reshape(-1, 32)
+    lv = torch.nn.functional.pad(levels, (0, pad)).reshape(-1, 32)
+
+    def thread(per_key, per_draw, per_level):
+        return per_key + per_draw * d.amax(dim=1) + per_level * lv.amax(dim=1)
+
+    hashed = thread(*POWER_HASH2_OPS)
+    return {"PR 24": float((hashed + 3 * (L + 1)).double().mean()),
+            "step 1": float(hashed.double().mean()),
+            "kept": float(thread(ALGO_OPS["power"][0], *ALGO_OPS["power"][1].values())
+                          .double().mean())}
 
 
 def anchor_words(work: dict, keys: int, load_reads: int = 0) -> int:
@@ -869,14 +946,10 @@ class Smoke:
     @staticmethod
     def algo_ops(algo: str, work: dict, keys: int, n: int) -> int:
         per_key, per_iter = ALGO_OPS[algo]
-        if algo == "power":
-            per_key += 3 * max(1, (n - 1).bit_length())  # the top-level loop
         return keys * per_key + sum(work.get(k, 0) * v for k, v in per_iter.items())
 
     def per_key_ops(self, algo: str, n: int) -> int:
-        if algo == "memento":
-            return OPS_PER_KEY
-        return ALGO_OPS[algo][0] + (3 * max(1, (n - 1).bit_length()) if algo == "power" else 0)
+        return OPS_PER_KEY if algo == "memento" else ALGO_OPS[algo][0]
 
     def mode_ops(self, algo: str, work: dict, keys: int, n: int, slots: int = 0,
                  bounded: bool = False, walk: bool = False) -> int:
@@ -894,11 +967,25 @@ class Smoke:
                 + work.get("walk", 0) * OPS_PER_WALK_STEP + walk)
 
     @staticmethod
-    def diff_shared_ops(algo: str, work: dict, n_old: int, n_new: int) -> int:
+    def diff_shared_ops(algo: str, work: dict, n_old: int, n_new: int, keys=None) -> int:
         """The operations of a k = 1 diff that its plain counters ``work``
         (both epochs) count twice and the kernel makes once: for two Memento
         epochs of one n, the jump32 steps of a key, one epoch's half of
-        ``work["step"]`` (both run the same steps); 0 otherwise."""
+        ``work["step"]`` (both run the same steps); for two PowerHash epochs
+        of one top level, each key's first draw and the draws and levels
+        both epochs make (one top sequence, one descent: the smaller of the
+        two epochs' counts, :func:`power_work` over ``keys``, whose sums
+        must equal ``work``'s); 0 otherwise."""
+        if algo == "power" and power_level_of(n_old) == power_level_of(n_new):
+            (do, lo), (dn, ln) = (power_work(keys, n) for n in (n_old, n_new))
+            both = [int((do + dn).sum()), int((lo + ln).sum())]
+            if both != [work.get("draw", 0), work.get("level", 0)]:
+                raise AssertionError(f"power diff: per-key draws and levels {both} != the "
+                                     f"plain counters' {work}")
+            per_draw, per_level = ALGO_OPS["power"][1].values()
+            return (keys.numel() * OPS_PER_POWER_SHARED_KEY
+                    + int(do.minimum(dn).sum()) * per_draw
+                    + int(lo.minimum(ln).sum()) * per_level)
         if algo != "memento" or n_old != n_new:
             return 0
         return work.get("step", 0) // 2 * OPS_PER_STEP
@@ -952,9 +1039,7 @@ class Smoke:
         Memento against their plain versions, at w = 10^6 stable and after
         a one-shot removal of 90 %."""
         from repro_torch.core.protocol import ALGORITHMS, make_hash
-        from repro_torch.kernels import engine
-        from repro_torch.kernels.engine import (diff_plain, kernel_diff, kernel_lookup,
-                                                lookup_plain)
+        from repro_torch.kernels.engine import kernel_lookup, lookup_plain
 
         np, torch = self.np, self.torch
         rows = []
@@ -994,6 +1079,8 @@ class Smoke:
                                   "bound_by": bound_by, "max_abs_err": err}
                 if algo == "dx":
                     self.dx_rounds(keys, tables, scalars, name)
+                if algo == "power":
+                    self.power_model(keys, scalars[0], work, name, ms)
                 if algo == "anchor":
                     self.anchor_trips(work, name)
                     self.anchor_reads[f"anchor_lookup {name}"] = (
@@ -1013,42 +1100,65 @@ class Smoke:
                          "ms": head["ms"], "plain_ms": head["plain_ms"],
                          "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                          "library_ms": None, "state": "oneshot", "by_state": by_state})
-            # the diff across the one-shot removal
-            _, keys = self.keys()
-            old, new = stable[:2], oneshot[:2]
-            got = kernel_diff(algo, keys, old, new)
-            want = diff_plain(algo, keys, old, new)
-            err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-            if err:
-                raise AssertionError(f"{algo}_diff: kernel != plain ({err})")
-            ms = self.time_ms(lambda: kernel_diff(algo, keys, old, new), reps=20)
-            plain_ms = self.time_ms(lambda: diff_plain(algo, keys, old, new),
-                                    reps=2, warmup=1)
-            w_a: dict = {}
-            w_b: dict = {}
-            lookup_plain(algo, keys, *old, w_a)
-            lookup_plain(algo, keys, *new, w_b)
-            bound_ms, bound_by = self.bound(
-                self.algo_ops(algo, w_a, KEYS, old[1][0])
-                + self.algo_ops(algo, w_b, KEYS, new[1][0]) + KEYS,
-                16 * KEYS + stable[2] + oneshot[2])
-            lanes = (f", G={engine.dx_diff_lane_group(old[1][1], new[1][1])} lanes a key"
-                     if algo == "dx" else "")
-            if algo == "anchor":
-                self.anchor_reads["anchor_diff stable -> oneshot"] = (
-                    anchor_words(w_a, KEYS) + anchor_words(w_b, KEYS), stable[2] + oneshot[2], ms)
-            log(f"check {algo}_diff stable -> oneshot{lanes}: kernel == plain, moved "
-                f"{int(got[2].sum())} of {KEYS}; kernel {ms:.6f} ms, plain {plain_ms:.3f} ms, "
-                f"bound {bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.1%} of the bound")
+            # the diff across the one-shot removal; PowerHash's also across its
+            # incremental replay's removal of one bucket (n -> n - 1 at one
+            # top level: the pair kernel)
+            pairs = [("stable -> oneshot", stable, oneshot)]
+            if algo == "power":
+                h1 = make_hash(algo, N, capacity=CAPACITY_FACTOR * N, variant="32")
+                h1.remove(h1.size - 1)
+                pairs.append((f"n={N} -> {N - 1}", stable, self.operands(h1)))
+            diffs = {name: self.algo_diff(algo, name, a, b) for name, a, b in pairs}
+            head = diffs["stable -> oneshot"]
             rows.append({"name": f"{algo}_diff", "route": "cuda",
                          "source": "src/repro_torch/kernels/csrc/engine.cu",
                          "replaces": "src/repro/kernels/engine.py:526",
-                         "launches": None, "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "library_ms": None, "state": "stable -> oneshot"})
+                         "launches": None,
+                         "max_abs_err": max(v["max_abs_err"] for v in diffs.values()),
+                         "ms": head["ms"], "plain_ms": head["plain_ms"],
+                         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                         "library_ms": None, "state": "stable -> oneshot",
+                         **({"by_state": diffs} if len(diffs) > 1 else {})})
             self.kept[algo] = (h, stable[3], oneshot[3])
         torch.cuda.synchronize()
         return rows
+
+    def algo_diff(self, algo: str, name: str, old_ops, new_ops) -> dict:
+        """``{algo}_diff`` from ``old_ops`` to ``new_ops`` (:meth:`operands`)
+        against its plain version, timed beside its bound; its by-state entry."""
+        from repro_torch.kernels import engine
+        from repro_torch.kernels.engine import diff_plain, kernel_diff, lookup_plain
+
+        _, keys = self.keys()
+        old, new = old_ops[:2], new_ops[:2]
+        got = kernel_diff(algo, keys, old, new)
+        want = diff_plain(algo, keys, old, new)
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        if err:
+            raise AssertionError(f"{algo}_diff {name}: kernel != plain ({err})")
+        ms = self.time_ms(lambda: kernel_diff(algo, keys, old, new), reps=20)
+        plain_ms = self.time_ms(lambda: diff_plain(algo, keys, old, new), reps=2, warmup=1)
+        w_a: dict = {}
+        w_b: dict = {}
+        lookup_plain(algo, keys, *old, w_a)
+        lookup_plain(algo, keys, *new, w_b)
+        both = {k: w_a.get(k, 0) + w_b.get(k, 0) for k in set(w_a) | set(w_b)}
+        bound_ms, bound_by = self.bound(
+            self.algo_ops(algo, w_a, KEYS, old[1][0]) + self.algo_ops(algo, w_b, KEYS, new[1][0])
+            + KEYS - self.diff_shared_ops(algo, both, old[1][0], new[1][0], keys),
+            16 * KEYS + old_ops[2] + new_ops[2])
+        lanes = (f", G={engine.dx_diff_lane_group(old[1][1], new[1][1])} lanes a key"
+                 if algo == "dx" else "")
+        pair = (", one top level: the pair kernel" if algo == "power"
+                and power_level_of(old[1][0]) == power_level_of(new[1][0]) else "")
+        if algo == "anchor":
+            self.anchor_reads[f"anchor_diff {name}"] = (
+                anchor_words(w_a, KEYS) + anchor_words(w_b, KEYS), old_ops[2] + new_ops[2], ms)
+        log(f"check {algo}_diff {name}{lanes}{pair}: kernel == plain, moved "
+            f"{int(got[2].sum())} of {KEYS}; kernel {ms:.6f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.1%} of the bound")
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": err}
 
     @staticmethod
     def anchor_trips(work: dict, name: str) -> None:
@@ -1065,6 +1175,28 @@ class Smoke:
             f"counters); model: anchor_one {1 + 2 * o + 2 * r:.4f} round trips and "
             f"{1 + o + 2 * r:.4f} distinct words a key, K loaded with every A "
             f"{1 + o + r:.4f} and {1 + 2 * o + 2 * r:.4f}")
+
+    @staticmethod
+    def power_model(keys, n: int, work: dict, name: str, ms: float) -> None:
+        """Log ``power_lookup``'s warp model (:func:`power_rounds`) beside its
+        time: from each key's draws and levels (:func:`power_work`), whose
+        sums must equal the plain counters ``work``."""
+        draws, levels = power_work(keys, n)
+        got = [int(draws.sum()), int(levels.sum())]
+        if got != [work.get("draw", 0), work.get("level", 0)]:
+            raise AssertionError(f"power_rounds {name}: draws and levels {got} != the plain "
+                                 f"counters' {work}")
+        L = power_level_of(n)
+        m = power_rounds(draws.cpu(), levels.cpu(), L)
+        log(f"power_rounds {name} (n = {n}, L = {L}; {got[0]} draws and {got[1]} levels == "
+            f"the plain counters): {float(draws.double().mean()):.4f} extra draws and "
+            f"{float(levels.double().mean()):.4f} levels a key, deepest lane's a warp "
+            f"{float(draws.reshape(-1, 32).amax(1).double().mean()):.4f} and "
+            f"{float(levels.reshape(-1, 32).amax(1).double().mean()):.4f}; warp issue slots "
+            f"a key (model): PR 24 {m['PR 24']:.2f}, the top level once a launch "
+            f"{m['step 1']:.2f}, each draw's mix loaded (the kernel) {m['kept']:.2f} = "
+            f"{m['kept'] * KEYS / INT32_OPS_PER_S * 1e3:.6f} ms at {INT32_OPS_PER_S:.4g} ops/s "
+            f"(kernel {ms:.6f} ms)")
 
     @staticmethod
     def dx_rounds(keys, tables, scalars, name: str) -> None:

@@ -2,23 +2,27 @@
 """Time two builds of ``csrc/engine.cu`` and ``csrc/delta_apply.cu`` on one
 GPU, in turns, on the same states, through the port's public wrappers:
 another commit's sources (a ``git archive`` of its ``csrc`` unpacked into a
-directory that ``.gitignore`` lists) and this tree's.
+directory that ``.gitignore`` lists) and this tree's; or more builds, each
+a directory of sources named LABEL=DIR (variants of one design choice).
 
     git archive PARENT src/repro_torch/kernels/csrc | tar -x -C archive/parent
     python3 scripts/ab_engine.py archive/parent/src/repro_torch/kernels/csrc \
-        [--json PATH] [--only ENTRY,ENTRY,...]
+        [LABEL=DIR ...] [--json PATH] [--only ENTRY,ENTRY,...] [--ptxas NAME,...]
 
 Each case is an entry, a state, one call of its wrapper and the plain
 version to hold it against (:func:`cases`); a redesign of another entry
-adds its cases there.  Each case runs old, new, new, old (CUDA-event means
-over REPS launches, as ``chip_smoke.py`` times them); the two builds'
-outputs must be equal over the whole batch, and equal to the plain
-version on the first ``check`` keys.  Both builds must export the same
-entries with the same arguments.
+adds its cases there.  Each case runs old, new, new, old (with more
+builds: old, each LABEL in order, new, then back; CUDA-event means over
+REPS launches, as ``chip_smoke.py`` times them); every build's outputs
+must equal the old build's over the whole batch, and the plain version
+on the first ``check`` keys.  Every build must export the same entries
+with the same arguments.
 
 Prints one JSON line a case; ``--json PATH`` also writes them all to
 PATH; ``--only`` runs only the cases of the named entries, and builds only
-the states of their group (:data:`GROUPS`).  Needs a GPU and ``nvcc``.
+the states of their group (:data:`GROUPS`); ``--ptxas`` prints each
+build's ``ptxas -v`` lines of the kernels whose names hold one of the
+NAMEs.  Needs a GPU and ``nvcc``.
 """
 from __future__ import annotations
 
@@ -414,10 +418,36 @@ def anchor_sizes(smoke, keys_np, anchor):
                    lambda keys, a=args: engine.replica_plain("anchor", keys, *a), PREFIX)
 
 
+#: power_diff's epoch pairs (n_old, n_new): stable -> one-shot (top levels
+#: 19 -> 16), one removal at w = 10^6 and at one-shot's 10^5 (one level
+#: each), the band crossing 2^17 + 1 -> 2^17, and one n twice
+POWER_DIFF_PAIRS = ((cs.N, cs.N // 10), (cs.N, cs.N - 1), (cs.N // 10, cs.N // 10 - 1),
+                    (2**17 + 1, 2**17), (cs.N, cs.N))
+
+
+def power_cases(smoke, keys_np):
+    """``power_lookup`` stable (w = 10^6) and one-shot (w = 10^5, 90 %
+    removed), and ``power_diff`` on each pair of POWER_DIFF_PAIRS."""
+    ops = {}
+    for n in sorted({n for pair in POWER_DIFF_PAIRS for n in pair}):
+        ops[n] = smoke.operands(make_hash("power", n, variant="32"))[:2]
+    for name, n in (("stable", cs.N), ("one-shot", cs.N // 10)):
+        yield ("power_lookup", f"{name} n={n}",
+               lambda keys, t=ops[n]: engine.kernel_lookup("power", keys, *t),
+               lambda keys, t=ops[n]: engine.lookup_plain("power", keys, *t), None)
+    for old, new in POWER_DIFF_PAIRS:
+        e = (ops[old], ops[new])
+        yield ("power_diff", f"n={old} -> {new}",
+               lambda keys, e=e: engine.kernel_diff("power", keys, *e),
+               lambda keys, e=e: engine.diff_plain("power", keys, *e), None)
+
+
 def anchor_and_shared_cases(smoke, keys_np):
     """The AnchorHash entries' cases and the other entries that share
     ``replica_row`` (:func:`anchor_cases`, :func:`shared_walk_sets`,
-    :func:`anchor_sizes`)."""
+    :func:`anchor_sizes`), and PowerHash's lookup and diff
+    (:func:`power_cases`)."""
+    yield from power_cases(smoke, keys_np)
     anchor = dict(anchor_states(smoke))
     yield from anchor_cases(smoke, keys_np, anchor)
     yield from shared_walk_sets(smoke, keys_np, anchor)
@@ -492,6 +522,18 @@ def _head(out, check):
     return out[:check] if isinstance(out, torch.Tensor) else tuple(o[:check] for o in out)
 
 
+def _kernel_lines(ptxas: str, names: list[str]) -> list[str]:
+    """The ``ptxas -v`` lines (entry, registers, spills) of the kernels whose
+    mangled names hold one of ``names``."""
+    lines, keep = [], False
+    for line in ptxas.splitlines():
+        if "Compiling entry" in line:
+            keep = any(n in line for n in names)
+        if keep and ("Compiling entry" in line or "registers" in line or "spill" in line):
+            lines.append(line.strip())
+    return lines
+
+
 @contextlib.contextmanager
 def using(csrc: Path):
     """Within the block, the wrappers run the SOURCES of directory ``csrc``."""
@@ -505,9 +547,15 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("ab_engine: no CUDA device", file=sys.stderr)
         return 2
-    builds = {"old": Path(argv[1]), "new": build.CSRC}
+    flags = ("--json", "--only", "--ptxas")
+    dirs = [a for i, a in enumerate(argv[1:], 1)
+            if not a.startswith("--") and argv[i - 1] not in flags]
+    builds = {"old": Path(dirs[0]), **dict((label, Path(d)) for label, d in
+                                           (a.split("=", 1) for a in dirs[1:])),
+              "new": build.CSRC}
     out = Path(argv[argv.index("--json") + 1]) if "--json" in argv else None
     only = set(argv[argv.index("--only") + 1].split(",")) if "--only" in argv else None
+    ptxas = argv[argv.index("--ptxas") + 1].split(",") if "--ptxas" in argv else []
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
@@ -517,7 +565,9 @@ def main(argv: list[str]) -> int:
             built = build.build(list(SOURCES))
         print(f"built {label} in " + ", ".join(f"{n} {b.seconds:.1f} s"
                                                for n, b in built.items()), flush=True)
-    print(f"both built in {time.perf_counter() - t0:.1f} s", flush=True)
+        for line in _kernel_lines(built["engine"].ptxas, ptxas):
+            print(f"  ptxas {label}: {line}", flush=True)
+    print(f"all built in {time.perf_counter() - t0:.1f} s", flush=True)
     smoke = cs.Smoke(torch)
     keys_np, keys = smoke.keys()
     rows = []

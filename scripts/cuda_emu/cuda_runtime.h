@@ -21,6 +21,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __constant__
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 inline dim3 blockIdx, threadIdx, blockDim, gridDim;
 typedef void* cudaStream_t;

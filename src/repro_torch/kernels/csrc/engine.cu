@@ -69,6 +69,12 @@
 // (dx_replica_diff_group).  DxHash's probe remainder divides by a fixed a
 // with multiplies (fastmod).
 //
+// PowerHash does what a key needs only once a launch: its top level L and
+// mask are the host's (Power), and every salt's inner mix of hash2 is
+// a table the compiler builds into constant memory (kPowerMix), so a draw
+// is one fmix32.  A diff of two epochs of one L runs both lookups on one
+// top sequence and one descent (power_pair_diff_kernel).
+//
 // Memento's Alg. 4 reads repl(d) once: the inner loop's last read is the
 // next pass's (memento_from), one round trip a pass fewer than the
 // reference's loop.  A k = 1 Memento diff of two epochs of one n runs both
@@ -190,7 +196,15 @@
 // their first lookup queued in shared memory and stepped in full warps,
 // two barriers a round (256 lanes a block: stable -23.7 %, one-shot
 // -17.2 %; 512 and 1024 slower, 128 even with 256), which ROADMAP.md's
-// redesign queue holds for jump_walk and power_walk.
+// redesign queue holds for jump_walk and power_walk.  For power_lookup and
+// power_diff (stable n = 10^6, one-shot 10^5, against the top level made
+// once a launch), a key's draws after its first, or its descent alone,
+// spread over its warp's idle lanes: with o keys open, 32 / o lanes each
+// (rounded down to a power of two, restaged through shared memory as the
+// groups grow), the lowest draw that ends something taken by a ballot and
+// a shuffle (27 registers): lookups +42 to +57 %, diffs +35 to +62 %.  A
+// round compiled to about 100 instructions where one level costs about
+// 21, and a warp's deepest key descends only ~5.4 levels.
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -210,7 +224,7 @@ constexpr int32_t kReplicaSaltCap = 4096;  // repro_torch.core.protocol.REPLICA_
 constexpr int kThreads = 256;
 constexpr int32_t kEmpty = -1;  // repro_torch.core.packing.EMPTY
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+__host__ __device__ __forceinline__ constexpr uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
   h *= kC1;
   h ^= h >> 13;
@@ -381,27 +395,70 @@ __device__ __forceinline__ uint32_t fastmod(uint32_t x, uint64_t magic, uint32_t
                                 __umulhi(static_cast<uint32_t>(low), a)) >> 32);
 }
 
-// PowerHash level descent.  Top level L = floor(log2(n - 1)) by the shift
-// loop (n = 1 gives L = 0, and then every path ends at bucket 0).  The top
-// level redraws while v >= n, at most kPowerTryCap draws in all, and
-// accepts v in [2^L, n); otherwise one draw per full level j = L-1 .. 0
-// accepts v >= 2^j; past level 0 the bucket is 0.  n < 2^31 keeps L <= 30,
-// so every shift below is defined.
-__device__ __forceinline__ int32_t power_one(uint32_t key, int32_t n) {
-  int32_t L = 0;
-  while (((n - 1) >> (L + 1)) > 0) ++L;
-  const uint32_t hi_mask = (1u << (L + 1)) - 1u;
-  const uint32_t base = kPowerSalt + (static_cast<uint32_t>(L) << 6);
-  uint32_t v = hash2(key, base) & hi_mask;
-  for (int32_t t = 1; v >= static_cast<uint32_t>(n) && t < kPowerTryCap; ++t)
-    v = hash2(key, base + static_cast<uint32_t>(t)) & hi_mask;
-  if (v < static_cast<uint32_t>(n) && v >= (1u << L)) return static_cast<int32_t>(v);
+// PowerHash's operands for one n, made once a launch on the host
+// (power(n)): L = floor(log2(n - 1)) (0 at n <= 2, where every path below
+// 2^L ends at bucket 0) and the top level's mask 2^(L+1) - 1.  n < 2^31
+// keeps L <= 30, so every shift below is defined.  operator() is the
+// lookup (defined below).
+struct Power {
+  int32_t n, L;
+  uint32_t hi_mask;
+  __device__ int32_t operator()(uint32_t key) const;
+};
+
+// hash2's inner mix fmix32(seed * kGolden32 + 1) of every PowerHash salt
+// kPowerSalt + i, i < 31 * 64: top draw t of level L is i = (L << 6) + t,
+// descent level j is i = j << 6.  Built by the compiler into constant
+// memory, so a draw is one load, a xor and one fmix32; the loads of a
+// launch's top level and of one level are the same for every lane.
+struct PowerMixes {
+  uint32_t v[31 * 64];
+};
+constexpr PowerMixes power_mixes() {
+  PowerMixes m{};
+  for (uint32_t i = 0; i < 31 * 64; ++i) m.v[i] = fmix32((kPowerSalt + i) * kGolden32 + 1u);
+  return m;
+}
+__constant__ PowerMixes kPowerMix = power_mixes();
+
+// hash2(key, kPowerSalt + i), its inner mix read from kPowerMix.
+__device__ __forceinline__ uint32_t power_hash(uint32_t key, uint32_t i) {
+  return fmix32(key ^ kPowerMix.v[i]);
+}
+
+// Top-level draw t of `key`: hash2(key, kPowerSalt + (L << 6) + t) &
+// hi_mask; it ends the top level when it is below n.
+__device__ __forceinline__ uint32_t power_top(uint32_t key, const Power& p, int32_t t) {
+  return power_hash(key, (static_cast<uint32_t>(p.L) << 6) + static_cast<uint32_t>(t)) &
+         p.hi_mask;
+}
+
+// Descent level j of `key`: hash2(key, kPowerSalt + (j << 6)) & (2^(j+1) -
+// 1); the level takes it when it is at least 2^j.  The draws depend on
+// (key, j) alone, not on n.
+__device__ __forceinline__ uint32_t power_level(uint32_t key, int32_t j) {
+  return power_hash(key, static_cast<uint32_t>(j) << 6) & ((2u << j) - 1u);
+}
+
+// The descent from level L - 1: the first level j = L-1 .. 0 whose draw is
+// at least 2^j, else bucket 0.
+__device__ __forceinline__ int32_t power_descent(uint32_t key, int32_t L) {
   for (int32_t j = L - 1; j >= 0; --j) {
-    const uint32_t c = hash2(key, kPowerSalt + (static_cast<uint32_t>(j) << 6)) &
-                       ((1u << (j + 1)) - 1u);
+    const uint32_t c = power_level(key, j);
     if (c >= (1u << j)) return static_cast<int32_t>(c);
   }
   return 0;
+}
+
+// PowerHash level descent, one thread a key.  The top level redraws while
+// v >= n, at most kPowerTryCap draws in all, and accepts v in [2^L, n);
+// otherwise the key descends.
+__device__ __forceinline__ int32_t Power::operator()(uint32_t key) const {
+  uint32_t v = power_top(key, *this, 0);
+  for (int32_t t = 1; v >= static_cast<uint32_t>(n) && t < kPowerTryCap; ++t)
+    v = power_top(key, *this, t);
+  if (v < static_cast<uint32_t>(n) && v >= (1u << L)) return static_cast<int32_t>(v);
+  return power_descent(key, L);
 }
 
 // One epoch's operands per algorithm; operator() is that epoch's lookup.
@@ -440,10 +497,6 @@ struct Dx {
 struct Jump {
   int32_t n;
   __device__ int32_t operator()(uint32_t key) const { return jump32(key, n); }
-};
-struct Power {
-  int32_t n;
-  __device__ int32_t operator()(uint32_t key) const { return power_one(key, n); }
 };
 
 template <class Body>
@@ -512,6 +565,38 @@ __global__ void dx_group_diff_kernel(const uint32_t* __restrict__ keys,
     new_out[k] = w;
     moved[k] = o != w;
   }
+}
+
+// power_diff of two epochs of one top level L: both draw the same top
+// sequence, the epoch of the larger n stops at or before the other, and
+// the descent's draws depend on the key alone.  So one top sequence runs
+// until v < max(n) fixes that epoch's top, then on until v < min(n) (or the
+// cap) fixes the other's, and one descent serves whichever epochs descend.
+__global__ void power_pair_diff_kernel(const uint32_t* __restrict__ keys,
+                                       int32_t* __restrict__ old_out,
+                                       int32_t* __restrict__ new_out,
+                                       int32_t* __restrict__ moved, int64_t count,
+                                       Power po, Power pn) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const uint32_t key = keys[i];
+  const uint32_t hi = static_cast<uint32_t>(po.n > pn.n ? po.n : pn.n);
+  const uint32_t lo = static_cast<uint32_t>(po.n > pn.n ? pn.n : po.n);
+  uint32_t v = power_top(key, po, 0);
+  int32_t t = 1;
+  for (; v >= hi && t < kPowerTryCap; ++t) v = power_top(key, po, t);
+  const uint32_t vh = v;
+  for (; v >= lo && t < kPowerTryCap; ++t) v = power_top(key, po, t);
+  const bool top_hi = vh < hi && vh >= (1u << po.L);
+  const bool top_lo = v < lo && v >= (1u << po.L);
+  const int32_t d = top_hi && top_lo ? 0 : power_descent(key, po.L);
+  const int32_t bh = top_hi ? static_cast<int32_t>(vh) : d;
+  const int32_t bl = top_lo ? static_cast<int32_t>(v) : d;
+  const int32_t o = po.n > pn.n ? bh : bl;
+  const int32_t b = po.n > pn.n ? bl : bh;
+  old_out[i] = o;
+  new_out[i] = b;
+  moved[i] = o != b;
 }
 
 // The two epochs of a diff may differ in type (packed slots of another
@@ -913,6 +998,20 @@ int launch_diff(const void* keys, void* old_out, void* new_out, void* moved,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Two PowerHash epochs of one top level share each key's draws
+// (power_pair_diff_kernel); of two levels they share nothing, and
+// diff_kernel runs them one after the other.
+int launch_power_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                      long long count, Power po, Power pn, void* stream) {
+  if (po.L != pn.L)
+    return launch_diff(keys, old_out, new_out, moved, count, po, pn, stream);
+  power_pair_diff_kernel<<<blocks_for(count), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
+      static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count, po, pn);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class Body>
 int launch_replica(const void* keys, void* out, long long count, int k, const void* load,
                    int cap, Body body, void* stream) {
@@ -1011,6 +1110,11 @@ MementoT<CompactRepl> memento_compact(const void* slot_b, const void* slot_c, in
   return {{static_cast<const int32_t*>(slot_b), static_cast<const int32_t*>(slot_c),
            static_cast<uint32_t>(nslots) - 1u},
           n};
+}
+Power power(int n) {
+  int32_t L = 0;
+  while (((n - 1) >> (L + 1)) > 0) ++L;
+  return {n, L, (2u << L) - 1u};
 }
 template <class T = int32_t>
 AnchorT<T> anchor(const void* A, const void* K, int a) {
@@ -1115,13 +1219,13 @@ int jump_diff(const void* keys, void* old_out, void* new_out, void* moved,
 }
 
 int power_lookup(const void* keys, void* out, long long count, int n, void* stream) {
-  return launch_lookup(keys, out, count, Power{n}, stream);
+  return launch_lookup(keys, out, count, power(n), stream);
 }
 
 int power_diff(const void* keys, void* old_out, void* new_out, void* moved,
                long long count, int n_old, int n_new, void* stream) {
-  return launch_diff(keys, old_out, new_out, moved, count, Power{n_old}, Power{n_new},
-                     stream);
+  return launch_power_diff(keys, old_out, new_out, moved, count, power(n_old), power(n_new),
+                           stream);
 }
 
 int memento_replica(const void* keys, void* out, long long count, int k,
@@ -1248,20 +1352,20 @@ int jump_walk(const void* chain, const void* probe, const void* pending, void* b
 
 int power_replica(const void* keys, void* out, long long count, int k, const void* load,
                   int cap, int n, void* stream) {
-  return launch_replica(keys, out, count, k, load, cap, Power{n}, stream);
+  return launch_replica(keys, out, count, k, load, cap, power(n), stream);
 }
 
 int power_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
                        long long count, int k, int n_old, int n_new, void* stream) {
-  return launch_replica_diff(keys, old_out, new_out, moved, count, k, Power{n_old},
-                             Power{n_new}, stream);
+  return launch_replica_diff(keys, old_out, new_out, moved, count, k, power(n_old),
+                             power(n_new), stream);
 }
 
 int power_walk(const void* chain, const void* probe, const void* pending, void* b,
                void* chain_out, void* probe_out, long long count, const void* load,
                int cap, int max_probe, int n, void* stream) {
   return launch_walk(chain, probe, pending, b, chain_out, probe_out, count, load, cap,
-                     max_probe, Power{n}, stream);
+                     max_probe, power(n), stream);
 }
 
 int memento_packed_lookup(const void* keys, void* out, long long count, const void* state,

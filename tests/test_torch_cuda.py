@@ -1525,3 +1525,75 @@ def test_delta_apply_kernels_at_both_forms_edges(dev, dtype):
             assert torch.equal(out, da.delta_apply_plain(table, meta, count)), (length, count)
             assert (out.cpu().numpy().astype(np.int64) == want).all(), (length, count)
             assert (table.cpu().numpy().astype(np.int64) == base).all()
+
+
+POWER_KEYS = np.concatenate([
+    np.asarray([0, 1, 2**31 - 1, 2**31, 2**32 - 1], np.uint32),
+    np.random.default_rng(31).integers(0, 2**32, size=2**16, dtype=np.uint32)])
+POWER_COUNTS = (1, 31, 33, 1000, 2**16 + 5)
+#: n = 1, 2, 3 and each side of the top level's band edges 2^7, 2^16, 2^20
+POWER_NS = [1, 2, 3] + [2**k + d for k in (7, 16, 20) for d in (-1, 0, 1)]
+#: power_diff's epoch pairs: one top level (n_old = n_new among them), one
+#: band edge crossed, and several
+POWER_PAIRS = {
+    "equal level": [(10**6, 10**6 - 1), (10**5, 10**5 - 1), (1000, 600), (600, 1000),
+                    (1000, 1000), (2, 1), (1, 1), (2**20 + 1, 2**21)],
+    "one band edge": [(2**17 + 1, 2**17), (2**16, 2**16 + 1), (3, 2)],
+    "several band edges": [(10**6, 10**5), (2**20 + 1, 3), (5, 2**16 - 1)],
+}
+
+
+def _power_host(n: int, keys: torch.Tensor) -> torch.Tensor:
+    """``power32`` of ``keys`` at ``n`` on the host (the plain version on
+    CPU tensors)."""
+    from repro_torch.kernels.primitives import as_u32, power32
+
+    return power32(as_u32(keys.cpu()), n).to(torch.int32)
+
+
+@pytest.mark.parametrize("n", POWER_NS)
+def test_power_lookup_kernel_at_band_edges_and_key_counts(dev, n):
+    """``power_lookup`` at n = 1, 2, 3 and on each side of the band edges
+    2^7, 2^16, 2^20 (where the top level L changes), at key counts 1, 31, 33
+    (a partial warp), 1000 and 2^16 + 5: one launch a call, equal to its
+    plain version on the card, to ``power32`` on the host and, on 64 keys,
+    to the host's lookup."""
+    h = make_hash("power", n, variant="32")
+    tables, scalars = _operands(h, dev)
+    keys = engine.key_tensor(POWER_KEYS, dev)
+    want = _power_host(n, keys)
+    assert torch.equal(engine.lookup_plain("power", keys, tables, scalars).cpu(), want)
+    assert want[:64].tolist() == [h.lookup(int(k)) for k in POWER_KEYS[:64]]
+    for count in POWER_COUNTS:
+        before = engine.LAUNCHES["power_lookup"]
+        out = engine.kernel_lookup("power", keys[:count], tables, scalars)
+        torch.cuda.synchronize()
+        assert engine.LAUNCHES["power_lookup"] == before + 1
+        assert torch.equal(out.cpu(), want[:count]), count
+
+
+@pytest.mark.parametrize("kind, pair", [(kind, pair) for kind, pairs in POWER_PAIRS.items()
+                                        for pair in pairs])
+def test_power_diff_kernel_at_equal_and_crossing_levels(dev, kind, pair):
+    """``power_diff`` of two epochs of one top level (the pair kernel: one
+    draw sequence and one descent for both), across one band edge and
+    across several, at key counts 1, 31, 33, 1000 and 2^16 + 5: one launch
+    a call, equal to its plain version on the card and to each epoch's
+    ``power32`` on the host."""
+    n_old, n_new = pair
+    old = _operands(make_hash("power", n_old, variant="32"), dev)
+    new = _operands(make_hash("power", n_new, variant="32"), dev)
+    keys = engine.key_tensor(POWER_KEYS, dev)
+    o, w = _power_host(n_old, keys), _power_host(n_new, keys)
+    plain = engine.diff_plain("power", keys, old, new)
+    for got, want in zip(plain, (o, w, o != w)):
+        assert torch.equal(got.cpu(), want)
+    for count in POWER_COUNTS:
+        before = engine.LAUNCHES["power_diff"]
+        got = engine.kernel_diff("power", keys[:count], old, new)
+        torch.cuda.synchronize()
+        assert engine.LAUNCHES["power_diff"] == before + 1
+        for g, want in zip(got, (o, w, o != w)):
+            assert torch.equal(g.cpu(), want[:count]), (kind, count)
+    if n_old == n_new:
+        assert not (o != w).any()
