@@ -48,7 +48,13 @@
    ``dx_replica``'s and ``dx_walk``'s lane groups are logged from the
    library; ``memento_walk``'s lookup rounds and lane lookups a warp (a
    model over the plain walk's steps) at one step a round and with a
-   look-ahead of 2, 4 and 32 steps, and ``jump_walk``'s the same; then
+   look-ahead of 2, 4 and 32 steps, and ``jump_walk``'s the same;
+   ``anchor_replica_diff`` on both of its branches, stable -> one-shot
+   (epochs that nest: one walk through the one-shot epoch's tables) and
+   a pair whose removal stacks part (remove x, restore it, remove y: two
+   walks), each with the branch its check took and the check's own time;
+   ``anchor_walk`` also with every lane pending, beside its warp and slot
+   model (``walk_slots``: one thread a lane); then
    the card's random-word rate
    (``torch.index_select`` of 2^24 random int32 words from tables of 4 to
    128 MB, a yardstick no entry calls) beside each AnchorHash entry's words
@@ -220,6 +226,11 @@ GATHER_TABLE_MB = (4, 16, 32, 48, 64, 128)  # phase 5: the probe's table sizes (
 # engine.cu's header lists among the designs that lost, for the walks' warp
 # models
 WALK_LOOKAHEAD_STEPS = (2, 4, 32)
+# phase 5: walk_kernel's lanes a block (engine.cu's kThreads), for anchor_walk's model
+WALK_BLOCK = 256
+# anchor_replica_diff's check (anchor_nest_kernel), per bucket: the two A
+# loads 2, their tests and the least and largest 4, the K test 2 = 8
+OPS_PER_NEST_BUCKET = 8
 # PowerHash's warp model (power_rounds): ALGO_OPS["power"] with every draw
 # hashed in full (hash2 18 where the kept kernel loads the salt's mix, 10),
 # as PR 24's kernel and the top level made once a launch ran them
@@ -485,6 +496,88 @@ def walk_rounds(steps, probe, max_probe: int, s_max: int) -> tuple[float, float]
     return rounds / rem.shape[0], lookups / rem.shape[0]
 
 
+def anchor_lookup_trips(keys, A, K, a: int):
+    """Each key's AnchorHash lookup as ``anchor_one`` runs it: its bucket and
+    the dependent round trips it waits for, 1 + 2 passes + 2 successor
+    reads (A of the start; A[h] of each pass and A[b] again at its end; K
+    then A of each successor).  A model over the tables, not a device
+    count."""
+    import torch
+
+    from repro_torch.kernels.primitives import fmix32, gather1d, hash2
+
+    b = fmix32(keys) % a
+    Ab = gather1d(A, b)
+    trips = torch.ones_like(keys)
+    active = Ab > 0
+    while bool(active.any()):
+        trips += 2 * active
+        h = hash2(keys, b) % torch.where(active, Ab, 1)
+        follow = active & (gather1d(A, h) >= Ab)
+        while bool(follow.any()):
+            trips += 2 * follow
+            h = torch.where(follow, gather1d(K, h), h)
+            follow = active & (gather1d(A, h) >= Ab)
+        b = torch.where(active, h, b)
+        Ab = gather1d(A, b)
+        active = Ab > 0
+    return b, trips
+
+
+def walk_step_trips(chain, probe, pending, load, cap: int, trips_of):
+    """The dependent round trips of each lane's first lookup and of each of
+    its steps in a chain-walk step as ``walk_kernel`` runs it: a pending
+    lane reads load[b] after each lookup, and a step is a lookup and that
+    read.  ``trips_of(keys)`` gives each key's (bucket, round trips).
+    Returns an int64 [lanes, 1 + most steps] tensor, 0 past a lane's last
+    step.  A model over the tables, not a device count."""
+    import torch
+
+    from repro_torch.core.bounded import walk_probe_bound
+    from repro_torch.kernels.primitives import as_u32, gather1d, hash2
+
+    max_probe = walk_probe_bound(load.numel())
+    keys = as_u32(chain)
+    b, first = trips_of(keys)
+    cols = [first + pending.long()]
+    lanes = torch.nonzero(pending).reshape(-1)
+    ch, pr, bb = keys[lanes], probe[lanes].long(), b[lanes]
+    while True:
+        go = (gather1d(load, bb) >= cap) & (pr < max_probe)
+        lanes, pr = lanes[go], pr[go] + 1
+        if not lanes.numel():
+            break
+        ch = hash2(ch[go], pr)
+        bb, t = trips_of(ch)
+        col = torch.zeros_like(first)
+        col[lanes] = t + 1
+        cols.append(col)
+    return torch.stack(cols, dim=1)
+
+
+def walk_slots(trips, block: int = WALK_BLOCK) -> dict:
+    """A walk step's cost as ``walk_kernel`` runs it, each thread one lane
+    to its end (a warp runs its open lanes' steps, waiting for its
+    slowest), ``block`` lanes a block, from ``trips``
+    (:func:`walk_step_trips`; 32 and ``block`` consecutive lanes a warp and
+    a block).  "rounds": lookup rounds a warp runs, and "lookups": lane
+    lookups, each per warp; "slot": the round trips a block holds its SM
+    slots (its slowest lane's sum), a block's mean; "lookup slot": the same
+    of the first lookups alone (a lookup kernel's).  A model, not a device
+    count."""
+    import torch
+
+    steps = (trips[:, 1:] > 0).sum(dim=1)
+    pad = -steps.numel() % block
+    s = torch.nn.functional.pad(steps, (0, pad))
+    tb = torch.nn.functional.pad(trips, (0, 0, 0, pad)).reshape(-1, block, trips.shape[1])
+    warps = s.numel() // 32
+    return {"rounds": float((1 + s.reshape(-1, 32).amax(dim=1)).sum()) / warps,
+            "lookups": float(steps.numel() + steps.sum()) / warps,
+            "slot": float(tb.sum(dim=2).amax(dim=1).double().mean()),
+            "lookup slot": float(tb[:, :, 0].amax(dim=1).double().mean())}
+
+
 def power_level_of(n: int) -> int:
     """PowerHash's top level L = floor(log2(n - 1)), 0 at n <= 2."""
     return max(0, (n - 1).bit_length() - 1)
@@ -592,18 +685,24 @@ def main() -> int:
 
 def log_rule2_order(kernels: list[dict]) -> None:
     """The order in which to redesign the kernels: first those slower
-    than the PyTorch call that computes the same function, then the rest
-    by launches on their path x (time - bound), largest first."""
+    than the PyTorch call that computes the same function, then those below
+    half of their bound by launches on their path x (time - bound), largest
+    first; an entry that reaches half of its bound and is no slower than a
+    library call is left alone."""
     def slower(k):
         return k["library_ms"] is not None and k["ms"] > k["library_ms"]
 
-    order = sorted(kernels, key=lambda k: (not slower(k),
-                                           -k["launches"] * (k["ms"] - k["bound_ms"])))
-    log("redesign order (slower than a library call first, then launches x "
-        "(ms - bound_ms)): " + ", ".join(
+    todo = [k for k in kernels if slower(k) or k["bound_ms"] < 0.5 * k["ms"]]
+    order = sorted(todo, key=lambda k: (not slower(k),
+                                        -k["launches"] * (k["ms"] - k["bound_ms"])))
+    log("redesign order (slower than a library call first, then those below half of "
+        "their bound by launches x (ms - bound_ms)): " + ", ".join(
             f"{k['name']} ({'slower than library, ' if slower(k) else ''}"
             f"{k['launches']} x ({k['ms']:.6f} - {k['bound_ms']:.6f}) = "
-            f"{k['launches'] * (k['ms'] - k['bound_ms']):.6f} ms)" for k in order))
+            f"{k['launches'] * (k['ms'] - k['bound_ms']):.6f} ms, "
+            f"{k['bound_ms'] / k['ms']:.1%} of the bound)" for k in order)
+        + "; left alone (half of the bound or more): " + ", ".join(
+            f"{k['name']} ({k['bound_ms'] / k['ms']:.1%})" for k in kernels if k not in todo))
 
 
 class Smoke:
@@ -1605,6 +1704,11 @@ class Smoke:
         probe = np.zeros(KEYS, np.int32)
         run["walk_in"] = (keys_np, probe, pending, load_t, cap)
         run["walk"] = engine.engine_chain_walk(keys_np, probe, pending, oneshot, load_t, cap)
+        if algo == "anchor":  # the replica diff's two-walk branch; every lane pending
+            run["diverge_in"] = self.diverging_pair(h)
+            run["diverge"] = engine.engine_diff(keys, *run["diverge_in"], k=REPLICAS_K)
+            run["walk_all"] = engine.engine_chain_walk(keys_np, probe, np.ones(KEYS, bool),
+                                                       oneshot, load_t, cap)
         torch.cuda.synchronize()
         full = float((load >= cap).sum()) / h.working
         log(f"path {algo}: k={REPLICAS_K} sets stable and one-shot; bounded_assign of "
@@ -1614,6 +1718,19 @@ class Smoke:
             f"one-shot moved {run['diff'].num_moved}; walk step on "
             f"{int(pending.sum())} pending lanes")
         return run
+
+    def diverging_pair(self, h):
+        """Two images on the card whose removal stacks part after ``h``'s:
+        ``h`` with a working bucket x removed, and with x restored and
+        another bucket y removed; ``h`` is left as it was."""
+        x, y = (int(b) for b in self.rng.choice(sorted(h.working_set()), 2, replace=False))
+        h.remove(x)
+        old = self.on_card(h.device_image())
+        h.add()
+        h.remove(y)
+        new = self.on_card(h.device_image())
+        h.add()
+        return old, new
 
     def host_walk(self, h, chain: int, probe: int, pending: bool, load, cap: int):
         """The host's chain-walk step of one lane."""
@@ -1738,18 +1855,19 @@ class Smoke:
             raise AssertionError(f"{algo}_replica_diff: kernel != plain / replica sets ({e})")
         ms = self.time_ms(lambda: engine.kernel_replica_diff(algo, keys, REPLICAS_K, old, new),
                           reps=10, warmup=1)
-        both = {k: works["stable"].get(k, 0) + works["oneshot"].get(k, 0)
-                for k in set(works["stable"]) | set(works["oneshot"])}
-        ops = (self.mode_ops(algo, works["stable"], KEYS, old[1][0], REPLICAS_K)
-               + self.mode_ops(algo, works["oneshot"], KEYS, new[1][0], REPLICAS_K)
-               + 2 * REPLICAS_K * KEYS - self.pair_shared_ops(
-                   algo, keys, [works["stable"], works["oneshot"]], old, new, "dense"))
-        diff = {f"stable -> oneshot k={REPLICAS_K}": entry(
-            f"replica_diff stable -> oneshot, moved {d.num_moved}", e, ms, plain_ms, ops,
-            4 * KEYS * (2 + 2 * REPLICAS_K) + tbytes["stable"] + tbytes["oneshot"], both)}
         if algo == "anchor":
-            self.anchor_reads[f"anchor_replica_diff stable -> oneshot k={REPLICAS_K}"] = (
-                anchor_words(both, 2 * KEYS), tbytes["stable"] + tbytes["oneshot"], ms)
+            diff = self.anchor_replica_diff_branches(run, ops_of, tbytes, (e, ms, plain_ms),
+                                                     entry, err)
+        else:
+            both = {k: works["stable"].get(k, 0) + works["oneshot"].get(k, 0)
+                    for k in set(works["stable"]) | set(works["oneshot"])}
+            ops = (self.mode_ops(algo, works["stable"], KEYS, old[1][0], REPLICAS_K)
+                   + self.mode_ops(algo, works["oneshot"], KEYS, new[1][0], REPLICAS_K)
+                   + 2 * REPLICAS_K * KEYS - self.pair_shared_ops(
+                       algo, keys, [works["stable"], works["oneshot"]], old, new, "dense"))
+            diff = {f"stable -> oneshot k={REPLICAS_K}": entry(
+                f"replica_diff stable -> oneshot, moved {d.num_moved}", e, ms, plain_ms, ops,
+                4 * KEYS * (2 + 2 * REPLICAS_K) + tbytes["stable"] + tbytes["oneshot"], both)}
 
         # {algo}_walk on a mixed pending mask
         chain_np, probe_np, pending_np, load_t, cap = run["walk_in"]
@@ -1777,6 +1895,9 @@ class Smoke:
             self.anchor_reads[f"anchor_walk oneshot cap={cap}"] = (
                 anchor_words(work, KEYS, int(pending_np.sum()) + work.get("walk", 0)),
                 tbytes["oneshot"] + 4 * load_t.numel(), ms)
+            walk[f"oneshot cap={cap} every lane pending"] = self.anchor_walk_all(
+                run, chain, probe, tables, scalars, load_t, cap, tbytes, entry, err)
+            self.anchor_walk_model(chain, probe, pending, tables, scalars, load_t, cap)
         if algo in ("memento", "jump"):
             self.walk_model(algo, probe, pending, plain[2], load_t.numel(), work)
         log(f"check {algo}: {KERNEL_SAMPLE} keys of the replica sets, the bounded sets and "
@@ -1784,6 +1905,124 @@ class Smoke:
         return [row("replica", replica, f"oneshot k={REPLICAS_K}"),
                 row("replica_diff", diff, f"stable -> oneshot k={REPLICAS_K}"),
                 row("walk", walk, f"oneshot cap={cap}")]
+
+    def anchor_replica_diff_branches(self, run, ops_of, tbytes, timed, entry,
+                                     err) -> dict:
+        """``anchor_replica_diff`` on both of its branches: the path's
+        stable -> one-shot diff (epochs that nest: one walk through the
+        one-shot epoch's tables; ``timed`` its max abs error, ms and plain
+        ms) and its diverging pair (:meth:`diverging_pair`: each epoch's
+        replica_row), the second held against its plain version and timed;
+        each with the branch its check took (read back from the call's own
+        workspace, and equal to the plain check's) and the check's own time.
+        The bound counts the check and, where the epochs nest, one walk
+        (the pair model's work, :func:`~repro_torch.kernels.engine.
+        anchor_pair_replica_diff_plain`; the two walks' bound is logged
+        beside it).  Each pair's words a key, the check's A and K words
+        included, go to the gather-rate line.  Returns both by-state
+        entries."""
+        from repro_torch.kernels import engine
+
+        keys = run["keys"]
+        names = {engine.NEST_NONE: "two walks (the epochs do not nest)",
+                 engine.NEST_OLD_SHALLOW: "one walk (the older epoch the shallower)",
+                 engine.NEST_NEW_SHALLOW: "one walk (the newer epoch the shallower)"}
+        pairs = [("stable -> oneshot", ops_of["stable"], ops_of["oneshot"], run["diff"],
+                  engine.NEST_OLD_SHALLOW, tbytes["stable"] + tbytes["oneshot"]),
+                 ("diverging pair", *(engine.image_operands(i) for i in run["diverge_in"]),
+                  run["diverge"], engine.NEST_NONE, 2 * tbytes["oneshot"])]
+        out = {}
+        for name, old, new, d, want, table_bytes in pairs:
+            if name == "stable -> oneshot":
+                e, ms, plain_ms = timed
+            else:
+                p, plain_ms = self.timed_plain(
+                    lambda: engine.replica_diff_plain("anchor", keys, REPLICAS_K, old, new))
+                e = max(err(d.old, p[0]), err(d.new, p[1]), int((d.moved != p[2]).sum()))
+                if e:
+                    raise AssertionError(f"anchor_replica_diff {name}: kernel != plain ({e})")
+                ms = self.time_ms(lambda: engine.kernel_replica_diff(
+                    "anchor", keys, REPLICAS_K, old, new), reps=10, warmup=1)
+            nest = engine.kernel_replica_diff("anchor", keys, REPLICAS_K, old, new,
+                                              with_nest=True)[3]
+            branch = tuple(nest.tolist())
+            alone = tuple(engine.anchor_nest_check(old, new).tolist())
+            if branch != engine.anchor_nest_plain(old, new) or branch != alone \
+                    or branch[0] != want:
+                raise AssertionError(f"anchor_replica_diff {name}: the check's verdict "
+                                     f"{branch} (alone {alone}), the plain check's "
+                                     f"{engine.anchor_nest_plain(old, new)}, want {want}")
+            check_ms = self.time_ms(lambda: engine.anchor_nest_check(old, new), reps=20)
+            a = old[1][0]
+            removed = int(((old[0][0][:a] > 0) | (new[0][0][:a] > 0)).sum())
+            check_words = 2 * a + 2 * removed  # both As, and both Ks where either removed
+            both: dict = {}
+            engine.replica_diff_plain("anchor", keys, REPLICAS_K, old, new, both)
+            walks_ops = self.mode_ops("anchor", both, 2 * KEYS, a, REPLICAS_K)
+            work = both
+            ops = walks_ops
+            if branch[0] != engine.NEST_NONE:
+                work = {}
+                engine.anchor_pair_replica_diff_plain(keys, REPLICAS_K, old, new, work)
+                ops = self.mode_ops("anchor", {**work, "compare": both.get("compare", 0)},
+                                    KEYS, a, 2 * REPLICAS_K)
+            extra = 2 * REPLICAS_K * KEYS + a * OPS_PER_NEST_BUCKET
+            nbytes = 4 * KEYS * (2 + 2 * REPLICAS_K) + table_bytes
+            walks_ms, _ = self.bound(walks_ops + extra, nbytes)
+            log(f"anchor_replica_diff {name} k={REPLICAS_K}: branch {branch[0]}, "
+                f"{names[branch[0]]}, N_S = {branch[1]}; the check alone {check_ms:.6f} ms "
+                f"({check_words / 1e6:.3f} M words: both As, both Ks at the {removed} "
+                f"buckets either epoch removed) of the call's {ms:.6f} ms; bound with two "
+                f"walks counted {walks_ms:.6f} ms")
+            self.anchor_reads[f"anchor_replica_diff {name} k={REPLICAS_K}"] = (
+                anchor_words(work, KEYS if work is not both else 2 * KEYS) + check_words,
+                table_bytes, ms)
+            out[f"{name} k={REPLICAS_K}"] = entry(
+                f"replica_diff {name} ({names[branch[0]]}), moved {d.num_moved}", e, ms,
+                plain_ms, ops + extra, nbytes, work)
+        return out
+
+    def anchor_walk_all(self, run, chain, probe, tables, scalars, load_t, cap: int, tbytes,
+                        entry, err) -> dict:
+        """``anchor_walk`` on the path's every-lane-pending step, against its
+        plain version and timed: its by-state entry."""
+        from repro_torch.kernels import engine
+
+        torch = self.torch
+        every = torch.ones_like(chain, dtype=torch.bool)
+        work: dict = {}
+        plain, plain_ms = self.timed_plain(lambda: engine.walk_plain(
+            "anchor", chain, probe, every, tables, scalars, load_t, cap, work))
+        b, ch, pr = run["walk_all"]
+        e = max(err(b, plain[0]), err(ch.view(self.np.int32), plain[1]), err(pr, plain[2]))
+        if e:
+            raise AssertionError(f"anchor_walk every lane pending: kernel != plain ({e})")
+        ms = self.time_ms(lambda: engine.kernel_walk("anchor", chain, probe, every, tables,
+                                                     scalars, load_t, cap), reps=10, warmup=1)
+        self.anchor_reads[f"anchor_walk oneshot cap={cap} every lane pending"] = (
+            anchor_words(work, KEYS, KEYS + work.get("walk", 0)),
+            tbytes["oneshot"] + 4 * load_t.numel(), ms)
+        return entry(f"walk ({KEYS} pending, {work.get('walk', 0)} steps)", e, ms, plain_ms,
+                     self.mode_ops("anchor", work, KEYS, scalars[0], walk=True),
+                     21 * KEYS + tbytes["oneshot"] + 4 * load_t.numel(), work)
+
+    def anchor_walk_model(self, chain, probe, pending, tables, scalars, load_t,
+                          cap: int) -> None:
+        """Log ``anchor_walk``'s warp and slot model (:func:`walk_slots`
+        over :func:`walk_step_trips`) on the path's mixed and every-lane
+        masks: lookup rounds and lane lookups a warp, and the round trips a
+        block holds its slots, of ``walk_kernel`` (one thread a lane)."""
+        (A, K), (a,) = tables, scalars
+        for label, mask in (("half the lanes", pending),
+                            ("every lane", self.torch.ones_like(pending))):
+            trips = walk_step_trips(chain, probe, mask, load_t, cap,
+                                    lambda k: anchor_lookup_trips(k, A, K, a)).cpu()
+            m = walk_slots(trips)
+            log(f"anchor_walk model, {label} pending ({int((trips[:, 1:] > 0).sum())} steps, "
+                f"{float(trips[:, 0].double().mean()):.4f} round trips a first lookup), "
+                f"{WALK_BLOCK} lanes a block: {m['rounds']:.4f} rounds and "
+                f"{m['lookups']:.4f} lane lookups a warp, slot {m['slot']:.4f} round trips "
+                f"a block; a lookup kernel's slot {m['lookup slot']:.4f}")
 
     def walk_model(self, algo: str, probe, pending, probe_out, load_len: int,
                    work: dict) -> None:

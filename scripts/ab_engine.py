@@ -133,14 +133,19 @@ def packed_pairs(smoke, states):
 
 def anchor_states(smoke):
     """AnchorHash at a = 4·10^6 on the card: stable (w = 10^6), one-shot
-    90 % (w = 10^5) and one removal later: (name, (tables, scalars, table
-    bytes, image, working))."""
+    90 % (w = 10^5), one removal later, and that removal restored and
+    another bucket removed (a stack that parts from the one before it):
+    (name, (tables, scalars, table bytes, image, working))."""
     h = make_hash("anchor", cs.N, capacity=cs.CAPACITY_FACTOR * cs.N, variant="32")
     yield "stable", (*smoke.operands(h), h.working)
     smoke.remove_fraction(h, cs.ONESHOT_FRACTION)
     yield "one-shot", (*smoke.operands(h), h.working)
-    h.remove(int(smoke.rng.choice(sorted(h.working_set()))))
+    x, y = (int(b) for b in smoke.rng.choice(sorted(h.working_set()), 2, replace=False))
+    h.remove(x)
     yield "one-shot + 1 removal", (*smoke.operands(h), h.working)
+    h.add()
+    h.remove(y)
+    yield "one-shot + another removal", (*smoke.operands(h), h.working)
 
 
 def anchor_small_states(smoke):
@@ -160,9 +165,14 @@ def anchor_cases(smoke, keys_np, anchor):
     """The cases of the entries that share ``anchor_one``, beyond the
     replica sets' (:func:`shared_walk_sets`): ``anchor_lookup`` stable and
     one-shot at a = 4·10^6, ``anchor_diff`` stable -> one-shot and one-shot
-    -> one removal later, ``anchor_walk`` one-shot (half the lanes pending,
-    ``bounded_assign``'s load and cap) and ``anchor_packed_lookup`` at int16
-    and int8."""
+    -> one removal later, ``anchor_walk`` one-shot (half the lanes and every
+    lane pending, ``bounded_assign``'s load and cap, each beside its warp
+    and slot model), ``anchor_replica_diff`` k = 3 from one-shot back to
+    stable (a restore: the newer epoch the shallower) and between two
+    one-shot states whose stacks part (two walks), each beside its check's
+    verdict and words a key (also printed for stable -> one-shot, whose case
+    is :func:`shared_walk_sets`'), and ``anchor_packed_lookup`` and
+    ``anchor_packed_walk`` (half the lanes pending) at int16 and int8."""
     for name in ("stable", "one-shot"):
         yield ("anchor_lookup", name,
                lambda keys, t=anchor[name][:2]: engine.kernel_lookup("anchor", keys, *t),
@@ -175,17 +185,71 @@ def anchor_cases(smoke, keys_np, anchor):
     tables, scalars, _, img, working = anchor["one-shot"]
     walk = (tables, scalars, *_bounded_load(smoke, keys_np, img, working))
     probe = torch.zeros(cs.KEYS, dtype=torch.int32, device=smoke.dev)
-    pending = torch.from_numpy(smoke.rng.random(cs.KEYS) < 0.5).to(smoke.dev)
-    yield ("anchor_walk", f"one-shot cap={walk[3]}",
-           lambda keys: engine.kernel_walk("anchor", keys, probe[:len(keys)],
-                                           pending[:len(keys)], *walk),
-           lambda keys: engine.walk_plain("anchor", keys, probe[:len(keys)],
-                                          pending[:len(keys)], *walk), PREFIX)
+    mixed = torch.from_numpy(smoke.rng.random(cs.KEYS) < 0.5).to(smoke.dev)
+    chain = engine.key_tensor(keys_np, smoke.dev)
+    for label, pending in (("half the lanes", mixed),
+                           ("every lane", torch.ones_like(mixed))):
+        anchor_walk_model(chain, probe, pending, walk, label)
+        yield ("anchor_walk", f"one-shot cap={walk[3]}, {label} pending",
+               lambda keys, p=pending: engine.kernel_walk("anchor", keys, probe[:len(keys)],
+                                                          p[:len(keys)], *walk),
+               lambda keys, p=pending: engine.walk_plain("anchor", keys, probe[:len(keys)],
+                                                         p[:len(keys)], *walk), PREFIX)
+    for old, new in (("stable", "one-shot"), ("one-shot", "stable"),
+                     ("one-shot + 1 removal", "one-shot + another removal")):
+        e = (anchor[old][:2], anchor[new][:2])
+        anchor_pair_model(keys_np, *e, f"{old} -> {new}")
+        if old == "stable":
+            continue  # that case is shared_walk_sets'
+        yield ("anchor_replica_diff", f"{old} -> {new} k={cs.REPLICAS_K}",
+               lambda keys, e=e: engine.kernel_replica_diff("anchor", keys, cs.REPLICAS_K, *e),
+               lambda keys, e=e: engine.replica_diff_plain("anchor", keys, cs.REPLICAS_K, *e),
+               PREFIX)
     for name, img in anchor_small_states(smoke):
         t = engine.image_operands(img)
         yield ("anchor_packed_lookup", name,
                lambda keys, t=t: engine.kernel_lookup("anchor", keys, *t, table="packed"),
                lambda keys, t=t: engine.lookup_plain("anchor", keys, *t, table="packed"), None)
+        w = (*t, *_bounded_load(smoke, keys_np, img, _working(img)))
+        yield ("anchor_packed_walk", f"{name} cap={w[3]}, half the lanes pending",
+               lambda keys, w=w: engine.kernel_walk("anchor", keys, probe[:len(keys)],
+                                                    mixed[:len(keys)], *w, table="packed"),
+               lambda keys, w=w: engine.walk_plain("anchor", keys, probe[:len(keys)],
+                                                   mixed[:len(keys)], *w, table="packed"),
+               None)
+
+
+def anchor_walk_model(chain, probe, pending, walk, label: str) -> None:
+    """Print ``anchor_walk``'s warp and slot model (``chip_smoke.walk_slots``)
+    of this case: lookup rounds a warp and the round trips a block holds
+    its slots, one thread a lane."""
+    (A, K), (a,), load, cap = walk
+    trips = cs.walk_step_trips(chain, probe, pending, load, cap,
+                               lambda k: cs.anchor_lookup_trips(k, A, K, a)).cpu()
+    print(f"anchor_walk model, {label} pending, {cs.WALK_BLOCK} lanes a block: "
+          + json.dumps(cs.walk_slots(trips)), flush=True)
+
+
+def anchor_pair_model(keys_np, old, new, label: str) -> None:
+    """Print ``anchor_replica_diff``'s check verdict (the plain check) and
+    the words a key of its walks (``chip_smoke.anchor_words``): the pair
+    model's one walk where the epochs nest, each epoch's walk where they do
+    not, over the first PREFIX keys."""
+    keys = engine.key_tensor(keys_np[:PREFIX], old[0][0].device)
+    verdict = engine.anchor_nest_plain(old, new)
+    work: dict = {}
+    if verdict[0] == engine.NEST_NONE:
+        engine.replica_diff_plain("anchor", keys, cs.REPLICAS_K, old, new, work)
+    else:
+        engine.anchor_pair_replica_diff_plain(keys, cs.REPLICAS_K, old, new, work)
+    print(f"anchor_replica_diff {label}: check {verdict}; "
+          f"{cs.anchor_words(work, PREFIX) / PREFIX:.4f} words a key in its walks "
+          f"({ {k: round(v / PREFIX, 4) for k, v in work.items()} } a key)", flush=True)
+
+
+def _working(img) -> int:
+    """The working buckets of an AnchorHash image: those with A = 0."""
+    return int((img.arrays["A"][:img.n] == 0).sum())
 
 
 def _bounded_load(smoke, keys_np, img, working):

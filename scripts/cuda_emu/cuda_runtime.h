@@ -30,6 +30,7 @@ enum cudaMemcpyKind { cudaMemcpyDeviceToDevice = 3 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 inline cudaError_t cudaMemcpyAsync(void* d, const void* s, size_t n, cudaMemcpyKind, cudaStream_t) { std::memmove(d, s, n); return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* d, int v, size_t n, cudaStream_t) { std::memset(d, v, n); return cudaSuccess; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
@@ -162,6 +163,16 @@ T __shfl_sync(unsigned mask, T var, int src, int width = 32) {
 }
 
 inline void __syncthreads() { emu::wait(emu::block, blockDim.x); }
+
+// A fiber runs alone until it meets a collective or a barrier, so a plain
+// read-modify-write is atomic among the threads; blocks run in turn, so a
+// block's shared array (static) is its own while it runs.
+#define __shared__ static
+inline void __threadfence() {}
+template <class T> T atomicAdd(T* p, T v) { const T old = *p; *p = old + v; return old; }
+template <class T> T atomicMin(T* p, T v) { const T old = *p; *p = v < old ? v : old; return old; }
+template <class T> T atomicMax(T* p, T v) { const T old = *p; *p = v > old ? v : old; return old; }
+template <class T> T atomicOr(T* p, T v) { const T old = *p; *p = old | v; return old; }
 
 template <class K, class... A>
 void emu_launch(dim3 g, dim3 b, K k, A... a) {

@@ -15,23 +15,42 @@ import contextlib
 import ctypes
 import importlib
 import os
+import threading
 import types
 
 import torch
 
 _libs: dict = {}
+_one_at_a_time = threading.Lock()
+
+
+class _Serial:
+    """A built library whose entries run one call at a time: an emulated
+    launch keeps its grid and its fibers in globals, so two host threads
+    must not launch at once."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+
+        def call(*args):
+            with _one_at_a_time:
+                return fn(*args)
+        return call
 
 
 def _load(name, signatures):
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(os.path.join(os.environ["EMU_BUILD"], f"lib{name}.so"))
+        raw = ctypes.CDLL(os.path.join(os.environ["EMU_BUILD"], f"lib{name}.so"))
         for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.error_string.argtypes = [ctypes.c_int]
-        lib.error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+            getattr(raw, fn).argtypes = argtypes
+            getattr(raw, fn).restype = ctypes.c_int
+        raw.error_string.argtypes = [ctypes.c_int]
+        raw.error_string.restype = ctypes.c_char_p
+        lib = _libs[name] = _Serial(raw)
     return lib
 
 

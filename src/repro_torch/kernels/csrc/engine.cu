@@ -88,15 +88,26 @@
 //   replica_row              one lookup a try, one thread a key: every
 //                            {algo}_replica but dx_replica at G >= 2, dense,
 //                            packed and compact, and the replica diffs
-//                            whose epochs share nothing (every algorithm
-//                            but Memento, and Memento at two n; DxHash
-//                            below G = 8).  Unbounded and bounded are two
+//                            whose epochs share nothing (DxHash below G =
+//                            8, JumpHash, PowerHash, packed AnchorHash,
+//                            AnchorHash epochs that do not nest, Memento
+//                            at two n).  Unbounded and bounded are two
 //                            instances, each with the loop that ran
 //                            fastest for it.
 //   replica_pair_row         the Memento replica diffs of one n: both
 //                            epochs' rows on one salt walk, each salt's
 //                            jump32 run once for both, both epochs' first
 //                            reads in flight together.
+//   anchor_pair_row          the AnchorHash replica diffs whose epochs
+//                            nest (one removal stack a prefix of the
+//                            other's, which a check pass over both
+//                            epochs' A and K finds on the card,
+//                            anchor_nest_kernel): both rows on one salt
+//                            walk, each salt looked up in both epochs by
+//                            one walk through the deeper epoch's tables
+//                            (anchor_nested).  Epochs that do not nest
+//                            take each epoch's replica_row in the same
+//                            kernel.
 //   dx_group_replica_kernel  dx_replica at G >= 2: replica_row's walk run
 //                            by a lane group (and each epoch of
 //                            dx_replica_diff at G >= 8 whose own G is).
@@ -196,7 +207,15 @@
 // their first lookup queued in shared memory and stepped in full warps,
 // two barriers a round (256 lanes a block: stable -23.7 %, one-shot
 // -17.2 %; 512 and 1024 slower, 128 even with 256), which ROADMAP.md's
-// redesign queue holds for jump_walk and power_walk.  For power_lookup and
+// redesign queue holds for jump_walk and power_walk.  For anchor_walk (a =
+// 4*10^6 one-shot 90 % removed, cap 14, half and every lane pending), that
+// queue (24-26 registers, one barrier a round): 256 lanes a block +31.7 and
+// +33.7 %, 128 lanes +15.8 and +19.2 %, 512 lanes +49.5 and +51.3 %, and
+// anchor_packed_walk on it +13.3 % int16, +3.0 % int8: an AnchorHash step
+// is a chain of ~20 dependent loads, so each round waits for its slowest
+// lane and a block holds its slots longer, where idle lanes cost little
+// issue (walk_kernel at 128 and 64 lanes a block, a yardstick, ran -4.2
+// and -5.3 %).  For power_lookup and
 // power_diff (stable n = 10^6, one-shot 10^5, against the top level made
 // once a launch), a key's draws after its first, or its descent alone,
 // spread over its warp's idle lanes: with o keys open, 32 / o lanes each
@@ -369,18 +388,47 @@ struct CompactRepl {
 // step back through K while h was removed at or after b (A[h] >= A[b]).
 // T is int32 for the dense layout, int8/int16/int32 for the packed one:
 // every word is widened to int32 as it is read.
+// anchor_step is one pass from removed bucket b (ab = A[b] > 0).
+template <class T>
+__device__ __forceinline__ int32_t anchor_step(uint32_t key, const T* __restrict__ A,
+                                               const T* __restrict__ K, int32_t b, int32_t ab) {
+  int32_t h = static_cast<int32_t>(hash2(key, static_cast<uint32_t>(b)) %
+                                   static_cast<uint32_t>(ab));
+  while (static_cast<int32_t>(A[h]) >= ab) h = K[h];
+  return h;
+}
+
 template <class T>
 __device__ __forceinline__ int32_t anchor_one(uint32_t key, const T* __restrict__ A,
                                               const T* __restrict__ K, int32_t a) {
   int32_t b = static_cast<int32_t>(fmix32(key) % static_cast<uint32_t>(a));
   int32_t ab;
-  while ((ab = A[b]) > 0) {
-    int32_t h = static_cast<int32_t>(hash2(key, static_cast<uint32_t>(b)) %
-                                     static_cast<uint32_t>(ab));
-    while (static_cast<int32_t>(A[h]) >= ab) h = K[h];
-    b = h;
-  }
+  while ((ab = A[b]) > 0) b = anchor_step(key, A, K, b, ab);
   return b;
+}
+
+// Both lookups of `key` under two AnchorHash epochs of one a whose removal
+// stacks nest (anchor_nest_kernel says so), on one walk through the deeper
+// epoch's A and K.  A removal stamps A[b] with the working count left after
+// it and K[b] with the bucket that replaced b, and no later removal changes
+// them; so every bucket the shallower epoch removed keeps its A and K in
+// the deeper one, stamped at or above n_shallow (the shallower epoch's
+// working count), and every other bucket is stamped below it there.  The
+// shallower epoch's lookup is then the deeper epoch's walk read with
+// "removed" meaning A[b] >= n_shallow: the walk's first bucket stamped
+// below n_shallow (`shallow`).  The deeper epoch's lookup goes on from
+// there while A[b] > 0 (`deep`, walked only when `want_deep`).
+__device__ __forceinline__ void anchor_nested(uint32_t key, const int32_t* __restrict__ A,
+                                              const int32_t* __restrict__ K, int32_t a,
+                                              int32_t n_shallow, bool want_deep,
+                                              int32_t& shallow, int32_t& deep) {
+  int32_t b = static_cast<int32_t>(fmix32(key) % static_cast<uint32_t>(a));
+  int32_t ab = A[b];
+  for (; ab >= n_shallow; ab = A[b]) b = anchor_step(key, A, K, b, ab);
+  shallow = b;
+  if (!want_deep) return;
+  for (; ab > 0; ab = A[b]) b = anchor_step(key, A, K, b, ab);
+  deep = b;
 }
 
 // x % a for a divisor fixed by the host, by multiplies (Lemire, Kaser and
@@ -819,6 +867,146 @@ __global__ void memento_pair_diff_kernel(const uint32_t* __restrict__ keys,
   moved[i] = o != w;
 }
 
+// Whether two AnchorHash epochs of one a nest: one epoch (the shallower,
+// S) removed only buckets the other (D) also removed, with the same A and
+// K, and D stamped every other bucket below S's working count N_S.  From
+// the arrays alone, with N_S = min(a, the least positive A of S): for every
+// bucket b, A_S[b] > 0 implies A_D[b] == A_S[b] and K_D[b] == K_S[b], and
+// A_S[b] <= 0 implies A_D[b] < N_S.  Those are what anchor_nested needs to
+// give both epochs' lookups, whatever the arrays' history; epochs whose
+// removal stacks extend one another satisfy them, N_S then being S's
+// working count.  kNestNone: they do not nest (diverging stacks); else the
+// older or the newer epoch is S.
+constexpr int32_t kNestNone = 0, kNestOldShallow = 1, kNestNewShallow = 2;
+
+// The check's per-call workspace, kNestWords words the caller passes (the
+// tail of anchor_replica_diff's moved) and the check zeroes before it runs,
+// so that no two calls share state.  The last block of the check writes the
+// verdict and N_S, which the pair kernel reads.  Before that, for each
+// candidate S (old, new): the least positive A, as 0xFFFFFFFF - A; the
+// largest A of the other epoch where S's is not positive, as A ^ 0x80000000
+// (both unsigned maxima, so that 0 stands for none); whether any bucket S
+// removed differs in the other; and blocks_done, the blocks that added
+// theirs.
+struct NestWork {
+  int32_t verdict, n_shallow;
+  uint32_t least[2], most[2], differs[2], blocks_done;
+};
+constexpr int kNestWords = 9;
+static_assert(sizeof(NestWork) == 4 * kNestWords, "NestWork is kNestWords words");
+constexpr int kNestItems = 16;  // buckets a thread of the check reads
+
+// The check, in one pass over both epochs' A and, where either removed a
+// bucket, both Ks: each block sums its buckets in shared memory, then into
+// the workspace `work`; the last block to finish writes the verdict.
+__global__ void anchor_nest_kernel(const int32_t* __restrict__ A_old,
+                                   const int32_t* __restrict__ K_old,
+                                   const int32_t* __restrict__ A_new,
+                                   const int32_t* __restrict__ K_new, int32_t a,
+                                   NestWork* work) {
+  __shared__ int32_t s[6];
+  if (threadIdx.x < 6)
+    s[threadIdx.x] = threadIdx.x < 2 ? INT32_MAX : threadIdx.x < 4 ? INT32_MIN : 0;
+  __syncthreads();
+  int32_t least[2] = {INT32_MAX, INT32_MAX}, most[2] = {INT32_MIN, INT32_MIN};
+  int32_t differs[2] = {0, 0};
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; b < a;
+       b += stride) {
+    const int32_t ao = A_old[b], an = A_new[b];
+    if (ao > 0) {
+      if (ao < least[0]) least[0] = ao;
+    } else if (an > most[0]) {
+      most[0] = an;
+    }
+    if (an > 0) {
+      if (an < least[1]) least[1] = an;
+    } else if (ao > most[1]) {
+      most[1] = ao;
+    }
+    if ((ao > 0 || an > 0) && (ao != an || K_old[b] != K_new[b])) {
+      differs[0] |= ao > 0;
+      differs[1] |= an > 0;
+    }
+  }
+  for (int e = 0; e < 2; ++e) {
+    atomicMin(&s[e], least[e]);
+    atomicMax(&s[2 + e], most[e]);
+    atomicOr(&s[4 + e], differs[e]);
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int e = 0; e < 2; ++e) {
+    atomicMax(&work->least[e], 0xFFFFFFFFu - static_cast<uint32_t>(s[e]));
+    atomicMax(&work->most[e], static_cast<uint32_t>(s[2 + e]) ^ 0x80000000u);
+    atomicOr(&work->differs[e], static_cast<uint32_t>(s[4 + e]));
+  }
+  __threadfence();
+  if (atomicAdd(&work->blocks_done, 1u) != gridDim.x - 1) return;
+  __threadfence();  // every other block's sums are in
+  int32_t verdict = kNestNone, n_shallow = 0;
+  for (int e = 1; e >= 0; --e) {  // equal epochs: the older one as S
+    const uint32_t stamp = 0xFFFFFFFFu - atomicAdd(&work->least[e], 0u);
+    const int32_t n = stamp < static_cast<uint32_t>(a) ? static_cast<int32_t>(stamp) : a;
+    const int32_t most_other =
+        static_cast<int32_t>(atomicAdd(&work->most[e], 0u) ^ 0x80000000u);
+    if (!atomicAdd(&work->differs[e], 0u) && most_other < n) {
+      verdict = e == 0 ? kNestOldShallow : kNestNewShallow;
+      n_shallow = n;
+    }
+  }
+  work->verdict = verdict;
+  work->n_shallow = n_shallow;
+}
+
+// Both AnchorHash epochs' rows of one key on one salt walk, the epochs
+// nesting (anchor_nest_kernel): replica_pair_row's walk, each salt's
+// candidate key looked up in both epochs by one anchor_nested walk through
+// the deeper epoch's tables `deep`; a salt only the shallower row still
+// needs stops at the shallower answer.  s and d are the shallower and the
+// deeper epoch's rows.
+__device__ void anchor_pair_row(uint32_t key, int32_t* s, int32_t* d, int32_t k,
+                                const AnchorT<int32_t>& deep, int32_t n_shallow) {
+  int32_t js = 0, jd = 0;
+  for (int32_t salt = 0; salt <= kReplicaSaltCap && (js < k || jd < k); ++salt) {
+    const bool gs = js < k, gd = jd < k;
+    int32_t cs = 0, cd = 0;
+    anchor_nested(salt == 0 ? key : hash2(key, static_cast<uint32_t>(salt)), deep.A, deep.K,
+                  deep.a, n_shallow, gd, cs, cd);
+    if (gs && row_takes(s, js, cs, nullptr, 0)) s[js++] = cs;
+    if (gd && row_takes(d, jd, cd, nullptr, 0)) d[jd++] = cd;
+  }
+  row_keep_first(s, js, k, s[0]);
+  row_keep_first(d, jd, k, d[0]);
+}
+
+// anchor_replica_diff after its check: the verdict in `work`, one for the
+// launch, picks the pair walk through the deeper epoch's tables, or, for
+// epochs that do not nest, each epoch's replica_row (replica_diff_kernel's
+// rows).
+__global__ void anchor_pair_replica_diff_kernel(const uint32_t* __restrict__ keys,
+                                                int32_t* old_out, int32_t* new_out,
+                                                int32_t* __restrict__ moved, int64_t count,
+                                                int32_t k, AnchorT<int32_t> old_body,
+                                                AnchorT<int32_t> new_body,
+                                                const NestWork* __restrict__ work) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const NestWork& nest = *work;
+  const uint32_t key = keys[i];
+  int32_t* o = old_out + i * k;
+  int32_t* w = new_out + i * k;
+  if (nest.verdict == kNestOldShallow) {
+    anchor_pair_row(key, o, w, k, new_body, nest.n_shallow);
+  } else if (nest.verdict == kNestNewShallow) {
+    anchor_pair_row(key, w, o, k, old_body, nest.n_shallow);
+  } else {
+    replica_row<false>(key, o, k, old_body, nullptr, 0);
+    replica_row<false>(key, w, k, new_body, nullptr, 0);
+  }
+  moved[i] = row_moved(o, w, k);
+}
+
 // chain_walk_body: b = lookup(chain) for every lane; a pending lane steps
 // probe += 1, chain = hash2(chain, probe), b = lookup(chain) while
 // load[b] >= cap and probe < max_probe (64 * len(load) + 64, below 2^31).
@@ -1095,6 +1283,43 @@ int launch_walk(const void* chain, const void* probe, const void* pending, void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// anchor_nest_kernel over two AnchorHash epochs of one a, its workspace
+// `work` zeroed first.
+int launch_anchor_nest(AnchorT<int32_t> old_body, AnchorT<int32_t> new_body, NestWork* work,
+                       void* stream) {
+  const long long per_block = static_cast<long long>(kThreads) * kNestItems;
+  cudaMemsetAsync(work, 0, sizeof(NestWork), static_cast<cudaStream_t>(stream));
+  anchor_nest_kernel<<<static_cast<unsigned int>((old_body.a + per_block - 1) / per_block),
+                       kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      old_body.A, old_body.K, new_body.A, new_body.K, old_body.a, work);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two AnchorHash epochs of one a: the check, then the pair kernel, which
+// takes the nested walk or each epoch's replica_row as the check found.  Of
+// two a, the epochs share no walk: replica_diff_kernel, the verdict zeroed
+// (kNestNone).  `moved` holds count + kNestWords words, its tail the
+// check's workspace, so that the entry's arguments stay every
+// replica_diff entry's.
+int launch_anchor_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                               long long count, int k, AnchorT<int32_t> old_body,
+                               AnchorT<int32_t> new_body, void* stream) {
+  NestWork* work = reinterpret_cast<NestWork*>(static_cast<int32_t*>(moved) + count);
+  if (old_body.a != new_body.a) {
+    cudaMemsetAsync(work, 0, sizeof(NestWork), static_cast<cudaStream_t>(stream));
+    return launch_replica_diff(keys, old_out, new_out, moved, count, k, old_body, new_body,
+                               stream);
+  }
+  const int rc = launch_anchor_nest(old_body, new_body, work, stream);
+  if (rc != 0) return rc;
+  anchor_pair_replica_diff_kernel<<<blocks_for(count), kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
+      static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count, k, old_body,
+      new_body, work);
+  return static_cast<int>(cudaGetLastError());
+}
+
 MementoT<DenseRepl> memento(const void* repl, int n) {
   return {{static_cast<const int32_t*>(repl)}, n};
 }
@@ -1257,9 +1482,9 @@ int anchor_replica_diff(const void* keys, void* old_out, void* new_out, void* mo
                         long long count, int k, const void* A_old, const void* K_old,
                         int a_old, const void* A_new, const void* K_new, int a_new,
                         void* stream) {
-  return launch_replica_diff(keys, old_out, new_out, moved, count, k,
-                             anchor(A_old, K_old, a_old), anchor(A_new, K_new, a_new),
-                             stream);
+  return launch_anchor_replica_diff(keys, old_out, new_out, moved, count, k,
+                                    anchor(A_old, K_old, a_old), anchor(A_new, K_new, a_new),
+                                    stream);
 }
 
 int anchor_walk(const void* chain, const void* probe, const void* pending, void* b,
@@ -1520,6 +1745,16 @@ int dx_walk_lane_group(int max_probes) { return dx_walk_group(max_probes); }
 // these two epochs' probe bounds (dx_replica_diff_group).
 int dx_replica_diff_lane_group(int max_probes_old, int max_probes_new) {
   return dx_replica_diff_group(max_probes_old, max_probes_new);
+}
+
+// anchor_replica_diff's check alone, over two dense AnchorHash epochs of
+// one a, into kNestWords words at `work`: its verdict (0: the epochs do not
+// nest, 1: the older epoch is the shallower, 2: the newer) and the
+// shallower epoch's working count in work[0], work[1].  For timing it.
+int anchor_nest_check(const void* A_old, const void* K_old, const void* A_new,
+                      const void* K_new, int a, void* work, void* stream) {
+  return launch_anchor_nest(anchor(A_old, K_old, a), anchor(A_new, K_new, a),
+                            static_cast<NestWork*>(work), stream);
 }
 
 const char* error_string(int code) {

@@ -296,8 +296,15 @@ def anchor_body(keys: torch.Tensor, A: torch.Tensor, K: torch.Tensor, a: int,
     ``work`` gains ``"outer"`` (removed buckets met) and ``"read"``
     (successor reads)."""
     b = fmix32(keys) % a
-    Ab = gather1d(A, b)
-    active = Ab > 0
+    return _anchor_walk(keys, A, K, b, gather1d(A, b), 1, work)[0]
+
+
+def _anchor_walk(keys, A, K, b, Ab, removed: int, work: dict | None,
+                 lanes: torch.Tensor | None = None):
+    """AnchorHash's walk of ``keys`` from buckets ``b`` (``Ab = A[b]``)
+    while ``A[b] ≥ removed`` (lanes in the mask ``lanes`` only, if given):
+    the buckets where it stops and their A."""
+    active = Ab >= removed if lanes is None else lanes & (Ab >= removed)
     while bool(active.any()):
         if work is not None:
             work["outer"] = work.get("outer", 0) + int(active.sum())
@@ -309,9 +316,109 @@ def anchor_body(keys: torch.Tensor, A: torch.Tensor, K: torch.Tensor, a: int,
             h = torch.where(follow, gather1d(K, h), h)
             follow = active & (gather1d(A, h) >= Ab)
         b = torch.where(active, h, b)
-        Ab = gather1d(A, b)
-        active = Ab > 0
-    return b
+        Ab = torch.where(active, gather1d(A, b), Ab)
+        active = active & (Ab >= removed)
+    return b, Ab
+
+
+#: ``anchor_nest_plain``'s verdicts, as ``anchor_nest_kernel`` writes them:
+#: the epochs do not nest, the older one is the shallower, the newer one is
+NEST_NONE, NEST_OLD_SHALLOW, NEST_NEW_SHALLOW = 0, 1, 2
+#: int32 words of the check's per-call workspace (``NestWork``, kNestWords):
+#: ``anchor_replica_diff``'s ``moved`` carries them past its count, its
+#: first two the verdict and N_S
+NEST_WORDS = 9
+
+
+def anchor_nest_plain(old, new) -> tuple[int, int]:
+    """Plain version of ``anchor_replica_diff``'s check (``anchor_nest_kernel``)
+    over two dense AnchorHash epochs, each ``(tables, scalars)``: whether
+    one epoch S removed only buckets the other D also removed, with equal A
+    and K, and D stamped every other bucket below S's working count N_S =
+    min(a, the least positive A of S) → (verdict, N_S), N_S 0 with
+    ``NEST_NONE``.  Two equal epochs give the older one as S; epochs of two
+    a do not nest.  A model for the tests: the card runs the kernel."""
+    (A_o, K_o), (A_n, K_n) = old[0][:2], new[0][:2]
+    a = int(old[1][0])
+    if a != int(new[1][0]):
+        return NEST_NONE, 0
+    A_o, K_o, A_n, K_n = (t[:a].long() for t in (A_o, K_o, A_n, K_n))
+    verdict, n_shallow = NEST_NONE, 0
+    for v, (AS, KS, AD, KD) in ((NEST_NEW_SHALLOW, (A_n, K_n, A_o, K_o)),
+                                (NEST_OLD_SHALLOW, (A_o, K_o, A_n, K_n))):
+        pos = AS > 0
+        least = int(AS[pos].min()) if bool(pos.any()) else 2**31 - 1
+        n = min(a, least)
+        most = int(AD[~pos].max()) if bool((~pos).any()) else -2**31
+        differs = bool(((AD != AS) | (KD != KS))[pos].any())
+        if not differs and most < n:
+            verdict, n_shallow = v, n
+    return verdict, n_shallow
+
+
+def anchor_nested_plain(keys: torch.Tensor, A: torch.Tensor, K: torch.Tensor, a: int,
+                        n_shallow: int, deep: torch.Tensor | None = None,
+                        work: dict | None = None):
+    """Plain version of ``anchor_nested``: both lookups of int64-carried
+    uint32 ``keys`` under two nesting AnchorHash epochs (``anchor_nest_plain``)
+    on one walk through the deeper epoch's ``A`` and ``K``.  The walk's
+    first bucket with ``A < n_shallow`` is the shallower epoch's lookup; the
+    lanes of the mask ``deep`` (default all) walk on while ``A > 0`` to the
+    deeper epoch's.  Returns int64 (shallower, deeper), the deeper equal to
+    the shallower on the other lanes.  ``work`` counts the one walk."""
+    b = fmix32(keys) % a
+    b, Ab = _anchor_walk(keys, A, K, b, gather1d(A, b), max(1, n_shallow), work)
+    return b, _anchor_walk(keys, A, K, b, Ab, 1, work, deep)[0]
+
+
+def anchor_pair_replica_diff_plain(keys: torch.Tensor, k: int, old, new,
+                                   work: dict | None = None):
+    """A model of ``anchor_replica_diff``'s kernels: the check
+    (``anchor_nest_plain``), then, for nesting epochs, both epochs' unbounded
+    k-slot rows on one salt walk, each salt's candidate key (salt 0 the key
+    itself) looked up in both by one ``anchor_nested_plain`` walk through the
+    deeper epoch's tables, which stops at the shallower answer on lanes only
+    the shallower row still needs; each row fills as ``replica_body``'s
+    (salt s at its s-th try, a bucket of an earlier slot rejected, the
+    first lookup in every slot a row's salts leave open).  Epochs that do
+    not nest take ``replica_diff_plain``.  → (old [K, k], new [K, k],
+    moved), as ``replica_diff_plain`` gives them.  ``work`` counts
+    ``"lookups"`` (keys looked up: each salt drawn once), ``"try"``
+    (salted keys drawn), ``"try_shallow"`` and ``"try_deep"`` (the salted
+    tries of each row, as ``replica_body`` counts an epoch's), and the
+    walks' ``"outer"`` and ``"read"``.  A model for the tests and
+    ``chip_smoke.py``'s bound: the card runs the kernel."""
+    verdict, n_shallow = anchor_nest_plain(old, new)
+    if verdict == NEST_NONE:
+        return replica_diff_plain("anchor", keys, k, old, new)
+    A, K = (new if verdict == NEST_OLD_SHALLOW else old)[0][:2]
+    a = int(old[1][0])
+    keys = as_u32(keys)
+    firsts = anchor_nested_plain(keys, A, K, a, n_shallow, work=work)
+    _count(work, "lookups", keys.numel())
+    rows = [f[:, None].repeat(1, k) for f in firsts]
+    filled = [torch.ones_like(keys) for _ in firsts]
+    slots = torch.arange(k, device=keys.device)
+    for salt in range(1, REPLICA_SALT_CAP + 1):
+        wants = [f < k for f in filled]
+        idx = torch.nonzero(wants[0] | wants[1]).reshape(-1)
+        if not idx.numel():
+            break
+        cand = hash2(keys[idx], salt)
+        got = anchor_nested_plain(cand, A, K, a, n_shallow, wants[1][idx], work)
+        _count(work, "lookups", idx.numel())
+        _count(work, "try", idx.numel())
+        for row, fill, want, b, role in zip(rows, filled, wants, got, ("shallow", "deep")):
+            sub = want[idx]
+            _count(work, f"try_{role}", sub.sum())
+            lanes, b = idx[sub], b[sub]
+            j = fill[lanes]
+            taken = ((row[lanes] == b[:, None]) & (slots < j[:, None])).any(dim=1)
+            lanes, j, b = lanes[~taken], j[~taken], b[~taken]
+            row[lanes, j] = b
+            fill[lanes] += 1
+    o, n = (r.to(torch.int32) for r in (rows if verdict == NEST_OLD_SHALLOW else rows[::-1]))
+    return o, n, (o != n).any(dim=1)
 
 
 def dx_body(keys: torch.Tensor, words: torch.Tensor, a: int, max_probes: int,
@@ -705,23 +812,35 @@ def kernel_replica(algo: str, keys: torch.Tensor, k: int, tables, scalars,
 
 
 def kernel_replica_diff(algo: str, keys: torch.Tensor, k: int, old, new, *,
-                        table: str = "dense"):
+                        table: str = "dense", with_nest: bool = False):
     """Unbounded k-replica sets under two epochs (each ``(tables,
     scalars)``, one layout) in one pass → (old [K, k], new [K, k], moved
-    bool [K]).  CUDA tensors launch the layout's ``replica_diff`` kernel."""
+    bool [K]).  CUDA tensors launch the layout's ``replica_diff`` kernel.
+    ``with_nest`` adds the branch ``anchor_replica_diff`` took, int32
+    (verdict, N_S) as :func:`anchor_nest_plain` gives them (``NEST_NONE``,
+    0 for every other kernel); on the card it stays there, read from the
+    call's own workspace."""
     _not_compact(table, "diffs")
     epochs = [(list(t), [int(s) for s in sc]) for t, sc in (old, new)]
     k = _check_k(k)
     _check_operands(algo, keys, epochs, table)
+    nests = kernel_name(algo, "replica_diff", table) == "anchor_replica_diff"
     if not _on_card(keys):
-        return replica_diff_plain(algo, keys, k, *epochs, table=table)
+        out = replica_diff_plain(algo, keys, k, *epochs, table=table)
+        nest = anchor_nest_plain(*epochs) if nests else (NEST_NONE, 0)
+        return (*out, torch.tensor(nest, dtype=torch.int32)) if with_nest else out
     o, n = (torch.empty((keys.numel(), k), dtype=torch.int32, device=keys.device)
             for _ in range(2))
-    moved = torch.empty_like(keys)
+    # the check's workspace rides past the end of moved (NEST_WORDS)
+    moved = torch.empty(keys.numel() + NEST_WORDS * nests, dtype=torch.int32,
+                        device=keys.device)
     if keys.numel():
         _launch(algo, "replica_diff", table, [keys, o, n, moved], keys.numel(), [k],
                 epochs)
-    return o, n, moved.bool()
+    else:
+        moved.zero_()
+    out = (o, n, moved[:keys.numel()].bool())
+    return (*out, moved[keys.numel():][:2] if nests else moved.new_zeros(2)) if with_nest else out
 
 
 def kernel_walk(algo: str, chain: torch.Tensor, probe: torch.Tensor,
@@ -786,6 +905,28 @@ def dx_replica_diff_lane_group(max_probes_old: int, max_probes_new: int) -> int:
     kernel library picks them."""
     return build.load("engine", _SIGNATURES).dx_replica_diff_lane_group(
         ctypes.c_int(int(max_probes_old)), ctypes.c_int(int(max_probes_new)))
+
+
+def anchor_nest_check(old, new) -> torch.Tensor:
+    """Launch ``anchor_replica_diff``'s check alone (``anchor_nest_kernel``)
+    over two dense AnchorHash epochs of one a on the card, each ``(tables,
+    scalars)``, into a workspace of its own → its int32 (verdict, N_S) on
+    the card (:func:`anchor_nest_plain`).  For timing the check on its own;
+    not counted in :data:`LAUNCHES`."""
+    epochs = [(list(t), [int(x) for x in sc]) for t, sc in (old, new)]
+    A = epochs[0][0][0]
+    _check_operands("anchor", A, epochs)
+    if epochs[0][1][0] != epochs[1][1][0]:
+        raise ValueError("the check takes two epochs of one a")
+    work = torch.empty(NEST_WORDS, dtype=torch.int32, device=A.device)
+    lib = build.load("engine", _SIGNATURES)
+    with torch.cuda.device(A.device):
+        rc = lib.anchor_nest_check(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (*epochs[0][0], *epochs[1][0])),
+            ctypes.c_int(epochs[0][1][0]), ctypes.c_void_p(work.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    build.check(lib, rc, "anchor_nest_check")
+    return work[:2]
 
 
 def memento_lookup(keys: torch.Tensor, repl: torch.Tensor, n: int) -> torch.Tensor:

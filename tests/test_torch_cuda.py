@@ -6,6 +6,9 @@ nothing of the reference, so it runs where JAX is not installed:
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -1597,3 +1600,166 @@ def test_power_diff_kernel_at_equal_and_crossing_levels(dev, kind, pair):
             assert torch.equal(g.cpu(), want[:count]), (kind, count)
     if n_old == n_new:
         assert not (o != w).any()
+
+
+def _anchor_nest_pair(a: int, w_shallow: int, w_deep: int, pair: str, seed: int):
+    """Two epochs of one AnchorHash of capacity ``a`` on the host, (old,
+    new): "remove", w_shallow working, then random removals down to w_deep;
+    "restore", the same two states the other way round; "diverge", w_deep
+    working with one more bucket x removed, then x restored and another
+    bucket y removed (stacks that part after a common prefix)."""
+    h = make_hash("anchor", a, capacity=a, variant="32")
+    rng = np.random.default_rng(seed)
+    victims = rng.permutation(a).tolist()
+
+    def remove_to(w):
+        while h.working > w:
+            b = int(victims.pop())
+            if h.is_working(b):
+                h.remove(b)
+
+    if pair == "diverge":
+        remove_to(w_deep)
+        h.remove(int(rng.choice(sorted(h.working_set()))))
+        old = h.device_image()
+        h.add()
+        h.remove(int(rng.choice(sorted(h.working_set()))))
+        return old, h.device_image()
+    remove_to(w_shallow)
+    shallow = h.device_image()
+    remove_to(w_deep)
+    deep = h.device_image()
+    return (shallow, deep) if pair == "remove" else (deep, shallow)
+
+
+@pytest.mark.parametrize("count", [1, 255, 257, 4001])
+@pytest.mark.parametrize("pair", ["remove", "restore", "diverge"])
+@pytest.mark.parametrize("ratio", [1, 4, 40, 400])
+def test_anchor_replica_diff_takes_its_branch_and_matches_plain(dev, ratio, pair, count):
+    """``anchor_replica_diff`` (its check, then the pair kernel) at a/w = 1,
+    4, 40 and 400 (a = 4000, a/w of the deeper epoch, one removal at a/w = 1;
+    the shallower epoch at twice its working count, at most a): epochs that
+    nest take one walk
+    through the deeper epoch's tables, the older one the shallower
+    ("remove") or the newer ("restore"); stacks that part ("diverge") take
+    each epoch's replica_row.  The check's verdict equals the plain check,
+    the result ``replica_diff_plain``, at k = 1, 3 and 5 and at key counts
+    that are not a multiple of a block; one launch each."""
+    a = 4000
+    w = max(3, a // ratio) if ratio > 1 else a - 1
+    old, new = (_operands_of(img, dev) for img in _anchor_nest_pair(
+        a, min(a, 2 * w), w, pair, seed=ratio))
+    want_branch = engine.anchor_nest_plain(
+        *[([t.cpu() for t in e[0]], e[1]) for e in (old, new)])
+    assert want_branch[0] == {"remove": engine.NEST_OLD_SHALLOW,
+                              "restore": engine.NEST_NEW_SHALLOW,
+                              "diverge": engine.NEST_NONE}[pair]
+    keys = engine.key_tensor(KEYS[:count], dev)
+    for k in (1, 3, 5):
+        before = engine.LAUNCHES["anchor_replica_diff"]
+        *got, branch = engine.kernel_replica_diff("anchor", keys, k, old, new,
+                                                  with_nest=True)
+        assert tuple(branch.tolist()) == want_branch
+        assert engine.LAUNCHES["anchor_replica_diff"] == before + 1
+        for g, w_ in zip(got, engine.replica_diff_plain("anchor", keys, k, old, new)):
+            assert torch.equal(g, w_), k
+    assert tuple(engine.anchor_nest_check(old, new).tolist()) == want_branch
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+def test_anchor_replica_diffs_in_flight_at_once_keep_their_own_branch(dev, streams):
+    """Two host threads each run ``anchor_replica_diff`` over its own epoch
+    pair, one that nests and one whose stacks part, at once: on one stream,
+    or each on a stream of its own (on the card).  Every call's check keeps
+    its sums and verdict in the call's own workspace, so every call takes
+    its pair's branch and equals ``replica_diff_plain``."""
+    a, reps = 4000, 16
+    pairs = [[_operands_of(img, dev) for img in _anchor_nest_pair(a, 200, 100, pair, seed=5)]
+             for pair in ("remove", "diverge")]
+    keys = engine.key_tensor(KEYS[:1000], dev)
+    wants = [engine.replica_diff_plain("anchor", keys, 3, *p) for p in pairs]
+    branches = [engine.NEST_OLD_SHALLOW, engine.NEST_NONE]
+    on_card = dev.type == "cuda"
+    queues = [torch.cuda.Stream(dev) if on_card and streams == 2 else None for _ in pairs]
+    barrier = threading.Barrier(len(pairs))
+    results: list[list] = [[] for _ in pairs]
+
+    def run(i: int) -> None:
+        ctx = torch.cuda.stream(queues[i]) if queues[i] is not None else contextlib.nullcontext()
+        with ctx:
+            barrier.wait()
+            for _ in range(reps):
+                results[i].append(engine.kernel_replica_diff("anchor", keys, 3, *pairs[i],
+                                                             with_nest=True))
+            if on_card:
+                torch.cuda.current_stream().synchronize()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(pairs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for want, branch, got in zip(wants, branches, results):
+        assert len(got) == reps
+        for *out, nest in got:
+            assert int(nest[0]) == branch
+            for g, w_ in zip(out, want):
+                assert torch.equal(g, w_)
+
+
+def _operands_of(img, dev):
+    img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+    return engine.image_operands(img)
+
+
+@pytest.mark.parametrize("layout", ["dense", "int16", "int8"])
+@pytest.mark.parametrize("pending_share", [0.0, 0.5, 1.0])
+def test_anchor_walk_at_every_pending_share_matches_plain(dev, pending_share, layout):
+    """``anchor_walk`` (and ``anchor_packed_walk`` at int16 and int8) with
+    no lane pending, half and every lane, at caps from five buckets of six
+    full to none, on key counts that are not a multiple of a block: equal
+    to the plain walk, one launch each."""
+    a = 120 if layout == "int8" else 4000
+    h = _anchor_run(a, 10, "random", seed=11)
+    (tables, scalars), table = _anchor_layout(h, layout, dev)
+    name = engine.kernel_name("anchor", "walk", table)
+    rng = np.random.default_rng(12)
+    load = torch.from_numpy(rng.integers(0, 6, size=tables[0].numel()).astype(np.int32)).to(dev)
+    for count in (1, 255, 257, 5003):
+        chain = engine.key_tensor(KEYS[:count], dev)
+        probe = torch.from_numpy(rng.integers(0, 9, size=count).astype(np.int32)).to(dev)
+        pending = torch.from_numpy(rng.random(count) < pending_share).to(dev)
+        for cap in (1, 3, 6):
+            before = engine.LAUNCHES[name]
+            got = engine.kernel_walk("anchor", chain, probe, pending, tables, scalars, load,
+                                     cap, table=table)
+            assert engine.LAUNCHES[name] == before + 1
+            want = engine.walk_plain("anchor", chain, probe, pending, tables, scalars, load,
+                                     cap, table=table)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (count, cap)
+
+
+def test_anchor_walk_stops_every_lane_at_max_probe(dev):
+    """Every bucket at the cap: each pending lane of ``anchor_walk`` steps
+    until max_probe (up to 41 steps), the others keep their chain and
+    probe; equal to the plain walk."""
+    from repro_torch.core.bounded import walk_probe_bound
+
+    h = _anchor_run(400, 40, "random", seed=13)
+    tables, scalars = _operands(h, dev)
+    load = torch.ones(tables[0].numel(), dtype=torch.int32, device=dev)
+    max_probe = walk_probe_bound(load.numel())
+    count = 700
+    chain = engine.key_tensor(KEYS[:count], dev)
+    rng = np.random.default_rng(14)
+    probe = torch.from_numpy(rng.integers(max_probe - 40, max_probe + 2,
+                                          size=count).astype(np.int32)).to(dev)
+    pending = torch.from_numpy(rng.random(count) < 0.7).to(dev)
+    got = engine.kernel_walk("anchor", chain, probe, pending, tables, scalars, load, 1)
+    want = engine.walk_plain("anchor", chain, probe, pending, tables, scalars, load, 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    stepped = pending & (probe < max_probe)
+    assert (got[2][stepped] == max_probe).all()
+    assert torch.equal(got[2][~stepped], probe[~stepped])
