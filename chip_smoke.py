@@ -228,8 +228,9 @@ GATHER_TABLE_MB = (4, 16, 32, 48, 64, 128)  # phase 5: the probe's table sizes (
 WALK_LOOKAHEAD_STEPS = (2, 4, 32)
 # phase 5: walk_kernel's lanes a block (engine.cu's kThreads), for anchor_walk's model
 WALK_BLOCK = 256
-# anchor_replica_diff's check (anchor_nest_kernel), per bucket: the two A
-# loads 2, their tests and the least and largest 4, the K test 2 = 8
+# the AnchorHash diffs' check (anchor_nest_kernel, anchor_nest_part_kernel),
+# per bucket: the two A loads 2, their tests and the least and largest 4,
+# the K test 2 = 8
 OPS_PER_NEST_BUCKET = 8
 # PowerHash's warp model (power_rounds): ALGO_OPS["power"] with every draw
 # hashed in full (hash2 18 where the kept kernel loads the salt's mix, 10),
@@ -2667,6 +2668,110 @@ class Smoke:
             sets = got if sets is None else sets
         return sets
 
+    def packed_diverging_pair(self, st: dict):
+        """Two packed images on the card, A and K of the width of ``st``'s
+        newer image, whose removal stacks part after ``st``'s host state
+        (:meth:`diverging_pair`): their operands."""
+        from repro_torch.core.packing import pack_image
+        from repro_torch.core.protocol import DeviceImage
+        from repro_torch.kernels import engine
+
+        dtype = st["new"].arrays["A"].dtype
+        out = []
+        for img in self.diverging_pair(st["h"]):
+            p = pack_image(img)
+            out.append(engine.image_operands(DeviceImage(
+                p.algo, p.n, {k: (v.to(dtype) if k in ("A", "K") else v)
+                              for k, v in p.arrays.items()},
+                dict(p.scalars), p.epoch, packed=True)))
+        return out
+
+    def anchor_packed_diff_branches(self, k: int, keys, pairs, err) -> dict:
+        """``anchor_packed_diff`` (k = 1) or ``anchor_packed_replica_diff`` (k =
+        REPLICAS_K) on each of ``pairs`` ((state, old, new) operands: the
+        path's epoch pair, which nests, then a pair whose stacks part): held
+        against its plain version and timed, beside the branch its check took
+        (read back from the call's own workspace, equal to the plain check's
+        and to the check's alone) and the check's own time.  The bound counts
+        the check (its buckets, ``OPS_PER_NEST_BUCKET`` each) and, where the
+        epochs nest, one walk (the pair model's work:
+        :func:`~repro_torch.kernels.engine.anchor_pair_diff_plain`, or
+        ``anchor_pair_replica_diff_plain``); the bound with two walks is
+        logged beside it.  Each pair's words a key, the check's words
+        included, are logged as on the gather-rate line.  Returns the
+        by-state entries."""
+        from repro_torch.kernels import engine
+
+        kw = {"table": "packed"}
+        name = f"anchor_packed_{'diff' if k == 1 else 'replica_diff'}"
+        wants = [engine.NEST_OLD_SHALLOW, engine.NEST_NONE]
+
+        def call(old, new, with_nest=False):
+            if k == 1:
+                return engine.kernel_diff("anchor", keys, old, new, **kw, with_nest=with_nest)
+            return engine.kernel_replica_diff("anchor", keys, k, old, new, **kw,
+                                              with_nest=with_nest)
+
+        def plain(old, new, work=None):
+            if k == 1:
+                return engine.diff_plain("anchor", keys, old, new, work, **kw)
+            return engine.replica_diff_plain("anchor", keys, k, old, new, work, **kw)
+
+        out = {}
+        for (state, old, new), want in zip(pairs, wants):
+            both: dict = {}
+            got = call(old, new)
+            p, plain_ms = self.timed_plain(lambda: plain(old, new, both))
+            e = max(err(g, w) for g, w in zip(got, p))
+            if e:
+                raise AssertionError(f"{name} {state}: kernel != plain ({e})")
+            ms = self.time_ms(lambda: call(old, new), reps=20 if k == 1 else 10,
+                              warmup=3 if k == 1 else 1)
+            branch = tuple(call(old, new, with_nest=True)[3].tolist())
+            alone = tuple(engine.anchor_nest_check(old, new, **kw).tolist())
+            if branch != engine.anchor_nest_plain(old, new) or branch != alone \
+                    or branch[0] != want:
+                raise AssertionError(f"{name} {state}: the check's verdict {branch} (alone "
+                                     f"{alone}), the plain check's "
+                                     f"{engine.anchor_nest_plain(old, new)}, want {want}")
+            check_ms = self.time_ms(lambda: engine.anchor_nest_check(old, new, **kw), reps=20)
+            a = old[1][0]
+            tables = [t for e_ in (old, new) for t in e_[0]]
+            table_bytes = sum(t.numel() * t.element_size() for t in tables)
+            if a <= engine.NEST_BLOCK_MAX:  # the parted check: both As and both Ks in full
+                check_words = 4 * a
+            else:  # the grid: both As, both Ks where either epoch removed the bucket
+                check_words = 2 * a + 2 * int(((old[0][0][:a] > 0) | (new[0][0][:a] > 0)).sum())
+            check_ops = a * OPS_PER_NEST_BUCKET
+            if k == 1:
+                walks_ops = self.algo_ops("anchor", both, 2 * KEYS, a) + KEYS
+                nbytes = 16 * KEYS + table_bytes
+            else:
+                walks_ops = (self.mode_ops("anchor", both, 2 * KEYS, a, k) + 2 * k * KEYS)
+                nbytes = 4 * KEYS * (2 + 2 * k) + table_bytes
+            work, ops = both, walks_ops
+            if branch[0] != engine.NEST_NONE:
+                work = {}
+                if k == 1:
+                    engine.anchor_pair_diff_plain(keys, old, new, work)
+                    ops = self.algo_ops("anchor", work, KEYS, a) + KEYS
+                else:
+                    engine.anchor_pair_replica_diff_plain(keys, k, old, new, work)
+                    ops = self.mode_ops("anchor", {**work, "compare": both.get("compare", 0)},
+                                        KEYS, a, 2 * k) + 2 * k * KEYS
+            walks_ms, walks_by = self.bound(walks_ops + check_ops, nbytes)
+            label = state if k == 1 else f"{state} k={k}"
+            entry = self.packed_entry(f"{name} {label}, moved {int(got[2].sum())}", e, ms,
+                                      plain_ms, ops + check_ops, nbytes, work)
+            words = anchor_words(work, KEYS if work is not both else 2 * KEYS) + check_words
+            log(f"  {name} {label}: branch {branch[0]}, N_S = {branch[1]}; the check alone "
+                f"{check_ms:.6f} ms ({check_words} words) of the call's {ms:.6f} ms; bound "
+                f"with two walks counted {walks_ms:.6f} ms ({walks_by}); "
+                + self.anchor_read_text(f"{name} {label}", words, table_bytes, ms))
+            out[label] = {**entry, "branch": list(branch), "check_ms": check_ms,
+                          "two_walks_bound_ms": walks_ms}
+        return out
+
     def check_packed_kernels(self, algo: str, sets: list, launches: dict) -> list[dict]:
         """Every ``{algo}_packed_*`` kernel against its plain version on the
         card on each of ``sets`` (one table width each), 2048 keys of each
@@ -2724,23 +2829,25 @@ class Smoke:
                     f"{algo}_packed_lookup {name}", e, ms, p_ms, self.lookup_ops(work, KEYS),
                     8 * KEYS + nbytes(t), work)
 
-            both: dict = {}  # both epochs' lookups; their ops depend on no scalar
-            got = engine.kernel_diff(algo, keys, old, new, **kw)
-            want, plain_ms = self.timed_plain(lambda: engine.diff_plain(
-                algo, keys, old, new, both, **kw))
-            e = max(err(g, w) for g, w in zip(got, want))
-            if e:
-                raise AssertionError(f"{algo}_packed_diff {label}: kernel != plain ({e})")
-            ms = self.time_ms(lambda: engine.kernel_diff(algo, keys, old, new, **kw), reps=20)
-            ops = (self.lookup_ops(both, 2 * KEYS) if algo == "memento"
-                   else self.algo_ops(algo, both, 2 * KEYS, n)) + KEYS - self.diff_shared_ops(
-                       algo, both, old[1][0], n)
-            by_mode["diff"][label] = self.packed_entry(
-                f"{algo}_packed_diff {label}, moved {int(got[2].sum())}", e, ms, plain_ms, ops,
-                16 * KEYS + tb + ob, both)
-            if algo == "anchor":
-                log("  " + self.anchor_read_text(f"anchor_packed_diff {label}",
-                                                 anchor_words(both, 2 * KEYS), tb + ob, ms))
+            if algo == "anchor":  # both branches of each diff's check
+                pairs = [(label, old, new), (f"{label} parted",
+                                             *self.packed_diverging_pair(st))]
+                for k, mode in ((1, "diff"), (REPLICAS_K, "replica_diff")):
+                    by_mode[mode].update(self.anchor_packed_diff_branches(k, keys, pairs, err))
+            else:
+                both: dict = {}  # both epochs' lookups; their ops depend on no scalar
+                got = engine.kernel_diff(algo, keys, old, new, **kw)
+                want, plain_ms = self.timed_plain(lambda: engine.diff_plain(
+                    algo, keys, old, new, both, **kw))
+                e = max(err(g, w) for g, w in zip(got, want))
+                if e:
+                    raise AssertionError(f"{algo}_packed_diff {label}: kernel != plain ({e})")
+                ms = self.time_ms(lambda: engine.kernel_diff(algo, keys, old, new, **kw), reps=20)
+                ops = self.lookup_ops(both, 2 * KEYS) + KEYS - self.diff_shared_ops(
+                    algo, both, old[1][0], n)
+                by_mode["diff"][label] = self.packed_entry(
+                    f"{algo}_packed_diff {label}, moved {int(got[2].sum())}", e, ms, plain_ms,
+                    ops, 16 * KEYS + tb + ob, both)
 
             got = self.check_packed_replica(algo, label, keys, new, (load_t, cap),
                                             by_mode["replica"])
@@ -2754,25 +2861,22 @@ class Smoke:
                                               engine.image_operands(img), (load_t, cap),
                                               by_mode["replica"])
 
-            both = {}
-            got = engine.kernel_replica_diff(algo, keys, REPLICAS_K, old, new, **kw)
-            want, plain_ms = self.timed_plain(lambda: engine.replica_diff_plain(
-                algo, keys, REPLICAS_K, old, new, both, **kw))
-            e = max(err(g, w) for g, w in zip(got, want))
-            if e:
-                raise AssertionError(f"{algo}_packed_replica_diff {label}: kernel != plain")
-            ms = self.time_ms(lambda: engine.kernel_replica_diff(algo, keys, REPLICAS_K, old,
-                                                                 new, **kw), reps=10, warmup=1)
-            ops = (self.mode_ops(algo, both, 2 * KEYS, n, REPLICAS_K) + 2 * REPLICAS_K * KEYS
-                   - self.pair_shared_ops(algo, keys, [both], old, new, "packed"))
-            by_mode["replica_diff"][f"{label} k={REPLICAS_K}"] = self.packed_entry(
-                f"{algo}_packed_replica_diff {label} k={REPLICAS_K}, moved "
-                f"{int(got[2].sum())}", e, ms, plain_ms, ops,
-                4 * KEYS * (2 + 2 * REPLICAS_K) + tb + ob, both)
-            if algo == "anchor":
-                log("  " + self.anchor_read_text(
-                    f"anchor_packed_replica_diff {label} k={REPLICAS_K}",
-                    anchor_words(both, 2 * KEYS), tb + ob, ms))
+            if algo == "memento":  # AnchorHash's: anchor_packed_diff_branches
+                both = {}
+                got = engine.kernel_replica_diff(algo, keys, REPLICAS_K, old, new, **kw)
+                want, plain_ms = self.timed_plain(lambda: engine.replica_diff_plain(
+                    algo, keys, REPLICAS_K, old, new, both, **kw))
+                e = max(err(g, w) for g, w in zip(got, want))
+                if e:
+                    raise AssertionError(f"{algo}_packed_replica_diff {label}: kernel != plain")
+                ms = self.time_ms(lambda: engine.kernel_replica_diff(
+                    algo, keys, REPLICAS_K, old, new, **kw), reps=10, warmup=1)
+                ops = (self.mode_ops(algo, both, 2 * KEYS, n, REPLICAS_K) + 2 * REPLICAS_K * KEYS
+                       - self.pair_shared_ops(algo, keys, [both], old, new, "packed"))
+                by_mode["replica_diff"][f"{label} k={REPLICAS_K}"] = self.packed_entry(
+                    f"{algo}_packed_replica_diff {label} k={REPLICAS_K}, moved "
+                    f"{int(got[2].sum())}", e, ms, plain_ms, ops,
+                    4 * KEYS * (2 + 2 * REPLICAS_K) + tb + ob, both)
 
             chain = keys
             probe = torch.zeros(KEYS, dtype=torch.int32, device=self.dev)

@@ -16,7 +16,8 @@ builds: old, each LABEL in order, new, then back; CUDA-event means over
 REPS launches, as ``chip_smoke.py`` times them); every build's outputs
 must equal the old build's over the whole batch, and the plain version
 on the first ``check`` keys.  Every build must export the same entries
-with the same arguments.
+with the same arguments, or lack an entry: that entry's cases then run on
+the builds that have it, held against the first of them.
 
 Prints one JSON line a case; ``--json PATH`` also writes them all to
 PATH; ``--only`` runs only the cases of the named entries, and builds only
@@ -161,6 +162,46 @@ def anchor_small_states(smoke):
     yield "int8 a=100", _narrowed(smoke, tiny)
 
 
+def anchor_packed_pairs(smoke):
+    """``chip_smoke.py``'s packed AnchorHash epoch pairs on the card, each
+    (name, old operands, new operands): at int16, a = 32000 with w = 8000
+    -> 20 removals and 5 restores later, and at int8 (by hand), a = 100
+    with 50 removed -> one removal later, both nesting; and after each, a
+    pair whose stacks part (:meth:`chip_smoke.Smoke.diverging_pair`)."""
+    def packed(img, dtype):
+        p = pack_image(img)
+        return engine.image_operands(DeviceImage(
+            p.algo, p.n, {k: (v.to(dtype) if k in ("A", "K") else v).to(smoke.dev)
+                          for k, v in p.arrays.items()}, dict(p.scalars), p.epoch, packed=True))
+
+    small = make_hash("anchor", cs.ANCHOR_W, capacity=cs.ANCHOR_A, variant="32")
+    old = packed(small.device_image(), torch.int16)
+    removals, restores = cs.SMALL_EVENTS
+    for v in smoke.rng.permutation(sorted(small.working_set()))[:removals].tolist():
+        small.remove(v)
+    for _ in range(restores):
+        small.add()
+    yield (f"int16 a=32000 -> {removals} removals, {restores} restores", old,
+           packed(small.device_image(), torch.int16))
+    yield "int16 a=32000 parted", *(packed(i, torch.int16) for i in smoke.diverging_pair(small))
+    tiny = make_hash("anchor", cs.TINY_N, capacity=cs.TINY_N, variant="32")
+    smoke.remove_fraction(tiny, 0.5)
+    old = packed(tiny.device_image(), torch.int8)
+    tiny.remove(sorted(tiny.working_set())[3])
+    yield "int8 a=100 -> 1 removal", old, packed(tiny.device_image(), torch.int8)
+    yield "int8 a=100 parted", *(packed(i, torch.int8) for i in smoke.diverging_pair(tiny))
+
+
+def nest_check_case(entry: str, state: str, old, new, table: str):
+    """The case of the check alone (``engine.anchor_nest_check``, C entry
+    ``entry``) over two epochs: its (verdict, N_S) against the plain
+    check's."""
+    want = torch.tensor(engine.anchor_nest_plain(old, new), dtype=torch.int32,
+                        device=old[0][0].device)
+    return (entry, state, lambda keys: engine.anchor_nest_check(old, new, table=table),
+            lambda keys: want, None)
+
+
 def anchor_cases(smoke, keys_np, anchor):
     """The cases of the entries that share ``anchor_one``, beyond the
     replica sets' (:func:`shared_walk_sets`): ``anchor_lookup`` stable and
@@ -171,8 +212,12 @@ def anchor_cases(smoke, keys_np, anchor):
     stable (a restore: the newer epoch the shallower) and between two
     one-shot states whose stacks part (two walks), each beside its check's
     verdict and words a key (also printed for stable -> one-shot, whose case
-    is :func:`shared_walk_sets`'), and ``anchor_packed_lookup`` and
-    ``anchor_packed_walk`` (half the lanes pending) at int16 and int8."""
+    is :func:`shared_walk_sets`'), and its check alone (``anchor_nest_check``)
+    stable -> one-shot and on the parted pair; ``anchor_packed_lookup`` and
+    ``anchor_packed_walk`` (half the lanes pending) at int16 and int8; and
+    ``anchor_packed_diff``, ``anchor_packed_replica_diff`` (k = 3) and their
+    check alone (``anchor_packed_nest_check``) on :func:`anchor_packed_pairs`,
+    each pair beside its check's verdict and words a key."""
     for name in ("stable", "one-shot"):
         yield ("anchor_lookup", name,
                lambda keys, t=anchor[name][:2]: engine.kernel_lookup("anchor", keys, *t),
@@ -198,7 +243,9 @@ def anchor_cases(smoke, keys_np, anchor):
     for old, new in (("stable", "one-shot"), ("one-shot", "stable"),
                      ("one-shot + 1 removal", "one-shot + another removal")):
         e = (anchor[old][:2], anchor[new][:2])
-        anchor_pair_model(keys_np, *e, f"{old} -> {new}")
+        anchor_pair_model(keys_np, *e, f"{old} -> {new}", cs.REPLICAS_K)
+        if old != "one-shot":
+            yield nest_check_case("anchor_nest_check", f"{old} -> {new}", *e, "dense")
         if old == "stable":
             continue  # that case is shared_walk_sets'
         yield ("anchor_replica_diff", f"{old} -> {new} k={cs.REPLICAS_K}",
@@ -217,6 +264,19 @@ def anchor_cases(smoke, keys_np, anchor):
                lambda keys, w=w: engine.walk_plain("anchor", keys, probe[:len(keys)],
                                                    mixed[:len(keys)], *w, table="packed"),
                None)
+    kw = {"table": "packed"}
+    for name, *e in anchor_packed_pairs(smoke):
+        for k in (1, cs.REPLICAS_K):
+            anchor_pair_model(keys_np, *e, name, k)
+        yield nest_check_case("anchor_packed_nest_check", name, *e, "packed")
+        yield ("anchor_packed_diff", name,
+               lambda keys, e=e: engine.kernel_diff("anchor", keys, *e, **kw),
+               lambda keys, e=e: engine.diff_plain("anchor", keys, *e, **kw), None)
+        yield ("anchor_packed_replica_diff", f"{name} k={cs.REPLICAS_K}",
+               lambda keys, e=e: engine.kernel_replica_diff("anchor", keys, cs.REPLICAS_K, *e,
+                                                            **kw),
+               lambda keys, e=e: engine.replica_diff_plain("anchor", keys, cs.REPLICAS_K, *e,
+                                                           **kw), None)
 
 
 def anchor_walk_model(chain, probe, pending, walk, label: str) -> None:
@@ -230,20 +290,26 @@ def anchor_walk_model(chain, probe, pending, walk, label: str) -> None:
           + json.dumps(cs.walk_slots(trips)), flush=True)
 
 
-def anchor_pair_model(keys_np, old, new, label: str) -> None:
-    """Print ``anchor_replica_diff``'s check verdict (the plain check) and
-    the words a key of its walks (``chip_smoke.anchor_words``): the pair
-    model's one walk where the epochs nest, each epoch's walk where they do
-    not, over the first PREFIX keys."""
+def anchor_pair_model(keys_np, old, new, label: str, k: int) -> None:
+    """Print the check's verdict (the plain check) of an AnchorHash diff at k
+    slots (dense or packed epochs) and the words a key of its walks
+    (``chip_smoke.anchor_words``): the pair model's one walk where the
+    epochs nest, each epoch's walk where they do not, over the first PREFIX
+    keys."""
     keys = engine.key_tensor(keys_np[:PREFIX], old[0][0].device)
     verdict = engine.anchor_nest_plain(old, new)
     work: dict = {}
-    if verdict[0] == engine.NEST_NONE:
-        engine.replica_diff_plain("anchor", keys, cs.REPLICAS_K, old, new, work)
+    if verdict[0] == engine.NEST_NONE and k == 1:
+        engine.diff_plain("anchor", keys, old, new, work)
+    elif verdict[0] == engine.NEST_NONE:
+        engine.replica_diff_plain("anchor", keys, k, old, new, work)
+    elif k == 1:
+        engine.anchor_pair_diff_plain(keys, old, new, work)
     else:
-        engine.anchor_pair_replica_diff_plain(keys, cs.REPLICAS_K, old, new, work)
-    print(f"anchor_replica_diff {label}: check {verdict}; "
-          f"{cs.anchor_words(work, PREFIX) / PREFIX:.4f} words a key in its walks "
+        engine.anchor_pair_replica_diff_plain(keys, k, old, new, work)
+    walks = PREFIX if verdict[0] != engine.NEST_NONE else 2 * PREFIX
+    print(f"anchor diff k={k} {label}: check {verdict}; "
+          f"{cs.anchor_words(work, walks) / PREFIX:.4f} words a key in its walks "
           f"({ {k: round(v / PREFIX, 4) for k, v in work.items()} } a key)", flush=True)
 
 
@@ -598,6 +664,15 @@ def _kernel_lines(ptxas: str, names: list[str]) -> list[str]:
     return lines
 
 
+def _exports(csrc: Path, entry: str) -> bool:
+    """Whether the build of directory ``csrc`` has the C entry ``entry`` (a
+    case of an entry that an older build lacks runs on the others)."""
+    with using(csrc):
+        return any(hasattr(build.load(name, sigs), entry)
+                   for name, sigs in (("engine", engine._SIGNATURES),
+                                      ("delta_apply", da._SIGNATURES)))
+
+
 @contextlib.contextmanager
 def using(csrc: Path):
     """Within the block, the wrappers run the SOURCES of directory ``csrc``."""
@@ -638,17 +713,19 @@ def main(argv: list[str]) -> int:
     for entry, state, call, plain, check in cases(smoke, keys_np, only):
         if only is not None and entry not in only:
             continue
+        runs = {label: src for label, src in builds.items() if _exports(src, entry)}
         got = {}
-        for label, src in builds.items():
+        for label, src in runs.items():
             with using(src):
                 got[label] = call(keys)
+        first = next(iter(got.values()))
         want = plain(keys[:check])
         for label, o in got.items():
-            if not _equal(o, got["old"]) or not _equal(_head(o, check), want):
-                raise AssertionError(f"{entry} {state}: {label} != old / plain")
-        ms: dict = {label: [] for label in builds}
-        for label in [*builds, *reversed(builds)]:
-            with using(builds[label]):
+            if not _equal(o, first) or not _equal(_head(o, check), want):
+                raise AssertionError(f"{entry} {state}: {label} != {next(iter(got))} / plain")
+        ms: dict = {label: [] for label in runs}
+        for label in [*runs, *reversed(runs)]:
+            with using(runs[label]):
                 ms[label].append(smoke.time_ms(lambda: call(keys), reps=REPS))
         row = {"entry": entry, "state": state, "ms": ms}
         rows.append(row)

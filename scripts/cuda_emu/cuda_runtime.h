@@ -1,9 +1,9 @@
 // Stub of the CUDA runtime for running the port's csrc/*.cu on the CPU (see
 // build.py): no device; every launch runs its blocks one after another, and
 // a block's threads as fibers on one OS thread.  A fiber runs until it
-// meets a warp collective (__ballot_sync, __any_sync, __shfl_sync), where
-// it waits for the rest of its warp, or a __syncthreads, where it waits for
-// the rest of its block.  A round in which no fiber moves is a deadlock (a
+// meets a warp collective (__ballot_sync, __any_sync, __shfl_sync,
+// __reduce_*_sync), where it waits for the rest of its warp, or a
+// __syncthreads, where it waits for the rest of its block.  A round in which no fiber moves is a deadlock (a
 // collective or barrier that a thread never reaches, having exited or
 // diverged): the process aborts with a message.  Warp collectives take the
 // full-warp mask only.
@@ -150,6 +150,26 @@ inline unsigned __ballot_sync(unsigned mask, int pred) {
   return r;
 }
 inline int __any_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) != 0; }
+// __reduce_{min,max,or}_sync: the reduction of one 32-bit value over the
+// warp's threads
+template <class T, class F>
+T emu_reduce(unsigned mask, T value, F f) {
+  unsigned long long v[32];
+  emu::exchange(mask, static_cast<unsigned long long>(static_cast<uint32_t>(value)), v);
+  T r = static_cast<T>(static_cast<uint32_t>(v[0]));
+  const unsigned size = emu::warp_size(threadIdx.x / 32);
+  for (unsigned i = 1; i < size; ++i) r = f(r, static_cast<T>(static_cast<uint32_t>(v[i])));
+  return r;
+}
+inline int __reduce_min_sync(unsigned mask, int value) {
+  return emu_reduce(mask, value, [](int x, int y) { return y < x ? y : x; });
+}
+inline int __reduce_max_sync(unsigned mask, int value) {
+  return emu_reduce(mask, value, [](int x, int y) { return y > x ? y : x; });
+}
+inline unsigned __reduce_or_sync(unsigned mask, unsigned value) {
+  return emu_reduce(mask, value, [](unsigned x, unsigned y) { return x | y; });
+}
 template <class T>
 T __shfl_sync(unsigned mask, T var, int src, int width = 32) {
   unsigned long long bits = 0;
@@ -184,4 +204,23 @@ void emu_launch(dim3 g, dim3 b, K k, A... a) {
     blockIdx = dim3(bx);
     emu::run_block();
   }
+}
+
+// cudaLaunchKernelEx runs the kernel as a plain launch: launches run one
+// after another here, so a programmatic dependent launch has nothing to
+// overlap.
+enum cudaLaunchAttributeID { cudaLaunchAttributeProgrammaticStreamSerialization = 5 };
+union cudaLaunchAttributeValue { int programmaticStreamSerializationAllowed; };
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... E, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*k)(E...), A&&... a) {
+  emu_launch(c->gridDim, c->blockDim, k, static_cast<E>(a)...);
+  return cudaSuccess;
 }

@@ -75,6 +75,18 @@
 // is one fmix32.  A diff of two epochs of one L runs both lookups on one
 // top sequence and one descent (power_pair_diff_kernel).
 //
+// An AnchorHash diff of two epochs of one a (anchor_replica_diff,
+// anchor_packed_diff, anchor_packed_replica_diff) first checks on the card
+// whether their removal stacks nest: anchor_nest_kernel, a grid over both
+// epochs' A and K after a memset; for a <= 2^15 (every int8 and int16
+// table) anchor_nest_part_kernel, one bucket a thread and no memset, its
+// blocks' sums reduced by anchor_nest_verdict_kernel.  The pair kernel, a
+// programmatic dependent launch (its launch overlaps the check), then
+// looks both epochs up on one walk through the deeper epoch's tables, of
+// that epoch's width (anchor_nested), or, where they do not nest, walks
+// each epoch.  Epochs of any widths; the dense anchor_diff keeps
+// diff_kernel.
+//
 // Memento's Alg. 4 reads repl(d) once: the inner loop's last read is the
 // next pass's (memento_from), one round trip a pass fewer than the
 // reference's loop.  A k = 1 Memento diff of two epochs of one n runs both
@@ -89,20 +101,19 @@
 //                            {algo}_replica but dx_replica at G >= 2, dense,
 //                            packed and compact, and the replica diffs
 //                            whose epochs share nothing (DxHash below G =
-//                            8, JumpHash, PowerHash, packed AnchorHash,
-//                            AnchorHash epochs that do not nest, Memento
-//                            at two n).  Unbounded and bounded are two
+//                            8, JumpHash, PowerHash, AnchorHash epochs
+//                            that do not nest or are of two a, Memento at
+//                            two n).  Unbounded and bounded are two
 //                            instances, each with the loop that ran
 //                            fastest for it.
 //   replica_pair_row         the Memento replica diffs of one n: both
 //                            epochs' rows on one salt walk, each salt's
 //                            jump32 run once for both, both epochs' first
 //                            reads in flight together.
-//   anchor_pair_row          the AnchorHash replica diffs whose epochs
-//                            nest (one removal stack a prefix of the
-//                            other's, which a check pass over both
-//                            epochs' A and K finds on the card,
-//                            anchor_nest_kernel): both rows on one salt
+//   anchor_pair_row          the AnchorHash replica diffs, dense and
+//                            packed, whose epochs nest (one removal stack
+//                            a prefix of the other's, which the check
+//                            finds on the card): both rows on one salt
 //                            walk, each salt looked up in both epochs by
 //                            one walk through the deeper epoch's tables
 //                            (anchor_nested).  Epochs that do not nest
@@ -223,7 +234,16 @@
 // groups grow), the lowest draw that ends something taken by a ballot and
 // a shuffle (27 registers): lookups +42 to +57 %, diffs +35 to +62 %.  A
 // round compiled to about 100 instructions where one level costs about
-// 21, and a warp's deepest key descends only ~5.4 levels.
+// 21, and a warp's deepest key descends only ~5.4 levels.  For the check of
+// the packed AnchorHash diffs (alone, int16 a = 32000 / int8 a = 100;
+// against the parted check with dependent launches, 0.004170 / 0.002582
+// ms): anchor_nest_kernel's grid, 16 buckets a thread one after another
+// after a memset (0.010467 / 0.005346 ms), the same grid at one bucket a
+// thread over up to 132 SMs (0.006009 / 0.005416), one block of 1024
+// threads reading every bucket, 8 buckets' words loaded before any compare
+// (0.010401 / 0.003056: one SM's loads in flight set it), and the parted
+// check launched without the dependent attribute (0.004966 / 0.002582; the
+// int16 k = 1 diff 7.2 % slower).
 //
 // Arithmetic: uint32 words wrap mod 2^32 and % is unsigned, as in the
 // reference.  The jump32 step uses __fdiv_rn / __fadd_rn / __fmul_rn, so
@@ -417,17 +437,20 @@ __device__ __forceinline__ int32_t anchor_one(uint32_t key, const T* __restrict_
 // shallower epoch's lookup is then the deeper epoch's walk read with
 // "removed" meaning A[b] >= n_shallow: the walk's first bucket stamped
 // below n_shallow (`shallow`).  The deeper epoch's lookup goes on from
-// there while A[b] > 0 (`deep`, walked only when `want_deep`).
-__device__ __forceinline__ void anchor_nested(uint32_t key, const int32_t* __restrict__ A,
-                                              const int32_t* __restrict__ K, int32_t a,
+// there while A[b] > 0 (`deep`, walked only when `want_deep`).  T is the
+// deeper epoch's element type; every A word is widened to int32 before it
+// is compared with n_shallow, so a negative word stays negative.
+template <class T>
+__device__ __forceinline__ void anchor_nested(uint32_t key, const T* __restrict__ A,
+                                              const T* __restrict__ K, int32_t a,
                                               int32_t n_shallow, bool want_deep,
                                               int32_t& shallow, int32_t& deep) {
   int32_t b = static_cast<int32_t>(fmix32(key) % static_cast<uint32_t>(a));
-  int32_t ab = A[b];
-  for (; ab >= n_shallow; ab = A[b]) b = anchor_step(key, A, K, b, ab);
+  int32_t ab = static_cast<int32_t>(A[b]);
+  for (; ab >= n_shallow; ab = static_cast<int32_t>(A[b])) b = anchor_step(key, A, K, b, ab);
   shallow = b;
   if (!want_deep) return;
-  for (; ab > 0; ab = A[b]) b = anchor_step(key, A, K, b, ab);
+  for (; ab > 0; ab = static_cast<int32_t>(A[b])) b = anchor_step(key, A, K, b, ab);
   deep = b;
 }
 
@@ -876,34 +899,102 @@ __global__ void memento_pair_diff_kernel(const uint32_t* __restrict__ keys,
 // give both epochs' lookups, whatever the arrays' history; epochs whose
 // removal stacks extend one another satisfy them, N_S then being S's
 // working count.  kNestNone: they do not nest (diverging stacks); else the
-// older or the newer epoch is S.
+// older or the newer epoch is S.  The two epochs may differ in width: every
+// A and K word is widened to int32 as it is read.
 constexpr int32_t kNestNone = 0, kNestOldShallow = 1, kNestNewShallow = 2;
 
 // The check's per-call workspace, kNestWords words the caller passes (the
-// tail of anchor_replica_diff's moved) and the check zeroes before it runs,
-// so that no two calls share state.  The last block of the check writes the
-// verdict and N_S, which the pair kernel reads.  Before that, for each
-// candidate S (old, new): the least positive A, as 0xFFFFFFFF - A; the
-// largest A of the other epoch where S's is not positive, as A ^ 0x80000000
-// (both unsigned maxima, so that 0 stands for none); whether any bucket S
-// removed differs in the other; and blocks_done, the blocks that added
-// theirs.
+// tail of the diff's moved), so that no two calls share state.  The check
+// writes the verdict and N_S, which the pair kernel reads.  The grid check
+// (anchor_nest_kernel) zeroes the workspace's head first and keeps there,
+// for each candidate S (old, new): the least positive A, as 0xFFFFFFFF -
+// A; the largest A of the other epoch where S's is not positive, as A ^
+// 0x80000000 (both unsigned maxima, so that 0 stands for none); whether any
+// bucket S removed differs in the other; and blocks_done, the blocks that
+// added theirs.  The parted check (anchor_nest_part_kernel) needs no
+// zeroing: each of its blocks writes its own sums into `part` (least,
+// most, differs of each candidate), which anchor_nest_verdict_kernel
+// reduces.
+constexpr int kNestParts = 32;  // blocks of the parted check at most
 struct NestWork {
   int32_t verdict, n_shallow;
   uint32_t least[2], most[2], differs[2], blocks_done;
+  int32_t part[6][kNestParts];
 };
-constexpr int kNestWords = 9;
+constexpr int kNestWords = 201;
 static_assert(sizeof(NestWork) == 4 * kNestWords, "NestWork is kNestWords words");
-constexpr int kNestItems = 16;  // buckets a thread of the check reads
+constexpr int kNestItems = 16;  // buckets a thread of the grid check reads
+// The parted check serves tables of at most kNestBlockMax buckets, every
+// int8 and int16 table: one bucket a thread, kNestPartThreads a block.
+constexpr int kNestPartThreads = 1024;
+constexpr int32_t kNestBlockMax = 1 << 15;
+static_assert(kNestBlockMax == kNestParts * kNestPartThreads, "a part a block");
 
-// The check, in one pass over both epochs' A and, where either removed a
-// bucket, both Ks: each block sums its buckets in shared memory, then into
-// the workspace `work`; the last block to finish writes the verdict.
-__global__ void anchor_nest_kernel(const int32_t* __restrict__ A_old,
-                                   const int32_t* __restrict__ K_old,
-                                   const int32_t* __restrict__ A_new,
-                                   const int32_t* __restrict__ K_new, int32_t a,
-                                   NestWork* work) {
+// Programmatic dependent launch (sm_90).  A kernel that launch_dependent
+// launches may begin before the kernel ahead of it on the stream ends; it
+// waits in grid_dependency_wait, before it reads what that kernel writes,
+// until that kernel has ended and its writes are visible.  A kernel lets
+// the one after it begin with grid_launch_dependents.
+__device__ __forceinline__ void grid_dependency_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+#endif
+}
+__device__ __forceinline__ void grid_launch_dependents() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+#endif
+}
+
+// Adds one bucket, whose As are ao and an (widened), to a thread's sums for
+// both candidates S (index 0: the older epoch, 1: the newer); kdiff() says
+// whether its Ks differ, asked only where an epoch removed it.
+template <class KDiff>
+__device__ __forceinline__ void nest_add(int32_t ao, int32_t an, KDiff kdiff,
+                                         int32_t least[2], int32_t most[2],
+                                         int32_t differs[2]) {
+  if (ao > 0) {
+    if (ao < least[0]) least[0] = ao;
+  } else if (an > most[0]) {
+    most[0] = an;
+  }
+  if (an > 0) {
+    if (an < least[1]) least[1] = an;
+  } else if (ao > most[1]) {
+    most[1] = ao;
+  }
+  if ((ao > 0 || an > 0) && (ao != an || kdiff())) {
+    differs[0] |= ao > 0;
+    differs[1] |= an > 0;
+  }
+}
+
+// The verdict and N_S from the whole table's sums (least: the least
+// positive A of S, 0xFFFFFFFF for none; most: the largest A of the other
+// epoch where S's is not positive, INT32_MIN for none), into `work`.
+__device__ __forceinline__ void nest_verdict(const uint32_t least[2], const int32_t most[2],
+                                             const uint32_t differs[2], int32_t a,
+                                             NestWork* work) {
+  int32_t verdict = kNestNone, n_shallow = 0;
+  for (int e = 1; e >= 0; --e) {  // equal epochs: the older one as S
+    const int32_t n = least[e] < static_cast<uint32_t>(a) ? static_cast<int32_t>(least[e]) : a;
+    if (!differs[e] && most[e] < n) {
+      verdict = e == 0 ? kNestOldShallow : kNestNewShallow;
+      n_shallow = n;
+    }
+  }
+  work->verdict = verdict;
+  work->n_shallow = n_shallow;
+}
+
+// The check over a grid, in one pass over both epochs' A and, where either
+// removed a bucket, both Ks: each block sums its buckets in shared memory,
+// then into the workspace `work`, zeroed before the launch; the last block
+// to finish writes the verdict.
+template <class TO, class TN>
+__global__ void anchor_nest_kernel(const TO* __restrict__ A_old, const TO* __restrict__ K_old,
+                                   const TN* __restrict__ A_new, const TN* __restrict__ K_new,
+                                   int32_t a, NestWork* work) {
   __shared__ int32_t s[6];
   if (threadIdx.x < 6)
     s[threadIdx.x] = threadIdx.x < 2 ? INT32_MAX : threadIdx.x < 4 ? INT32_MIN : 0;
@@ -913,21 +1004,9 @@ __global__ void anchor_nest_kernel(const int32_t* __restrict__ A_old,
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; b < a;
        b += stride) {
-    const int32_t ao = A_old[b], an = A_new[b];
-    if (ao > 0) {
-      if (ao < least[0]) least[0] = ao;
-    } else if (an > most[0]) {
-      most[0] = an;
-    }
-    if (an > 0) {
-      if (an < least[1]) least[1] = an;
-    } else if (ao > most[1]) {
-      most[1] = ao;
-    }
-    if ((ao > 0 || an > 0) && (ao != an || K_old[b] != K_new[b])) {
-      differs[0] |= ao > 0;
-      differs[1] |= an > 0;
-    }
+    nest_add(static_cast<int32_t>(A_old[b]), static_cast<int32_t>(A_new[b]),
+             [&] { return static_cast<int32_t>(K_old[b]) != static_cast<int32_t>(K_new[b]); },
+             least, most, differs);
   }
   for (int e = 0; e < 2; ++e) {
     atomicMin(&s[e], least[e]);
@@ -944,19 +1023,83 @@ __global__ void anchor_nest_kernel(const int32_t* __restrict__ A_old,
   __threadfence();
   if (atomicAdd(&work->blocks_done, 1u) != gridDim.x - 1) return;
   __threadfence();  // every other block's sums are in
-  int32_t verdict = kNestNone, n_shallow = 0;
-  for (int e = 1; e >= 0; --e) {  // equal epochs: the older one as S
-    const uint32_t stamp = 0xFFFFFFFFu - atomicAdd(&work->least[e], 0u);
-    const int32_t n = stamp < static_cast<uint32_t>(a) ? static_cast<int32_t>(stamp) : a;
-    const int32_t most_other =
-        static_cast<int32_t>(atomicAdd(&work->most[e], 0u) ^ 0x80000000u);
-    if (!atomicAdd(&work->differs[e], 0u) && most_other < n) {
-      verdict = e == 0 ? kNestOldShallow : kNestNewShallow;
-      n_shallow = n;
+  uint32_t all_least[2], all_differs[2];
+  int32_t all_most[2];
+  for (int e = 0; e < 2; ++e) {
+    all_least[e] = 0xFFFFFFFFu - atomicAdd(&work->least[e], 0u);
+    all_most[e] = static_cast<int32_t>(atomicAdd(&work->most[e], 0u) ^ 0x80000000u);
+    all_differs[e] = atomicAdd(&work->differs[e], 0u);
+  }
+  nest_verdict(all_least, all_most, all_differs, a, work);
+}
+
+// The check for a <= kNestBlockMax, in ceil(a / kNestPartThreads) blocks
+// of one bucket a thread, whose four words (both As and both Ks, whether
+// needed or not) it loads at once.  Each warp reduces its sums in one
+// instruction a sum, the block in shared memory.  A single block writes
+// the verdict itself; more write their sums into the workspace's parts,
+// which anchor_nest_verdict_kernel reduces.  No memset, no atomics across
+// blocks; every block lets the kernel after it begin its launch.
+template <class TO, class TN>
+__global__ void __launch_bounds__(kNestPartThreads)
+    anchor_nest_part_kernel(const TO* __restrict__ A_old, const TO* __restrict__ K_old,
+                            const TN* __restrict__ A_new, const TN* __restrict__ K_new,
+                            int32_t a, NestWork* work) {
+  grid_launch_dependents();
+  __shared__ int32_t s[6];
+  if (threadIdx.x < 6)
+    s[threadIdx.x] = threadIdx.x < 2 ? INT32_MAX : threadIdx.x < 4 ? INT32_MIN : 0;
+  __syncthreads();
+  int32_t least[2] = {INT32_MAX, INT32_MAX}, most[2] = {INT32_MIN, INT32_MIN};
+  int32_t differs[2] = {0, 0};
+  const int32_t b = static_cast<int32_t>(blockIdx.x) * kNestPartThreads +
+                    static_cast<int32_t>(threadIdx.x);
+  if (b < a) {
+    const int32_t ao = A_old[b], an = A_new[b], ko = K_old[b], kn = K_new[b];
+    nest_add(ao, an, [&] { return ko != kn; }, least, most, differs);
+  }
+  for (int e = 0; e < 2; ++e) {
+    least[e] = __reduce_min_sync(0xFFFFFFFFu, least[e]);
+    most[e] = __reduce_max_sync(0xFFFFFFFFu, most[e]);
+    differs[e] = static_cast<int32_t>(
+        __reduce_or_sync(0xFFFFFFFFu, static_cast<uint32_t>(differs[e])));
+  }
+  if ((threadIdx.x & 31u) == 0) {
+    for (int e = 0; e < 2; ++e) {
+      atomicMin(&s[e], least[e]);
+      atomicMax(&s[2 + e], most[e]);
+      atomicOr(&s[4 + e], differs[e]);
     }
   }
-  work->verdict = verdict;
-  work->n_shallow = n_shallow;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  if (gridDim.x == 1) {
+    const uint32_t all_least[2] = {static_cast<uint32_t>(s[0]), static_cast<uint32_t>(s[1])};
+    const int32_t all_most[2] = {s[2], s[3]};
+    const uint32_t all_differs[2] = {static_cast<uint32_t>(s[4]), static_cast<uint32_t>(s[5])};
+    nest_verdict(all_least, all_most, all_differs, a, work);
+    return;
+  }
+  for (int j = 0; j < 6; ++j) work->part[j][blockIdx.x] = s[j];
+}
+
+// The verdict from the parted check's `parts` blocks' sums: one warp,
+// launched by launch_dependent after anchor_nest_part_kernel.
+__global__ void anchor_nest_verdict_kernel(NestWork* work, int32_t parts, int32_t a) {
+  grid_launch_dependents();
+  grid_dependency_wait();
+  const uint32_t l = threadIdx.x;
+  const bool in = l < static_cast<uint32_t>(parts);
+  uint32_t least[2], differs[2];
+  int32_t most[2];
+  for (int e = 0; e < 2; ++e) {
+    least[e] = static_cast<uint32_t>(
+        __reduce_min_sync(0xFFFFFFFFu, in ? work->part[e][l] : INT32_MAX));
+    most[e] = __reduce_max_sync(0xFFFFFFFFu, in ? work->part[2 + e][l] : INT32_MIN);
+    differs[e] = __reduce_or_sync(0xFFFFFFFFu,
+                                  in ? static_cast<uint32_t>(work->part[4 + e][l]) : 0u);
+  }
+  if (l == 0) nest_verdict(least, most, differs, a, work);
 }
 
 // Both AnchorHash epochs' rows of one key on one salt walk, the epochs
@@ -965,8 +1108,9 @@ __global__ void anchor_nest_kernel(const int32_t* __restrict__ A_old,
 // the deeper epoch's tables `deep`; a salt only the shallower row still
 // needs stops at the shallower answer.  s and d are the shallower and the
 // deeper epoch's rows.
+template <class T>
 __device__ void anchor_pair_row(uint32_t key, int32_t* s, int32_t* d, int32_t k,
-                                const AnchorT<int32_t>& deep, int32_t n_shallow) {
+                                const AnchorT<T>& deep, int32_t n_shallow) {
   int32_t js = 0, jd = 0;
   for (int32_t salt = 0; salt <= kReplicaSaltCap && (js < k || jd < k); ++salt) {
     const bool gs = js < k, gd = jd < k;
@@ -980,20 +1124,22 @@ __device__ void anchor_pair_row(uint32_t key, int32_t* s, int32_t* d, int32_t k,
   row_keep_first(d, jd, k, d[0]);
 }
 
-// anchor_replica_diff after its check: the verdict in `work`, one for the
-// launch, picks the pair walk through the deeper epoch's tables, or, for
-// epochs that do not nest, each epoch's replica_row (replica_diff_kernel's
-// rows).
+// anchor_replica_diff and anchor_packed_replica_diff after their check: the
+// verdict in `work`, one for the launch, picks the pair walk through the
+// deeper epoch's tables (of its own width), or, for epochs that do not
+// nest, each epoch's replica_row (replica_diff_kernel's rows).
+template <class TO, class TN>
 __global__ void anchor_pair_replica_diff_kernel(const uint32_t* __restrict__ keys,
                                                 int32_t* old_out, int32_t* new_out,
                                                 int32_t* __restrict__ moved, int64_t count,
-                                                int32_t k, AnchorT<int32_t> old_body,
-                                                AnchorT<int32_t> new_body,
+                                                int32_t k, AnchorT<TO> old_body,
+                                                AnchorT<TN> new_body,
                                                 const NestWork* __restrict__ work) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= count) return;
-  const NestWork& nest = *work;
   const uint32_t key = keys[i];
+  grid_dependency_wait();  // the check's verdict
+  const NestWork& nest = *work;
   int32_t* o = old_out + i * k;
   int32_t* w = new_out + i * k;
   if (nest.verdict == kNestOldShallow) {
@@ -1005,6 +1151,35 @@ __global__ void anchor_pair_replica_diff_kernel(const uint32_t* __restrict__ key
     replica_row<false>(key, w, k, new_body, nullptr, 0);
   }
   moved[i] = row_moved(o, w, k);
+}
+
+// anchor_packed_diff after its check: for nesting epochs both lookups of a
+// key on one anchor_nested walk through the deeper epoch's tables; else
+// each epoch's anchor_one, as diff_kernel runs them.
+template <class TO, class TN>
+__global__ void anchor_pair_diff_kernel(const uint32_t* __restrict__ keys,
+                                        int32_t* __restrict__ old_out,
+                                        int32_t* __restrict__ new_out,
+                                        int32_t* __restrict__ moved, int64_t count,
+                                        AnchorT<TO> old_body, AnchorT<TN> new_body,
+                                        const NestWork* __restrict__ work) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const uint32_t key = keys[i];
+  grid_dependency_wait();  // the check's verdict
+  const NestWork& nest = *work;
+  int32_t o, w;
+  if (nest.verdict == kNestOldShallow) {
+    anchor_nested(key, new_body.A, new_body.K, new_body.a, nest.n_shallow, true, o, w);
+  } else if (nest.verdict == kNestNewShallow) {
+    anchor_nested(key, old_body.A, old_body.K, old_body.a, nest.n_shallow, true, w, o);
+  } else {
+    o = old_body(key);
+    w = new_body(key);
+  }
+  old_out[i] = o;
+  new_out[i] = w;
+  moved[i] = o != w;
 }
 
 // chain_walk_body: b = lookup(chain) for every lane; a pending lane steps
@@ -1283,28 +1458,66 @@ int launch_walk(const void* chain, const void* probe, const void* pending, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// anchor_nest_kernel over two AnchorHash epochs of one a, its workspace
-// `work` zeroed first.
-int launch_anchor_nest(AnchorT<int32_t> old_body, AnchorT<int32_t> new_body, NestWork* work,
+// Launches kernel k as a dependent of the kernel ahead of it on the stream
+// (programmatic dependent launch): its launch may overlap that kernel,
+// and k waits for it in grid_dependency_wait.
+template <class... Params, class... Args>
+int launch_dependent(void (*k)(Params...), unsigned int blocks, unsigned int threads,
+                     void* stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = 0;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&config, k, static_cast<Params>(args)...));
+}
+
+// The check over two AnchorHash epochs of one a (of any widths) into the
+// call's workspace `work`: for a <= kNestBlockMax the parted check (one
+// block, or more and the verdict kernel after them), else the grid
+// (anchor_nest_kernel, the workspace zeroed first).
+template <class TO, class TN>
+int launch_anchor_nest(AnchorT<TO> old_body, AnchorT<TN> new_body, NestWork* work,
                        void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t a = old_body.a;
+  if (a <= kNestBlockMax) {
+    const int32_t parts = (a + kNestPartThreads - 1) / kNestPartThreads;
+    anchor_nest_part_kernel<TO, TN><<<parts, kNestPartThreads, 0, s>>>(
+        old_body.A, old_body.K, new_body.A, new_body.K, a, work);
+    const int rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0 || parts == 1) return rc;
+    return launch_dependent(anchor_nest_verdict_kernel, 1, 32, stream, work, parts, a);
+  }
   const long long per_block = static_cast<long long>(kThreads) * kNestItems;
-  cudaMemsetAsync(work, 0, sizeof(NestWork), static_cast<cudaStream_t>(stream));
-  anchor_nest_kernel<<<static_cast<unsigned int>((old_body.a + per_block - 1) / per_block),
-                       kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      old_body.A, old_body.K, new_body.A, new_body.K, old_body.a, work);
+  cudaMemsetAsync(work, 0, sizeof(NestWork), s);
+  anchor_nest_kernel<TO, TN><<<static_cast<unsigned int>((a + per_block - 1) / per_block),
+                               kThreads, 0, s>>>(old_body.A, old_body.K, new_body.A,
+                                                 new_body.K, a, work);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The check's workspace of an AnchorHash diff: the tail of `moved`, which
+// holds count + kNestWords words, so that the entry's arguments stay every
+// diff entry's.  Of two a the epochs share no walk, and the verdict is
+// zeroed (kNestNone).
+NestWork* nest_work(void* moved, long long count) {
+  return reinterpret_cast<NestWork*>(static_cast<int32_t*>(moved) + count);
 }
 
 // Two AnchorHash epochs of one a: the check, then the pair kernel, which
 // takes the nested walk or each epoch's replica_row as the check found.  Of
-// two a, the epochs share no walk: replica_diff_kernel, the verdict zeroed
-// (kNestNone).  `moved` holds count + kNestWords words, its tail the
-// check's workspace, so that the entry's arguments stay every
-// replica_diff entry's.
+// two a: replica_diff_kernel.
+template <class TO, class TN>
 int launch_anchor_replica_diff(const void* keys, void* old_out, void* new_out, void* moved,
-                               long long count, int k, AnchorT<int32_t> old_body,
-                               AnchorT<int32_t> new_body, void* stream) {
-  NestWork* work = reinterpret_cast<NestWork*>(static_cast<int32_t*>(moved) + count);
+                               long long count, int k, AnchorT<TO> old_body,
+                               AnchorT<TN> new_body, void* stream) {
+  NestWork* work = nest_work(moved, count);
   if (old_body.a != new_body.a) {
     cudaMemsetAsync(work, 0, sizeof(NestWork), static_cast<cudaStream_t>(stream));
     return launch_replica_diff(keys, old_out, new_out, moved, count, k, old_body, new_body,
@@ -1312,12 +1525,26 @@ int launch_anchor_replica_diff(const void* keys, void* old_out, void* new_out, v
   }
   const int rc = launch_anchor_nest(old_body, new_body, work, stream);
   if (rc != 0) return rc;
-  anchor_pair_replica_diff_kernel<<<blocks_for(count), kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(keys), static_cast<int32_t*>(old_out),
-      static_cast<int32_t*>(new_out), static_cast<int32_t*>(moved), count, k, old_body,
-      new_body, work);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dependent(anchor_pair_replica_diff_kernel<TO, TN>, blocks_for(count), kThreads,
+                          stream, keys, old_out, new_out, moved, count, k, old_body, new_body,
+                          work);
+}
+
+// The k = 1 diff of two packed AnchorHash epochs of one a: the check, then
+// anchor_pair_diff_kernel.  Of two a: diff_kernel.
+template <class TO, class TN>
+int launch_anchor_diff(const void* keys, void* old_out, void* new_out, void* moved,
+                       long long count, AnchorT<TO> old_body, AnchorT<TN> new_body,
+                       void* stream) {
+  NestWork* work = nest_work(moved, count);
+  if (old_body.a != new_body.a) {
+    cudaMemsetAsync(work, 0, sizeof(NestWork), static_cast<cudaStream_t>(stream));
+    return launch_diff(keys, old_out, new_out, moved, count, old_body, new_body, stream);
+  }
+  const int rc = launch_anchor_nest(old_body, new_body, work, stream);
+  if (rc != 0) return rc;
+  return launch_dependent(anchor_pair_diff_kernel<TO, TN>, blocks_for(count), kThreads, stream,
+                          keys, old_out, new_out, moved, count, old_body, new_body, work);
 }
 
 MementoT<DenseRepl> memento(const void* repl, int n) {
@@ -1673,9 +1900,9 @@ int anchor_packed_diff(const void* keys, void* old_out, void* new_out, void* mov
                        int a_new, void* stream) {
   return with_width(width_old, [&](auto to) {
     return with_width(width_new, [&](auto tn) {
-      return launch_diff(keys, old_out, new_out, moved, count,
-                         anchor<decltype(to)>(A_old, K_old, a_old),
-                         anchor<decltype(tn)>(A_new, K_new, a_new), stream);
+      return launch_anchor_diff(keys, old_out, new_out, moved, count,
+                                anchor<decltype(to)>(A_old, K_old, a_old),
+                                anchor<decltype(tn)>(A_new, K_new, a_new), stream);
     });
   });
 }
@@ -1695,9 +1922,9 @@ int anchor_packed_replica_diff(const void* keys, void* old_out, void* new_out, v
                                const void* K_new, int width_new, int a_new, void* stream) {
   return with_width(width_old, [&](auto to) {
     return with_width(width_new, [&](auto tn) {
-      return launch_replica_diff(keys, old_out, new_out, moved, count, k,
-                                 anchor<decltype(to)>(A_old, K_old, a_old),
-                                 anchor<decltype(tn)>(A_new, K_new, a_new), stream);
+      return launch_anchor_replica_diff(keys, old_out, new_out, moved, count, k,
+                                        anchor<decltype(to)>(A_old, K_old, a_old),
+                                        anchor<decltype(tn)>(A_new, K_new, a_new), stream);
     });
   });
 }
@@ -1747,14 +1974,28 @@ int dx_replica_diff_lane_group(int max_probes_old, int max_probes_new) {
   return dx_replica_diff_group(max_probes_old, max_probes_new);
 }
 
-// anchor_replica_diff's check alone, over two dense AnchorHash epochs of
-// one a, into kNestWords words at `work`: its verdict (0: the epochs do not
-// nest, 1: the older epoch is the shallower, 2: the newer) and the
+// The check of anchor_replica_diff alone, over two dense AnchorHash epochs
+// of one a, into kNestWords words at `work`: its verdict (0: the epochs do
+// not nest, 1: the older epoch is the shallower, 2: the newer) and the
 // shallower epoch's working count in work[0], work[1].  For timing it.
 int anchor_nest_check(const void* A_old, const void* K_old, const void* A_new,
                       const void* K_new, int a, void* work, void* stream) {
   return launch_anchor_nest(anchor(A_old, K_old, a), anchor(A_new, K_new, a),
                             static_cast<NestWork*>(work), stream);
+}
+
+// The same check over two packed epochs of one a, each of its own width (1,
+// 2 or 4 bytes): that of anchor_packed_diff and anchor_packed_replica_diff.
+int anchor_packed_nest_check(const void* A_old, const void* K_old, int width_old,
+                             const void* A_new, const void* K_new, int width_new, int a,
+                             void* work, void* stream) {
+  return with_width(width_old, [&](auto to) {
+    return with_width(width_new, [&](auto tn) {
+      return launch_anchor_nest(anchor<decltype(to)>(A_old, K_old, a),
+                                anchor<decltype(tn)>(A_new, K_new, a),
+                                static_cast<NestWork*>(work), stream);
+    });
+  });
 }
 
 const char* error_string(int code) {

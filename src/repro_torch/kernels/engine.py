@@ -325,19 +325,27 @@ def _anchor_walk(keys, A, K, b, Ab, removed: int, work: dict | None,
 #: the epochs do not nest, the older one is the shallower, the newer one is
 NEST_NONE, NEST_OLD_SHALLOW, NEST_NEW_SHALLOW = 0, 1, 2
 #: int32 words of the check's per-call workspace (``NestWork``, kNestWords):
-#: ``anchor_replica_diff``'s ``moved`` carries them past its count, its
-#: first two the verdict and N_S
-NEST_WORDS = 9
+#: the ``moved`` of each of ``NEST_KERNELS`` carries them past its count,
+#: its first two the verdict and N_S
+NEST_WORDS = 201
+#: the diff entries that run the check, then a pair kernel
+NEST_KERNELS = ("anchor_packed_diff", "anchor_replica_diff", "anchor_packed_replica_diff")
+#: the largest a of the parted check (kNestBlockMax: one bucket a thread,
+#: no memset), which reads both epochs' A and K in full; above it the
+#: check's grid reads the Ks only where an epoch removed the bucket
+NEST_BLOCK_MAX = 2**15
 
 
 def anchor_nest_plain(old, new) -> tuple[int, int]:
-    """Plain version of ``anchor_replica_diff``'s check (``anchor_nest_kernel``)
-    over two dense AnchorHash epochs, each ``(tables, scalars)``: whether
-    one epoch S removed only buckets the other D also removed, with equal A
-    and K, and D stamped every other bucket below S's working count N_S =
-    min(a, the least positive A of S) → (verdict, N_S), N_S 0 with
-    ``NEST_NONE``.  Two equal epochs give the older one as S; epochs of two
-    a do not nest.  A model for the tests: the card runs the kernel."""
+    """Plain version of the check of the AnchorHash diffs in
+    ``NEST_KERNELS`` (``anchor_nest_kernel``, ``anchor_nest_part_kernel``)
+    over two AnchorHash epochs, each ``(tables, scalars)``, dense or packed
+    (A and K of any width, read up to a): whether one epoch S removed only
+    buckets the other D also removed, with equal A and K, and D stamped
+    every other bucket below S's working count N_S = min(a, the least
+    positive A of S) → (verdict, N_S), N_S 0 with ``NEST_NONE``.  Two equal
+    epochs give the older one as S; epochs of two a do not nest.  A model
+    for the tests: the card runs the kernel."""
     (A_o, K_o), (A_n, K_n) = old[0][:2], new[0][:2]
     a = int(old[1][0])
     if a != int(new[1][0]):
@@ -371,9 +379,31 @@ def anchor_nested_plain(keys: torch.Tensor, A: torch.Tensor, K: torch.Tensor, a:
     return b, _anchor_walk(keys, A, K, b, Ab, 1, work, deep)[0]
 
 
+def anchor_pair_diff_plain(keys: torch.Tensor, old, new, work: dict | None = None):
+    """A model of ``anchor_packed_diff``'s kernels: the check
+    (``anchor_nest_plain``), then, for nesting epochs, both lookups of every
+    key on one ``anchor_nested_plain`` walk through the deeper epoch's
+    tables; epochs that do not nest take ``diff_plain``.  → (old, new,
+    moved), as ``diff_plain`` gives them.  ``work`` counts ``"lookups"``
+    (keys looked up, once for both epochs) and the walk's ``"outer"`` and
+    ``"read"``.  A model for the tests and ``chip_smoke.py``'s bound: the
+    card runs the kernel."""
+    verdict, n_shallow = anchor_nest_plain(old, new)
+    if verdict == NEST_NONE:
+        return diff_plain("anchor", keys, old, new, work)
+    A, K = (new if verdict == NEST_OLD_SHALLOW else old)[0][:2]
+    keys = as_u32(keys)
+    shallow, deep = anchor_nested_plain(keys, A, K, int(old[1][0]), n_shallow, work=work)
+    _count(work, "lookups", keys.numel())
+    o, n = (t.to(torch.int32) for t in ((shallow, deep) if verdict == NEST_OLD_SHALLOW
+                                        else (deep, shallow)))
+    return o, n, o != n
+
+
 def anchor_pair_replica_diff_plain(keys: torch.Tensor, k: int, old, new,
                                    work: dict | None = None):
-    """A model of ``anchor_replica_diff``'s kernels: the check
+    """A model of ``anchor_replica_diff``'s and ``anchor_packed_replica_diff``'s
+    kernels (A and K of any width): the check
     (``anchor_nest_plain``), then, for nesting epochs, both epochs' unbounded
     k-slot rows on one salt walk, each salt's candidate key (salt 0 the key
     itself) looked up in both by one ``anchor_nested_plain`` walk through the
@@ -767,19 +797,53 @@ def _not_compact(table: str, what: str) -> None:
         raise ValueError(f"compact tables serve lookups and replica sets, not {what}")
 
 
-def kernel_diff(algo: str, keys: torch.Tensor, old, new, *, table: str = "dense"):
+def _with_nest(out: tuple, name: str, epochs, moved: torch.Tensor | None, count: int,
+               with_nest: bool) -> tuple:
+    """A diff's outputs, and with ``with_nest`` the branch its kernel took:
+    int32 (verdict, N_S), read from the call's workspace past ``count`` in
+    ``moved`` on the card (``anchor_nest_plain``'s on the CPU, where
+    ``moved`` is None); (``NEST_NONE``, 0) for the kernels not in
+    ``NEST_KERNELS``."""
+    if not with_nest:
+        return out
+    if name not in NEST_KERNELS:
+        return (*out, torch.zeros(2, dtype=torch.int32, device=out[0].device))
+    if moved is None:
+        return (*out, torch.tensor(anchor_nest_plain(*epochs), dtype=torch.int32))
+    return (*out, moved[count:][:2])
+
+
+def _diff_moved(name: str, keys: torch.Tensor) -> torch.Tensor:
+    """A diff's ``moved`` on the card: one int32 word a key, and for the
+    kernels in ``NEST_KERNELS`` the check's workspace past them
+    (``NEST_WORDS``), zeroed when no key launches the kernel."""
+    nests = name in NEST_KERNELS
+    moved = torch.empty(keys.numel() + NEST_WORDS * nests, dtype=torch.int32,
+                        device=keys.device)
+    if not keys.numel():
+        moved.zero_()
+    return moved
+
+
+def kernel_diff(algo: str, keys: torch.Tensor, old, new, *, table: str = "dense",
+                with_nest: bool = False):
     """Lookup under two epochs (each ``(tables, scalars)``, one layout) in
     one pass → (old, new, moved bool).  CUDA tensors launch the layout's
-    ``diff`` kernel."""
+    ``diff`` kernel.  ``with_nest`` adds the branch ``anchor_packed_diff``
+    took (see :func:`kernel_replica_diff`)."""
     _not_compact(table, "diffs")
     epochs = [(list(t), [int(s) for s in sc]) for t, sc in (old, new)]
     _check_operands(algo, keys, epochs, table)
+    name = kernel_name(algo, "diff", table)
     if not _on_card(keys):
-        return diff_plain(algo, keys, *epochs, table=table)
-    o, n, moved = (torch.empty_like(keys) for _ in range(3))
+        out = diff_plain(algo, keys, *epochs, table=table)
+        return _with_nest(out, name, epochs, None, keys.numel(), with_nest)
+    o, n = (torch.empty_like(keys) for _ in range(2))
+    moved = _diff_moved(name, keys)
     if keys.numel():
         _launch(algo, "diff", table, [keys, o, n, moved], keys.numel(), [], epochs)
-    return o, n, moved.bool()
+    return _with_nest((o, n, moved[:keys.numel()].bool()), name, epochs, moved,
+                      keys.numel(), with_nest)
 
 
 def _check_k(k: int) -> int:
@@ -816,7 +880,8 @@ def kernel_replica_diff(algo: str, keys: torch.Tensor, k: int, old, new, *,
     """Unbounded k-replica sets under two epochs (each ``(tables,
     scalars)``, one layout) in one pass → (old [K, k], new [K, k], moved
     bool [K]).  CUDA tensors launch the layout's ``replica_diff`` kernel.
-    ``with_nest`` adds the branch ``anchor_replica_diff`` took, int32
+    ``with_nest`` adds the branch that a kernel of ``NEST_KERNELS``
+    (``anchor_replica_diff``, ``anchor_packed_replica_diff``) took, int32
     (verdict, N_S) as :func:`anchor_nest_plain` gives them (``NEST_NONE``,
     0 for every other kernel); on the card it stays there, read from the
     call's own workspace."""
@@ -824,23 +889,18 @@ def kernel_replica_diff(algo: str, keys: torch.Tensor, k: int, old, new, *,
     epochs = [(list(t), [int(s) for s in sc]) for t, sc in (old, new)]
     k = _check_k(k)
     _check_operands(algo, keys, epochs, table)
-    nests = kernel_name(algo, "replica_diff", table) == "anchor_replica_diff"
+    name = kernel_name(algo, "replica_diff", table)
     if not _on_card(keys):
         out = replica_diff_plain(algo, keys, k, *epochs, table=table)
-        nest = anchor_nest_plain(*epochs) if nests else (NEST_NONE, 0)
-        return (*out, torch.tensor(nest, dtype=torch.int32)) if with_nest else out
+        return _with_nest(out, name, epochs, None, keys.numel(), with_nest)
     o, n = (torch.empty((keys.numel(), k), dtype=torch.int32, device=keys.device)
             for _ in range(2))
-    # the check's workspace rides past the end of moved (NEST_WORDS)
-    moved = torch.empty(keys.numel() + NEST_WORDS * nests, dtype=torch.int32,
-                        device=keys.device)
+    moved = _diff_moved(name, keys)
     if keys.numel():
         _launch(algo, "replica_diff", table, [keys, o, n, moved], keys.numel(), [k],
                 epochs)
-    else:
-        moved.zero_()
-    out = (o, n, moved[:keys.numel()].bool())
-    return (*out, moved[keys.numel():][:2] if nests else moved.new_zeros(2)) if with_nest else out
+    return _with_nest((o, n, moved[:keys.numel()].bool()), name, epochs, moved,
+                      keys.numel(), with_nest)
 
 
 def kernel_walk(algo: str, chain: torch.Tensor, probe: torch.Tensor,
@@ -907,25 +967,30 @@ def dx_replica_diff_lane_group(max_probes_old: int, max_probes_new: int) -> int:
         ctypes.c_int(int(max_probes_old)), ctypes.c_int(int(max_probes_new)))
 
 
-def anchor_nest_check(old, new) -> torch.Tensor:
-    """Launch ``anchor_replica_diff``'s check alone (``anchor_nest_kernel``)
-    over two dense AnchorHash epochs of one a on the card, each ``(tables,
-    scalars)``, into a workspace of its own → its int32 (verdict, N_S) on
-    the card (:func:`anchor_nest_plain`).  For timing the check on its own;
-    not counted in :data:`LAUNCHES`."""
+def anchor_nest_check(old, new, *, table: str = "dense") -> torch.Tensor:
+    """Launch the check of the kernels in ``NEST_KERNELS`` alone over two
+    AnchorHash epochs of one a on the card, each ``(tables, scalars)``:
+    dense (``anchor_nest_check``) or packed, A and K of each epoch of its
+    own width (``anchor_packed_nest_check``), into a workspace of its own →
+    its int32 (verdict, N_S) on the card (:func:`anchor_nest_plain`).  For
+    timing the check on its own; not counted in :data:`LAUNCHES`."""
     epochs = [(list(t), [int(x) for x in sc]) for t, sc in (old, new)]
     A = epochs[0][0][0]
-    _check_operands("anchor", A, epochs)
+    _check_operands("anchor", A.new_empty(0, dtype=torch.int32), epochs, table)
     if epochs[0][1][0] != epochs[1][1][0]:
         raise ValueError("the check takes two epochs of one a")
     work = torch.empty(NEST_WORDS, dtype=torch.int32, device=A.device)
     lib = build.load("engine", _SIGNATURES)
+    name = "anchor_packed_nest_check" if table == "packed" else "anchor_nest_check"
+    args = [ctypes.c_void_p(t.data_ptr()) for t in (*epochs[0][0], *epochs[1][0])]
+    if name == "anchor_packed_nest_check":  # each epoch's width after its tables
+        widths = [ctypes.c_int(e[0][0].element_size()) for e in epochs]
+        args = args[:2] + widths[:1] + args[2:] + widths[1:]
     with torch.cuda.device(A.device):
-        rc = lib.anchor_nest_check(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (*epochs[0][0], *epochs[1][0])),
-            ctypes.c_int(epochs[0][1][0]), ctypes.c_void_p(work.data_ptr()),
+        rc = getattr(lib, name)(
+            *args, ctypes.c_int(epochs[0][1][0]), ctypes.c_void_p(work.data_ptr()),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    build.check(lib, rc, "anchor_nest_check")
+    build.check(lib, rc, name)
     return work[:2]
 
 

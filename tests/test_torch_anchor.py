@@ -1,12 +1,15 @@
-"""The port's model of ``anchor_replica_diff``'s kernels (its check,
-``anchor_nest_plain``, and its walk of both epochs through the deeper one's
-tables, ``anchor_nested_plain`` and ``anchor_pair_replica_diff_plain``)
-against the reference, exactly: removal-only epoch pairs (one with no
-removal in the older epoch), restore pairs (the newer epoch the shallower)
-and pairs whose removal stacks part after a common prefix (remove x,
-restore it, remove y), where the check must say no; k = 1 and k = 3.  The
-check's verdict and the shallower epoch's working count are held against
-the host's removal stacks."""
+"""The port's model of the AnchorHash diffs' kernels (``anchor_replica_diff``,
+``anchor_packed_diff`` and ``anchor_packed_replica_diff``: their check,
+``anchor_nest_plain``, and their walk of both epochs through the deeper
+one's tables, ``anchor_nested_plain``, ``anchor_pair_diff_plain`` and
+``anchor_pair_replica_diff_plain``) against the reference, exactly:
+removal-only epoch pairs (one with no removal in the older epoch), restore
+pairs (the newer epoch the shallower) and pairs whose removal stacks part
+after a common prefix (remove x, restore it, remove y), where the check
+must say no; k = 1 and k = 3; dense, and packed at int16 and int8 (and one
+epoch of each), with tables padded past a.  The check's verdict and the
+shallower epoch's working count are held against the host's removal
+stacks."""
 from __future__ import annotations
 
 from pathlib import Path
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from repro.core import make_hash as ref_make_hash
+from repro.core import packing as rpk
 from repro.kernels import engine as ref
 from repro_torch.convert import image_from_arrays
 from repro_torch.kernels import engine as port
@@ -121,9 +125,11 @@ def test_nest_check_matches_host_stacks(pair):
 
 def test_nest_words_match_the_kernel_source():
     """The check's workspace that ``kernel_replica_diff`` puts past the end
-    of ``moved`` is as long as the kernel's ``NestWork``."""
+    of ``moved`` is as long as the kernel's ``NestWork``, and the check's
+    one-block bound is the kernel's."""
     src = (Path(port.__file__).parent / "csrc" / "engine.cu").read_text()
     assert f"constexpr int kNestWords = {port.NEST_WORDS};" in src
+    assert f"constexpr int32_t kNestBlockMax = 1 << {port.NEST_BLOCK_MAX.bit_length() - 1};" in src
 
 
 @pytest.mark.parametrize("pair", [p for p in PAIRS if p[0] != "diverge"],
@@ -187,3 +193,116 @@ def test_pair_model_draws_each_salt_once_for_both_rows(pair):
     assert work["lookups"] == len(KEYS) + work["try"]
     if pair[1:] in ((400, 200, 3), (400, 3, 200)):
         assert work["try"] > work["try_shallow"] and work["try"] > work["try_deep"]
+
+
+def _packed(epoch: _Epoch, dtype, fill: int | None = None):
+    """``epoch``'s image packed by the reference (A and K int16 at a ≤ 2^15),
+    cast to ``dtype`` by hand (the values fit), and with ``fill`` written
+    into every A and K word past a (``pack_image`` pads the tables to 128
+    words at least): the reference's packed image and the port's operands of
+    it."""
+    img = rpk.pack_image(epoch.image)
+    arrays = {}
+    for name, v in img.arrays.items():
+        v = np.asarray(v).astype(dtype)
+        if fill is not None:
+            v[img.n:] = fill
+        arrays[name] = v
+    ref_img = type(img)(algo=img.algo, n=img.n, arrays=arrays, scalars=dict(img.scalars),
+                        epoch=img.epoch, packed=True)
+    port_img = image_from_arrays(img.algo, img.n, arrays, img.scalars, img.epoch, packed=True)
+    return ref_img, port.image_operands(port_img, "packed")
+
+
+#: packed epoch pairs: (kind, a, older epoch's working count, newer one's,
+#: older epoch's dtype, newer one's, the padding's fill of the shallower
+#: epoch, of the deeper one); int16 from ``pack_image``, int8 by hand
+PACKED_PAIRS = [
+    ("remove", 4000, 1000, 100, np.int16, np.int16, None, None),
+    ("restore", 4000, 100, 1000, np.int16, np.int16, None, None),
+    ("diverge", 4000, 100, 0, np.int16, np.int16, None, None),
+    ("remove", 120, 60, 10, np.int8, np.int8, None, None),
+    ("restore", 120, 10, 60, np.int8, np.int8, None, None),
+    ("diverge", 120, 30, 0, np.int8, np.int8, None, None),
+    ("remove", 120, 60, 59, np.int8, np.int16, None, None),   # one epoch of each width
+    ("restore", 120, 5, 80, np.int16, np.int8, None, None),
+    # the padding, if read, would part the stacks (a removal only the
+    # shallower epoch made) or put the deeper epoch's stamps above N_S
+    ("remove", 100, 50, 49, np.int8, np.int8, 1, 127),
+    ("restore", 120, 7, 90, np.int16, np.int16, 3, 119),
+]
+_PACKED_IDS = [f"{kind} a={a} {wo}->{wn} {np.dtype(do).name}->{np.dtype(dn).name}"
+               f"{' padded' if fs is not None else ''}"
+               for kind, a, wo, wn, do, dn, fs, fd in PACKED_PAIRS]
+
+
+def _packed_pair(kind, a, w_old, w_new, dtype_old, dtype_new, fill_shallow, fill_deep):
+    """A packed pair of PACKED_PAIRS: the host epochs (old, new) and each
+    epoch's (reference image, port operands)."""
+    old, new = _pair(kind, a, w_old, w_new, seed=len(kind) + a + w_old)
+    shallow_is_old = kind != "restore"
+    fills = (fill_shallow, fill_deep) if shallow_is_old else (fill_deep, fill_shallow)
+    return (old, new), (_packed(old, dtype_old, fills[0]), _packed(new, dtype_new, fills[1]))
+
+
+@pytest.mark.parametrize("pair", PACKED_PAIRS, ids=_PACKED_IDS)
+def test_packed_nest_check_matches_host_stacks(pair):
+    """``anchor_nest_plain`` over packed epochs of any width gives the host
+    stacks' verdict and N_S, whatever the tables hold past a; so does
+    ``kernel_diff`` / ``kernel_replica_diff(..., with_nest=True)`` of the
+    packed entries on the CPU, whose outputs are the plain versions'."""
+    (old, new), ((_, o), (_, n)) = _packed_pair(*pair)
+    want = _stack_verdict(old, new)
+    assert (want[0] == port.NEST_NONE) == (pair[0] == "diverge")
+    assert port.anchor_nest_plain(o, n) == want
+    keys = port.key_tensor(KEYS[:64], "cpu")
+    *got, nest = port.kernel_diff("anchor", keys, o, n, table="packed", with_nest=True)
+    assert tuple(nest.tolist()) == want
+    for g, w in zip(got, port.diff_plain("anchor", keys, o, n, table="packed")):
+        assert torch.equal(g, w)
+    *got, nest = port.kernel_replica_diff("anchor", keys, 3, o, n, table="packed",
+                                          with_nest=True)
+    assert tuple(nest.tolist()) == want
+    for g, w in zip(got, port.replica_diff_plain("anchor", keys, 3, o, n, table="packed")):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("pair", PACKED_PAIRS, ids=_PACKED_IDS)
+def test_packed_pair_models_match_reference_diff(pair, k):
+    """The pair models on packed epochs (``anchor_pair_diff_plain`` at k = 1,
+    ``anchor_pair_replica_diff_plain`` at k = 3: the check, then one walk
+    through the deeper epoch's narrow tables, or two walks) equal the
+    reference's ``engine_diff`` of the same packed images (jnp plane) and
+    the port's two-walk plain versions."""
+    _, ((ref_o, o), (ref_n, n)) = _packed_pair(*pair)
+    keys = port.key_tensor(KEYS, "cpu")
+    if k == 1:
+        got = port.anchor_pair_diff_plain(keys, o, n)
+        plain = port.diff_plain("anchor", keys, o, n, table="packed")
+    else:
+        got = port.anchor_pair_replica_diff_plain(keys, k, o, n)
+        plain = port.replica_diff_plain("anchor", keys, k, o, n, table="packed")
+    want = ref.engine_diff(KEYS, ref_o, ref_n, k=k, plane="jnp")
+    for g, w in zip(got, (want.old, want.new, want.moved)):
+        np.testing.assert_array_equal(g.numpy().reshape(np.shape(w)), np.asarray(w))
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("pair", [p for p in PAIRS if p[0] != "diverge"],
+                         ids=[i for p, i in zip(PAIRS, _IDS) if p[0] != "diverge"])
+def test_k1_pair_model_walks_once_for_both_epochs(pair):
+    """``anchor_pair_diff_plain`` looks each key up once for both epochs, and
+    its walk reads what the deeper epoch's own lookup reads: its counters
+    equal ``lookup_plain``'s on the deeper epoch."""
+    old, new = _pair(*pair, seed=len(pair[0]) + pair[1])
+    verdict, _ = port.anchor_nest_plain(old.operands(), new.operands())
+    deep = new if verdict == port.NEST_OLD_SHALLOW else old
+    keys = port.key_tensor(KEYS, "cpu")
+    work: dict = {}
+    port.anchor_pair_diff_plain(keys, old.operands(), new.operands(), work)
+    alone: dict = {}
+    port.lookup_plain("anchor", keys, *deep.operands(), alone)
+    assert work.pop("lookups") == len(KEYS)
+    assert work == alone

@@ -1666,18 +1666,14 @@ def test_anchor_replica_diff_takes_its_branch_and_matches_plain(dev, ratio, pair
     assert tuple(engine.anchor_nest_check(old, new).tolist()) == want_branch
 
 
-@pytest.mark.parametrize("streams", [1, 2])
-def test_anchor_replica_diffs_in_flight_at_once_keep_their_own_branch(dev, streams):
-    """Two host threads each run ``anchor_replica_diff`` over its own epoch
-    pair, one that nests and one whose stacks part, at once: on one stream,
-    or each on a stream of its own (on the card).  Every call's check keeps
-    its sums and verdict in the call's own workspace, so every call takes
-    its pair's branch and equals ``replica_diff_plain``."""
-    a, reps = 4000, 16
-    pairs = [[_operands_of(img, dev) for img in _anchor_nest_pair(a, 200, 100, pair, seed=5)]
-             for pair in ("remove", "diverge")]
-    keys = engine.key_tensor(KEYS[:1000], dev)
-    wants = [engine.replica_diff_plain("anchor", keys, 3, *p) for p in pairs]
+def _diffs_in_flight(dev, streams: int, pairs, calls) -> None:
+    """Two host threads, each over its own epoch pair of ``pairs`` (one that
+    nests, one whose stacks part), run each of ``calls`` (``call(pair)`` →
+    outputs and the branch, ``plain(pair)`` → the outputs) 16 times at
+    once: on one stream, or each on a stream of its own (on the card).
+    Every call takes its pair's branch and equals its plain version."""
+    reps = 16
+    wants = [[plain(p) for _, plain in calls] for p in pairs]
     branches = [engine.NEST_OLD_SHALLOW, engine.NEST_NONE]
     on_card = dev.type == "cuda"
     queues = [torch.cuda.Stream(dev) if on_card and streams == 2 else None for _ in pairs]
@@ -1689,8 +1685,8 @@ def test_anchor_replica_diffs_in_flight_at_once_keep_their_own_branch(dev, strea
         with ctx:
             barrier.wait()
             for _ in range(reps):
-                results[i].append(engine.kernel_replica_diff("anchor", keys, 3, *pairs[i],
-                                                             with_nest=True))
+                for call, _ in calls:
+                    results[i].append(call(pairs[i]))
             if on_card:
                 torch.cuda.current_stream().synchronize()
 
@@ -1700,11 +1696,102 @@ def test_anchor_replica_diffs_in_flight_at_once_keep_their_own_branch(dev, strea
     for t in threads:
         t.join()
     for want, branch, got in zip(wants, branches, results):
-        assert len(got) == reps
-        for *out, nest in got:
+        assert len(got) == reps * len(calls)
+        for j, (*out, nest) in enumerate(got):
             assert int(nest[0]) == branch
-            for g, w_ in zip(out, want):
+            for g, w_ in zip(out, want[j % len(calls)]):
                 assert torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+def test_anchor_replica_diffs_in_flight_at_once_keep_their_own_branch(dev, streams):
+    """Two host threads each run ``anchor_replica_diff`` over its own epoch
+    pair, one that nests and one whose stacks part, at once: on one stream,
+    or each on a stream of its own (on the card).  Every call's check keeps
+    its sums and verdict in the call's own workspace, so every call takes
+    its pair's branch and equals ``replica_diff_plain``."""
+    pairs = [[_operands_of(img, dev) for img in _anchor_nest_pair(4000, 200, 100, pair, seed=5)]
+             for pair in ("remove", "diverge")]
+    keys = engine.key_tensor(KEYS[:1000], dev)
+    _diffs_in_flight(dev, streams, pairs, [
+        (lambda p: engine.kernel_replica_diff("anchor", keys, 3, *p, with_nest=True),
+         lambda p: engine.replica_diff_plain("anchor", keys, 3, *p))])
+
+
+#: packed AnchorHash epoch pairs of the card tests: a, each epoch's dtype
+PACKED_NEST_WIDTHS = {"int16": (4000, torch.int16, torch.int16),
+                      "int8": (120, torch.int8, torch.int8),
+                      "int8 -> int16": (120, torch.int8, torch.int16)}
+
+
+def _packed_nest_pair(width: str, pair: str, dev, w_shallow=None, w_deep=None):
+    """An epoch pair of :func:`_anchor_nest_pair` (by default a/2 working in
+    the shallower epoch, a/20 in the deeper) packed, with A and K of each
+    epoch cast to its dtype of ``PACKED_NEST_WIDTHS[width]`` (int8 by hand):
+    each epoch's packed operands on ``dev``."""
+    from repro_torch.core.packing import pack_image
+
+    a, *dtypes = PACKED_NEST_WIDTHS[width]
+    imgs = _anchor_nest_pair(a, w_shallow or a // 2, w_deep or a // 20, pair, seed=a + len(pair))
+    out = []
+    for img, dtype in zip(imgs, dtypes):
+        img = _narrowed(pack_image(img), dtype)
+        img.arrays = {k: v.to(dev) for k, v in img.arrays.items()}
+        out.append(engine.image_operands(img, "packed"))
+    return out
+
+
+@pytest.mark.parametrize("count", [1, 255, 257, 4001])
+@pytest.mark.parametrize("pair", ["remove", "restore", "diverge"])
+@pytest.mark.parametrize("width", sorted(PACKED_NEST_WIDTHS))
+def test_anchor_packed_diffs_take_their_branch_and_match_plain(dev, width, pair, count):
+    """``anchor_packed_diff`` (k = 1) and ``anchor_packed_replica_diff`` (k = 3
+    and 5), each its check and then its pair kernel, on packed epochs at
+    int16, int8 and one epoch of each (old int8, new int16): epochs that
+    nest take one walk through the deeper epoch's narrow tables, the older
+    the shallower ("remove") or the newer ("restore"); stacks that part
+    ("diverge") take each epoch's walk.  Each call's verdict equals the
+    plain check's, and the check's alone; its outputs equal the plain
+    versions', at key counts that are not a multiple of a block; one launch
+    each."""
+    old, new = _packed_nest_pair(width, pair, dev)
+    want_branch = engine.anchor_nest_plain(
+        *[([t.cpu() for t in e[0]], e[1]) for e in (old, new)])
+    assert want_branch[0] == {"remove": engine.NEST_OLD_SHALLOW,
+                              "restore": engine.NEST_NEW_SHALLOW,
+                              "diverge": engine.NEST_NONE}[pair]
+    keys = engine.key_tensor(KEYS[:count], dev)
+    for k in (1, 3, 5):
+        name = engine.kernel_name("anchor", "diff" if k == 1 else "replica_diff", "packed")
+        before = engine.LAUNCHES[name]
+        if k == 1:
+            *got, branch = engine.kernel_diff("anchor", keys, old, new, table="packed",
+                                              with_nest=True)
+            want = engine.diff_plain("anchor", keys, old, new, table="packed")
+        else:
+            *got, branch = engine.kernel_replica_diff("anchor", keys, k, old, new,
+                                                      table="packed", with_nest=True)
+            want = engine.replica_diff_plain("anchor", keys, k, old, new, table="packed")
+        assert tuple(branch.tolist()) == want_branch, k
+        assert engine.LAUNCHES[name] == before + 1
+        for g, w_ in zip(got, want):
+            assert torch.equal(g, w_), k
+    assert tuple(engine.anchor_nest_check(old, new, table="packed").tolist()) == want_branch
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+def test_anchor_packed_diffs_in_flight_at_once_keep_their_own_branch(dev, streams):
+    """As the dense test above, for ``anchor_packed_diff`` and
+    ``anchor_packed_replica_diff`` (k = 3) in turns, on an int16 pair that
+    nests beside an int16 pair whose stacks part."""
+    pairs = [_packed_nest_pair("int16", pair, dev, 200, 100) for pair in ("remove", "diverge")]
+    keys = engine.key_tensor(KEYS[:1000], dev)
+    kw = {"table": "packed"}
+    _diffs_in_flight(dev, streams, pairs, [
+        (lambda p: engine.kernel_diff("anchor", keys, *p, **kw, with_nest=True),
+         lambda p: engine.diff_plain("anchor", keys, *p, **kw)),
+        (lambda p: engine.kernel_replica_diff("anchor", keys, 3, *p, **kw, with_nest=True),
+         lambda p: engine.replica_diff_plain("anchor", keys, 3, *p, **kw))])
 
 
 def _operands_of(img, dev):
