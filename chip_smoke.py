@@ -32,7 +32,9 @@
    checker may report a violation, a sample of every lookup batch must
    equal the host, and every lookup and diff kernel must be launched;
    then one ``replica_k = 2`` replay of incremental (Memento, the
-   replica-stability checker on, 2^14 probe keys).  4b replays every
+   replica-stability checker on, 2^12 probe keys: cut from 2^14 when
+   phases 8 and 9 were added, to keep the run well inside its time
+   limit).  4b replays every
    scenario at its default size for every algorithm on the card and on
    the host: equal fingerprints (``session_affinity`` launches every
    ``{algo}_replica``).
@@ -96,7 +98,37 @@
    ``memento_packed_lookup`` are timed on their stable and one-shot
    states warm and cold (L2 flushed by a 128 MiB write before each
    launch).
-8. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+8. Drives the training substrates: for every algorithm an
+   ``ElasticCluster`` of 10^4 hosts and 2^20 data shards (capacity 4 x 10^4
+   for the fixed-capacity ones) through 64 single host failures (random
+   hosts; the last host for JumpHash and PowerHash) and 32 joins, each
+   followed by ``replica_movement()`` at k = 3: every plan minimal or
+   monotone, every moved shard and replica set equal to the host, 4096
+   shards of the front epoch equal to the host, and on the first failure
+   and the first join the whole diff (k = 1 and 3) equal to the plain
+   versions on the card.  Every ``{algo}_diff``, ``{algo}_replica_diff``
+   and ``delta_apply`` must be launched on that path.  Then
+   ``AsyncCheckpointer(keep=2)`` saves three steps of 64 tensors on the
+   card (256 MiB, float32 and int32), restored bit-equal, each leaf in the
+   host MementoHash's bucket, with the device->host and write ms; and a
+   ``DataPipeline`` over 4096 shards on 64 hosts through batches, a
+   resume and a host failure.
+9. Drives the sharded streaming plane: ``SessionRouter(10^6).route_stream``
+   of 16 batches of 2^20 session ids on every GPU and on two entries of
+   one card (two streams), in block and overlap mode, a replica failed
+   before batch 5 and restored before batch 11; every batch equal to
+   ``route_batch`` of its ids at the epoch it was served at.  Then a
+   ``replicas_k = 3`` stream with one replica marked (none routed to it),
+   a ``compact_images=True`` stream, and ``repro_torch.sim.replay(sharded=
+   True)`` of every scenario x every algorithm at its default size (equal
+   to 4b's fingerprints) and of Memento's one-shot at w = 10^6 with 2^20
+   keys (equal to phase 4's).  ``memento_lookup``, ``memento_replica``,
+   ``memento_packed_lookup``, ``delta_apply`` and every ``{algo}_lookup``
+   must be launched on that path.  Logs the stream's keys/s beside a loop
+   of ``route_batch`` on the same batches, and the card's lookup busy
+   share during the stream (CUDA events), a record: one card cannot show
+   fan-out.  Each of phases 8 and 9 logs its wall time.
+10. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Any mismatch or error exits non-zero.  Without a GPU, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -104,6 +136,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -120,7 +153,7 @@ REPLICAS_K = 3            # phase 5: replica slots of the router and the lookups
 BOUNDED_K = 2             # phase 5: slots of the bounded lookup
 CAP_C = 1.25              # phase 5: bounded-load factor
 ASSIGN_HOST_KEYS = 2**14  # phase 5: keys of the bounded assignment held against the host
-REPLICA_PROBE_KEYS = 2**14  # phase 4: probe keys of the replica_k = 2 replay
+REPLICA_PROBE_KEYS = 2**12  # phase 4: probe keys of the replica_k = 2 replay
 REPLAYED = ("stable", "oneshot", "incremental")  # the paper's §VIII scenarios
 ONESHOT_FRACTION = 0.9    # one-shot scenario: 90 % of the nodes removed
 INCREMENTAL_STAGES = (0.1, 0.3, 0.5)  # growing removal fraction (phase 2)
@@ -237,6 +270,17 @@ OPS_PER_NEST_BUCKET = 8
 # as PR 24's kernel and the top level made once a launch ran them
 POWER_HASH2_OPS = (31, 24, 27)
 COLD_REPS = 15            # phase 7: cold launches a median is taken over
+CLUSTER_HOSTS = 10**4     # phase 8: the data-loading fleet
+CLUSTER_SHARDS = 2**20    # phase 8: data-file shards placed on it
+CLUSTER_FAILS, CLUSTER_JOINS = 64, 32  # phase 8: single host failures, then joins
+CLUSTER_K = 3             # phase 8: replica sets of the movement plans
+CKPT_LEAVES = 64          # phase 8: tensors of the checkpointed state
+CKPT_BYTES = 256 << 20    # phase 8: the state's bytes, float32 and int32 halves
+CKPT_STEPS = 3            # phase 8: saves, two kept
+PIPE_SHARDS, PIPE_HOSTS = 4096, 64  # phase 8: the DataPipeline's placement
+STREAM_BATCHES = 16       # phase 9: session-id batches of each route_stream
+STREAM_FAIL_AT, STREAM_RESTORE_AT = 4, 10  # phase 9: events before these batches
+STREAM_SIDE_BATCHES = 4   # phase 9: batches of the failover and packed streams
 
 
 def log(msg: str) -> None:
@@ -675,6 +719,8 @@ def main() -> int:
     compact_kernels = smoke.phase_compact_replicas()
     kernels += algo_kernels + replica_kernels + packed_kernels + compact_kernels
     smoke.lookup_cold_times(kernels)
+    smoke.phase_substrates()
+    smoke.phase_stream()
     log_rule2_order(kernels)
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -721,6 +767,9 @@ class Smoke:
         # and the gather-rate probe's G words/s by table MB (phase 5)
         self.anchor_reads: dict = {}
         self.gather: dict = {}
+        # (scenario, algo, size) -> fingerprint of the unsharded replays of
+        # phases 4 ("full") and 4b ("default"), the comparands of phase 9
+        self.fingerprints: dict = {}
 
     # -- helpers ---------------------------------------------------------------
     def time_ms(self, fn, reps: int, warmup: int = 3) -> float:
@@ -1510,6 +1559,7 @@ class Smoke:
                 wall = time.perf_counter() - t0
                 if not res.ok:
                     raise AssertionError(f"replay {scenario} {algo}: {res.violations[:3]}")
+                self.fingerprints[(scenario, algo, "full")] = res.fingerprint
                 summ = res.summary()
                 syncs = [(r.op, len(r.buckets), r.sync_mode, round(r.sync_us / 1e3, 3),
                           r.moved) for r in res.metrics.records if r.sync_mode]
@@ -1565,6 +1615,7 @@ class Smoke:
                     raise AssertionError(f"4b {scenario} {algo}: device {dev.fingerprint} "
                                          f"host {host.fingerprint}, violations "
                                          f"{dev.violations[:2]} {host.violations[:2]}")
+                self.fingerprints[(scenario, algo, "default")] = dev.fingerprint
                 count += 1
         launches = {k: v for c in counters for k, v in c.items()}
         log(f"phase 4b: {count} replays (every scenario x every algorithm) equal on "
@@ -3146,6 +3197,410 @@ class Smoke:
             log(f"{name} (one thread a key; {KEYS} keys, n={N}), warm / cold ms: " + "; ".join(
                 f"{state} {w:.6f} / {c:.6f}" for state, (w, c) in times.items()))
             rows[name]["cold_ms"] = times["one-shot"][1]
+
+    # -- phases 8 and 9: the substrates and the sharded streaming plane ----------
+    def launch_counts(self):
+        """``(reset, snapshot, uncounted)`` over the engine's and the delta
+        apply's launch counters: ``uncounted(fn)`` runs a check and puts
+        the counters back, so its launches stay off the path's counts."""
+        from repro_torch.kernels import delta_apply, engine
+
+        counters = [engine.LAUNCHES, delta_apply.LAUNCHES]
+
+        def reset():
+            for c in counters:
+                for k in c:
+                    c[k] = 0
+
+        def snapshot():
+            return {k: v for c in counters for k, v in c.items()}
+
+        def uncounted(fn):
+            before = [dict(c) for c in counters]
+            try:
+                return fn()
+            finally:
+                for c, b in zip(counters, before):
+                    c.update(b)
+
+        return reset, snapshot, uncounted
+
+    def phase_substrates(self) -> None:
+        """Phase 8: the elastic cluster for every algorithm at 2^20 shards on
+        10^4 hosts, the checkpoint store, and the data pipeline."""
+        from repro_torch.core.protocol import ALGORITHMS, ALGORITHM_REGISTRY
+
+        t_phase = time.perf_counter()
+        reset, snapshot, uncounted = self.launch_counts()
+        reset()
+        for algo in ALGORITHMS:
+            self.cluster_run(algo, uncounted)
+        launches = snapshot()
+        log(f"phase 8 cluster launches: {launches}")
+        for name in ([f"{a}_{m}" for a in ALGORITHMS for m in ("diff", "replica_diff")]
+                     + ["delta_apply"]):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the cluster path")
+        cluster_s = time.perf_counter() - t_phase
+        self.checkpoint_run()
+        self.pipeline_run()
+        log(f"phase 8 wall: {time.perf_counter() - t_phase:.1f} s (cluster {cluster_s:.1f} s)")
+
+    def cluster_run(self, algo: str, uncounted) -> None:
+        from repro_torch.core.protocol import ALGORITHM_REGISTRY
+        from repro_torch.runtime import ElasticCluster
+
+        np, torch = self.np, self.torch
+        info = ALGORITHM_REGISTRY[algo]
+        cap = CAPACITY_FACTOR * CLUSTER_HOSTS if info.fixed_capacity else None
+        rng = np.random.default_rng([SEED, 8])
+        t0 = time.perf_counter()
+        c = ElasticCluster(CLUSTER_HOSTS, num_shards=CLUSTER_SHARDS, algo=algo,
+                           capacity=cap, replica_k=CLUSTER_K)
+        store = c.placement.image_store()
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        h = c.placement.ch
+        plan_ms, movement_ms, moved, replica_moved = [], [], [], []
+        for i in range(CLUSTER_FAILS + CLUSTER_JOINS):
+            joining = i >= CLUSTER_FAILS
+            if not joining:
+                if info.lifo_only:
+                    host = h.size - 1
+                else:
+                    ws = sorted(h.working_set())
+                    host = ws[int(rng.integers(len(ws)))]
+            t0 = time.perf_counter()
+            plan = c.join() if joining else c.fail(host)
+            t1 = time.perf_counter()
+            mv = c.replica_movement()
+            plan_ms.append((t1 - t0) * 1e3)
+            movement_ms.append((time.perf_counter() - t1) * 1e3)
+            if not (plan["monotone"] if joining else plan["minimal"]):
+                raise AssertionError(f"{algo} event {i}: plan not "
+                                     f"{'monotone' if joining else 'minimal'}")
+            host = plan["host"] if joining else host
+            for s, b in plan["moved"].items():
+                if h.lookup(s) != b or (joining and b != host):
+                    raise AssertionError(f"{algo} event {i}: shard {s} moved to {b}, "
+                                         f"host lookup {h.lookup(s)}")
+            for s, sets in mv.items():
+                if h.lookup_k(s, CLUSTER_K) != sets["new"]:
+                    raise AssertionError(f"{algo} event {i}: shard {s} replica set "
+                                         f"{sets['new']} != host lookup_k")
+            moved.append(len(plan["moved"]))
+            replica_moved.append(len(mv))
+            if i in (0, CLUSTER_FAILS):  # the first failure and the first join
+                uncounted(lambda: self.check_cluster_diffs(algo, store))
+            if i in (CLUSTER_FAILS - 1, CLUSTER_FAILS + CLUSTER_JOINS - 1):
+                uncounted(lambda: self.check_cluster_sample(algo, h, store))
+        log(f"phase 8 cluster {algo}: {CLUSTER_HOSTS} hosts, {CLUSTER_SHARDS} shards, "
+            f"k={CLUSTER_K}, store build {build_ms:.3f} ms; {CLUSTER_FAILS} failures then "
+            f"{CLUSTER_JOINS} joins, every plan minimal / monotone and every moved shard "
+            f"== host; shards moved a failure mean {np.mean(moved[:CLUSTER_FAILS]):.2f}, "
+            f"a join {np.mean(moved[CLUSTER_FAILS:]):.2f}; replica sets changed a failure "
+            f"{np.mean(replica_moved[:CLUSTER_FAILS]):.2f}, a join "
+            f"{np.mean(replica_moved[CLUSTER_FAILS:]):.2f}; plan ms p50 "
+            f"{np.median(plan_ms):.4f} max {max(plan_ms):.4f}; replica_movement ms p50 "
+            f"{np.median(movement_ms):.4f} max {max(movement_ms):.4f}; movement_total "
+            f"{c.movement_total()}; working {h.working}")
+
+    def check_cluster_diffs(self, algo: str, store) -> None:
+        """The store's two retained epochs diffed over every shard, k = 1 and
+        k = 3, by the kernels and by their plain versions on the card."""
+        from repro_torch.kernels import engine
+
+        torch = self.torch
+        keys = engine.key_tensor(self.np.arange(CLUSTER_SHARDS, dtype=self.np.uint32), self.dev)
+        prev, front = store.previous_image(), store.image()
+        old, new = engine.image_operands(prev), engine.image_operands(front)
+        for k in (1, CLUSTER_K):
+            got = engine.engine_diff(keys, prev, front, k=k)
+            want = (engine.diff_plain(algo, keys, old, new) if k == 1
+                    else engine.replica_diff_plain(algo, keys, k, old, new))
+            if not all(torch.equal(g, w) for g, w in
+                       zip((got.old, got.new, got.moved), want)):
+                raise AssertionError(f"phase 8 {algo} k={k}: diff kernel != plain")
+
+    def check_cluster_sample(self, algo: str, h, store) -> None:
+        """4096 shards of the front epoch on the card == the host."""
+        np = self.np
+        sample = np.linspace(0, CLUSTER_SHARDS - 1, HOST_SAMPLE).astype(np.uint32)
+        one = store.lookup(sample).cpu().numpy()
+        sets = store.lookup(sample, k=CLUSTER_K).cpu().numpy()
+        for j, s in enumerate(sample.tolist()):
+            if one[j] != h.lookup(s) or sets[j].tolist() != h.lookup_k(s, CLUSTER_K):
+                raise AssertionError(f"phase 8 {algo}: shard {s} on the card != host")
+
+    def checkpoint_run(self) -> None:
+        """AsyncCheckpointer(keep=2): three steps of a 64-tensor state on the
+        card, restored bit-equal, placed as the host MementoHash places
+        each leaf's path."""
+        import tempfile
+
+        from repro_torch.ckpt import AsyncCheckpointer, latest_step, restore_checkpoint
+        from repro_torch.core.hashing import key_to_u64
+        from repro_torch.core.memento import MementoHash
+
+        np, torch = self.np, self.torch
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(SEED)
+        per_leaf = CKPT_BYTES // CKPT_LEAVES // 4
+        state = {}
+        for i in range(CKPT_LEAVES):
+            group = "params" if i % 2 == 0 else "counts"
+            if group == "params":
+                t = torch.randn(per_leaf, generator=gen, device=self.dev)
+            else:
+                t = torch.randint(-2**31, 2**31 - 1, (per_leaf,), generator=gen,
+                                  device=self.dev, dtype=torch.int32)
+            state.setdefault(group, {})[f"t{i:02d}"] = t.reshape(-1, 1024)
+        nbytes = sum(t.numel() * t.element_size() for g in state.values() for t in g.values())
+        saved, d2h_ms, write_ms = {}, [], []
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = AsyncCheckpointer(tmp, keep=2)
+            for step in range(1, CKPT_STEPS + 1):
+                for g in state.values():
+                    for t in g.values():
+                        t.add_(1)  # each step its own state
+                torch.cuda.synchronize()
+                saved[step] = {g: {n: t.cpu().numpy().copy() for n, t in ts.items()}
+                               for g, ts in state.items()}
+                t0 = time.perf_counter()
+                ck.save(state, step)  # device->host on this thread, then the writer
+                t1 = time.perf_counter()
+                ck.wait()
+                d2h_ms.append((t1 - t0) * 1e3)
+                write_ms.append((time.perf_counter() - t1) * 1e3)
+            steps = sorted(int(p.split("_")[1]) for p in os.listdir(tmp))
+            if steps != list(range(CKPT_STEPS - 1, CKPT_STEPS + 1)) or latest_step(tmp) != CKPT_STEPS:
+                raise AssertionError(f"checkpoint gc kept steps {steps}")
+            m = MementoHash(ck.num_buckets)
+            for step in steps:
+                got, manifest = restore_checkpoint(tmp, step)
+                for g, ts in saved[step].items():
+                    for n, a in ts.items():
+                        b = got[g][n]
+                        if b.dtype != a.dtype or b.shape != a.shape or b.tobytes() != a.tobytes():
+                            raise AssertionError(f"step {step} {g}/{n} not restored bit-equal")
+                for path, info in manifest["shards"].items():
+                    if info["bucket"] != m.lookup(key_to_u64(path)):
+                        raise AssertionError(f"manifest bucket of {path} != host MementoHash")
+        log(f"phase 8 checkpoint: {CKPT_LEAVES} tensors, {nbytes} bytes (float32, int32), "
+            f"{CKPT_STEPS} steps kept 2, restored bit-equal, buckets == host MementoHash; "
+            f"device->host ms {', '.join(f'{x:.3f}' for x in d2h_ms)}; write ms "
+            f"{', '.join(f'{x:.3f}' for x in write_ms)}")
+
+    def pipeline_run(self) -> None:
+        """A DataPipeline over a 4096-shard, 64-host placement on the card:
+        batches, a resume, a host failure, the streams after it."""
+        from repro_torch.data import DataPipeline, ShardPlacement
+
+        np = self.np
+        t0 = time.perf_counter()
+        p = ShardPlacement(PIPE_SHARDS, PIPE_HOSTS)
+        kw = dict(host=1, batch=4, seq_len=128, vocab_size=50257, shard_tokens=1 << 12)
+        pipe = DataPipeline(p, **kw)
+        first = [pipe.next_batch() for _ in range(2)]
+        st = pipe.state()
+        again = DataPipeline(p, **kw)
+        again.load_state(st)
+        for b in first:
+            if not (b["tokens"].max() < kw["vocab_size"]
+                    and np.array_equal(b["tokens"][:, 1:], b["labels"][:, :-1])):
+                raise AssertionError("pipeline batch is not a shifted token stream")
+        owned = set(p.shards_for_host(1))
+        plan = p.fail_host(7)
+        gained = set(p.shards_for_host(1)) - owned
+        if not plan["minimal"] or not owned <= set(p.shards_for_host(1)) or \
+                gained != {s for s, b in plan["moved"].items() if b == 1}:
+            raise AssertionError("pipeline host lost shards or gained others than the plan's")
+        for _ in range(2):
+            a, b = pipe.next_batch(), again.next_batch()
+            if not np.array_equal(a["tokens"], b["tokens"]):
+                raise AssertionError("resumed pipeline diverged after the failure")
+        log(f"phase 8 pipeline: {PIPE_SHARDS} shards on {PIPE_HOSTS} hosts, host 1 owned "
+            f"{len(owned)}, gained {len(gained)} of host 7's {len(plan['moved'])}; batches, "
+            f"resume and the streams after the failure equal; "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    def phase_stream(self) -> None:
+        """Phase 9: route_stream of 2^20-id batches at n = 10^6 on every GPU
+        and on two entries of one card, in both sync modes, through a
+        failure and a restore; failover at k = 3; the packed layout; and
+        sharded replays against phases 4 and 4b."""
+        from repro_torch.core.protocol import ALGORITHMS
+
+        t_phase = time.perf_counter()
+        reset, snapshot, uncounted = self.launch_counts()
+        self.uncounted = uncounted  # the comparands' route_batch calls
+        reset()
+        rng = self.np.random.default_rng([SEED, 9])
+        batches = [rng.integers(0, 2**63, size=KEYS, dtype=self.np.uint64)
+                   for _ in range(STREAM_BATCHES)]
+        for devices in (None, [self.dev, self.dev]):
+            for mode in ("block", "overlap"):
+                self.stream_checked(batches, devices, mode)
+        self.stream_failover(batches[:STREAM_SIDE_BATCHES])
+        self.stream_packed(batches[:STREAM_SIDE_BATCHES])
+        self.sharded_replays()
+        launches = snapshot()
+        log(f"phase 9 launches: {launches}")
+        for name in (["memento_replica", "memento_packed_lookup", "delta_apply"]
+                     + [f"{a}_lookup" for a in ALGORITHMS]):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the stream path")
+        uncounted(lambda: self.stream_rates(batches))
+        log(f"phase 9 wall: {time.perf_counter() - t_phase:.1f} s")
+
+    def stream_checked(self, batches, devices, mode: str) -> None:
+        """Each streamed batch == route_batch of its ids at the epoch it was
+        served at, taken before the batch is fed (after the event's device
+        work is done, so the next poll point lands an overlapped flip)."""
+        from repro_torch.serve.router import SessionRouter
+
+        np, torch = self.np, self.torch
+        t0 = time.perf_counter()
+        r = SessionRouter(N, sync_mode=mode)
+        r.image_store()
+        want, victims = [], []
+
+        def feed():
+            for i, ids in enumerate(batches):
+                if i == STREAM_FAIL_AT:
+                    victims.append(self.working_victim(r.ch))
+                    r.fail_replica(victims[0])
+                if i == STREAM_RESTORE_AT:
+                    if r.restore_replica() != victims[0]:
+                        raise AssertionError("restore did not bring back the failed replica")
+                torch.cuda.synchronize()
+                want.append(self.uncounted(lambda: r.route_batch(ids)))
+                yield ids
+
+        plane = r.sharded_plane(devices=devices)
+        for i, out in enumerate(r.route_stream(feed(), devices=devices)):
+            if not np.array_equal(out, want[i]):
+                raise AssertionError(f"route_stream batch {i} ({mode}, {devices}) != route_batch")
+            if STREAM_FAIL_AT <= i < STREAM_RESTORE_AT and (out == victims[0]).any():
+                raise AssertionError(f"batch {i} routed to the failed replica")
+        if r.image_store().epoch != r.ch.epoch or plane.repins < 3:
+            raise AssertionError("the stream missed an epoch flip")
+        log(f"phase 9 route_stream {mode}, devices "
+            f"{[str(d) for d in plane.devices]}: {STREAM_BATCHES} batches of {KEYS} ids, "
+            f"replica {victims[0]} failed before batch {STREAM_FAIL_AT} and restored before "
+            f"{STREAM_RESTORE_AT}, every batch == route_batch, repins {plane.repins}, "
+            f"copies {plane.copies}; {time.perf_counter() - t0:.1f} s")
+
+    def stream_failover(self, batches) -> None:
+        from repro_torch.serve.router import SessionRouter
+
+        np = self.np
+        r = SessionRouter(N, replicas_k=REPLICAS_K)
+        victim = int(np.bincount(self.uncounted(lambda: r.route_batch(batches[0]))).argmax())
+        r.mark_failed(victim)
+        want = []
+
+        def feed():
+            for ids in batches:
+                want.append(self.uncounted(lambda: r.route_batch(ids)))
+                yield ids
+
+        for i, out in enumerate(r.route_stream(feed(), devices=[self.dev, self.dev])):
+            if not np.array_equal(out, want[i]) or (out == victim).any():
+                raise AssertionError(f"failover stream batch {i} != route_batch or on {victim}")
+        log(f"phase 9 failover: replicas_k={REPLICAS_K}, replica {victim} marked, "
+            f"{len(batches)} streamed batches == route_batch, none on it, failovers "
+            f"{r.stats.failovers}")
+
+    def stream_packed(self, batches) -> None:
+        from repro_torch.serve.router import SessionRouter
+
+        np = self.np
+        r = SessionRouter(N, compact_images=True)
+        r.image_store()
+        want = []
+
+        def feed():
+            for i, ids in enumerate(batches):
+                if i == 1:
+                    r.fail_replica(self.working_victim(r.ch))
+                want.append(self.uncounted(lambda: r.route_batch(ids)))
+                yield ids
+
+        for i, out in enumerate(r.route_stream(feed(), devices=[self.dev, self.dev])):
+            if not np.array_equal(out, want[i]):
+                raise AssertionError(f"packed stream batch {i} != route_batch")
+        log(f"phase 9 packed: compact_images=True, {len(batches)} streamed batches through "
+            f"a removal == route_batch, the image packed: {r.image_store().image().packed}")
+
+    def sharded_replays(self) -> None:
+        """Every scenario x every algorithm at its default size sharded, ==
+        phase 4b's unsharded card fingerprint; Memento one-shot at w = 10^6
+        with 2^20-key batches sharded, == phase 4's."""
+        from repro_torch.core.protocol import ALGORITHMS
+        from repro_torch.sim import SCENARIOS, make_trace, replay
+
+        t0 = time.perf_counter()
+        for scenario in SCENARIOS:
+            for algo in ALGORITHMS:
+                res = replay(make_trace(scenario, SEED), algo=algo, sharded=True)
+                want = self.fingerprints[(scenario, algo, "default")]
+                if not res.ok or res.fingerprint != want:
+                    raise AssertionError(f"sharded replay {scenario} {algo}: "
+                                         f"{res.fingerprint} != {want}, {res.violations[:2]}")
+        default_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = replay(make_trace("oneshot", SEED, w=N, n_keys=KEYS), algo="memento",
+                     probe_keys=KEYS, sharded=True)
+        want = self.fingerprints[("oneshot", "memento", "full")]
+        if not res.ok or res.fingerprint != want:
+            raise AssertionError(f"sharded one-shot replay at w={N}: {res.fingerprint} != {want}")
+        log(f"phase 9 sharded replays: {len(SCENARIOS) * len(ALGORITHMS)} at default size == "
+            f"phase 4b's fingerprints ({default_s:.1f} s); memento one-shot w={N}, {KEYS} keys "
+            f"== phase 4's {want} ({time.perf_counter() - t0:.1f} s)")
+
+    def stream_rates(self, batches) -> None:
+        """Keys/s of route_stream (block mode, no events) on each device
+        list beside a loop of route_batch on the same batches, and the
+        card's lookup busy share during the stream: the union of the
+        plane's per-chunk lookup intervals (CUDA events) over the stream's
+        span.  An interval opens when the chunk's stream reaches its start
+        event, which an idle stream does before the host has issued the
+        kernel, so the share is an upper bound.  A record: one card cannot
+        show fan-out."""
+        from repro_torch.serve.router import SessionRouter
+
+        np, torch = self.np, self.torch
+        keys = len(batches) * KEYS
+        for devices in (None, [self.dev, self.dev]):
+            r = SessionRouter(N)
+            plane = r.sharded_plane(devices=devices)
+            list(r.route_stream(batches[:2], devices=devices))  # warm
+            plane.trace = []
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+            for _ in r.route_stream(batches, devices=devices):
+                pass
+            wall = time.perf_counter() - t0
+            end.record()
+            end.synchronize()
+            spans = sorted((start.elapsed_time(a), start.elapsed_time(b)) for a, b in plane.trace)
+            busy, reach = 0.0, 0.0
+            for a, b in spans:
+                busy += max(0.0, b - max(a, reach))
+                reach = max(reach, b)
+            t0 = time.perf_counter()
+            for ids in batches:
+                r.route_batch(ids)
+            batch_wall = time.perf_counter() - t0
+            log(f"phase 9 rate, devices {[str(d) for d in plane.devices]}: route_stream "
+                f"{keys / wall:.6g} keys/s ({wall * 1e3:.3f} ms for {len(batches)} x {KEYS}), "
+                f"route_batch loop {keys / batch_wall:.6g} keys/s ({batch_wall * 1e3:.3f} ms); "
+                f"lookup busy at most {busy:.4f} of {start.elapsed_time(end):.4f} ms "
+                f"({busy / start.elapsed_time(end):.2%}, host issue time included) over "
+                f"{len(spans)} chunk lookups")
 
 if __name__ == "__main__":
     sys.exit(main())

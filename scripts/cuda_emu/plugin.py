@@ -58,6 +58,12 @@ def _cpu(device=None):
     return torch.device("cpu")
 
 
+def _cpus(devices=None):
+    """A device list on the CPU: one entry for every GPU (one), or as many
+    as the list has."""
+    return [torch.device("cpu")] * (1 if devices is None else len(devices))
+
+
 def install() -> None:
     """Route the port's kernel wrappers to the g++ build, on CPU tensors."""
     from repro_torch.kernels import build, delta_apply as da, engine
@@ -85,10 +91,13 @@ def install() -> None:
 
     da.delta_apply = delta_apply
     for mod in ("repro_torch.serve.router", "repro_torch.core.image_store",
-                "repro_torch.kernels.engine", "repro_torch.sim.driver", "repro_torch.kernels.ops"):
+                "repro_torch.kernels.engine", "repro_torch.sim.driver", "repro_torch.kernels.ops",
+                "repro_torch.serve.plane", "repro_torch.data.pipeline"):
         m = importlib.import_module(mod)
         if hasattr(m, "resolve_device"):
             m.resolve_device = _cpu
+        if hasattr(m, "resolve_devices"):
+            m.resolve_devices = _cpus
 
 
 def pytest_configure(config):

@@ -53,7 +53,9 @@ for k, v in dict(N=12000, KEYS=2**12, DELTA_TABLE=24000, DELTA_UPDATES=256,
                  INCREMENTAL_EVENTS=16, PACKED_RESTORES=8, SMALL_N=1000, ANCHOR_A=3200,
                  ANCHOR_W=800, BREAKDOWN_REPS=2, HOST_SAMPLE=256, KERNEL_SAMPLE=256,
                  FLUSH_BYTES=1 << 20, COLD_REPS=3, GATHER_WORDS=2**12,
-                 GATHER_TABLE_MB=(1, 2)).items():
+                 GATHER_TABLE_MB=(1, 2), CLUSTER_HOSTS=200, CLUSTER_SHARDS=2**12,
+                 CLUSTER_FAILS=6, CLUSTER_JOINS=3, CKPT_BYTES=1 << 20, PIPE_SHARDS=512,
+                 PIPE_HOSTS=16).items():
     setattr(cs, k, v)
 _init = cs.Smoke.__init__
 
@@ -69,6 +71,9 @@ if __name__ == "__main__":
     if len(sys.argv) > 1:
         smoke = cs.Smoke(torch)
         for phase in sys.argv[1:]:
-            getattr(smoke, phase)()
+            if phase == "phase_replay":  # its kernel rows are phase 2's
+                smoke.phase_replay([])
+            else:
+                getattr(smoke, phase)()
     else:
         sys.exit(cs.main())

@@ -7,13 +7,26 @@ registry: host state → ``DeviceImageStore`` (epoch deltas through the
 ``delta_apply`` kernel) → ``engine_lookup`` / ``engine_diff`` (one lookup
 and one diff kernel per algorithm) → ``SessionRouter.route_batch``, and
 ``repro_torch.sim`` replays the paper's scenarios through that stack.
+``ShardedLookupPlane`` fans key batches over a device list
+(``SessionRouter.route_stream``); the training substrates place data
+shards (``ShardPlacement``, ``ElasticCluster``, movement plans from the
+diff kernels) and checkpoint buckets (``save_checkpoint``) by consistent
+hashing.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``,
 where every kernel is replaced by its plain torch version.
 """
+from repro_torch.ckpt import (AsyncCheckpointer, latest_step, restore_checkpoint,
+                              save_checkpoint)
 from repro_torch.core import (DeviceImage, DeviceImageStore, MementoHash,
                               SyncHandle, SyncStats, make_hash)
+from repro_torch.data import DataPipeline, ShardPlacement
+from repro_torch.runtime import ElasticCluster, StragglerMonitor
+from repro_torch.serve.plane import ShardedLookupPlane
 from repro_torch.serve.router import BatchScheduler, SessionRouter
 
-__all__ = ["BatchScheduler", "DeviceImage", "DeviceImageStore", "MementoHash",
-           "SessionRouter", "SyncHandle", "SyncStats", "make_hash"]
+__all__ = ["AsyncCheckpointer", "BatchScheduler", "DataPipeline", "DeviceImage",
+           "DeviceImageStore", "ElasticCluster", "MementoHash", "SessionRouter",
+           "ShardPlacement", "ShardedLookupPlane", "StragglerMonitor", "SyncHandle",
+           "SyncStats", "latest_step", "make_hash", "restore_checkpoint",
+           "save_checkpoint"]

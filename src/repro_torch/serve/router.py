@@ -12,8 +12,9 @@ and ``route_batch`` is one lookup launch (``{algo}_lookup``, or
 whose k-replica sets the failover rule picks from.
 
 Session ids are hashed to uint32 keys on the host, as in the reference.
-Not yet ported: the sharded streaming plane (``ROADMAP.md`` Queue 1,
-item 8).
+``route_stream`` streams batches through a
+:class:`~repro_torch.serve.plane.ShardedLookupPlane` over the router's
+store: key chunks fanned over a device list, one batch in flight.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ import numpy as np
 from repro_torch.core.hashing import key_to_u32, np_key_to_u32
 from repro_torch.core.image_store import DeviceImageStore
 from repro_torch.core.protocol import make_hash
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_devices
+from repro_torch.serve.plane import ShardedLookupPlane
 
 
 @dataclass
@@ -86,6 +88,8 @@ class SessionRouter:
         self._failed: set[int] = set()
         # overlap mode: replica → host epoch whose landing clears the mark
         self._unmark_at: dict[int, int] = {}
+        # streaming planes by (device list, k)
+        self._planes: dict[tuple, ShardedLookupPlane] = {}
 
     @property
     def memento(self):
@@ -163,11 +167,61 @@ class SessionRouter:
         out = self.image_store().lookup(keys, k=k).cpu().numpy()
         return out.reshape(-1, k)
 
-    def sharded_plane(self, *args, **kwargs):
-        raise NotImplementedError("sharded plane: ROADMAP.md Queue 1, item 8")
+    # -- streaming path (sharded plane) ---------------------------------------
+    def _plane(self, devices, k: int) -> ShardedLookupPlane:
+        """The router's plane for ``devices`` and ``k``, built once.  The
+        default device list is every GPU for a router on a GPU, else the
+        router's own device."""
+        if devices is None and self.device.type != "cuda":
+            devices = [self.device]
+        devices = resolve_devices(devices)
+        key = (tuple(devices), k)
+        plane = self._planes.get(key)
+        if plane is None:
+            plane = self._planes[key] = ShardedLookupPlane(
+                self.image_store(), devices=devices, k=k, sync_mode=self.sync_mode)
+        return plane
 
-    def route_stream(self, *args, **kwargs):
-        raise NotImplementedError("route_stream: ROADMAP.md Queue 1, item 8")
+    def sharded_plane(self, *, devices=None) -> ShardedLookupPlane:
+        """The router's :class:`~repro_torch.serve.plane.ShardedLookupPlane`
+        over its image store (one per device list): membership deltas reach
+        every device through the store's epoch sync."""
+        return self._plane(devices, 1)
+
+    def route_stream(self, session_id_batches, *, devices=None):
+        """Stream batches of session ids → numpy int32 replica batches
+        through the sharded plane.  Membership events applied between
+        batches (``fail_replica``/``restore_replica``) are picked up at the
+        next batch boundary, and, as in :meth:`route_batch`, replicas
+        marked failed are failed over before their removal lands.  With
+        ``replicas_k == 1`` batches stream through the plane's pipelined
+        path; with ``replicas_k > 1`` each batch is served on its own, so
+        the failover rule is applied as in the scalar path."""
+        plane = self.sharded_plane(devices=devices)
+        if self.replicas_k == 1:
+            def to_keys():
+                for ids in session_id_batches:
+                    ids = np.asarray(ids)
+                    self.stats.routed += len(ids)
+                    yield np_key_to_u32(ids)
+
+            yield from plane.route_stream(to_keys())
+            return
+        kplane = self._replica_plane(devices)  # built once a stream, not a batch
+        for ids in session_id_batches:
+            ids = np.asarray(ids)
+            self._poll_store()  # overlap: land a ready flip, retire marks
+            self.stats.routed += len(ids)
+            keys = np_key_to_u32(ids)
+            if not self._failed:
+                yield plane.lookup(keys)
+            else:
+                yield self._failover_pick(kplane.lookup(keys))
+
+    def _replica_plane(self, devices=None) -> ShardedLookupPlane:
+        """The sharded k-replica plane of the failover stream path, k
+        clamped to the surviving fleet."""
+        return self._plane(devices, min(self.replicas_k, self.ch.working))
 
     # -- membership ----------------------------------------------------------
     def _push_delta(self) -> None:

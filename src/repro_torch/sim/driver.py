@@ -10,7 +10,9 @@ event by event through the objects that serve traffic:
   :class:`~repro_torch.core.image_store.DeviceImageStore` (``delta_apply``
   kernel, double-buffered epoch flip),
 * traffic runs ``store.lookup`` (the ``{algo}_lookup`` kernel, or
-  ``{algo}_replica`` for k > 1), or the scalar host state on
+  ``{algo}_replica`` for k > 1), with ``sharded=True`` a
+  :class:`~repro_torch.serve.plane.ShardedLookupPlane` over the store (one
+  per k, on the store's device), or the scalar host state on
   ``plane="host"``; bounded assignment runs
   :func:`~repro_torch.kernels.engine.bounded_assign` (the ``{algo}_walk``
   kernel), or ``bounded_assign_ref`` on the host; session traffic runs a
@@ -33,9 +35,8 @@ second (both from ``trace.seed``, as in the reference), so a replay of the
 resolved trace draws identical traffic and reproduces every placement;
 ``result.fingerprint`` equals the reference's on the same trace.
 
-Not ported yet (each raises ``NotImplementedError``): ``sharded=True``
-(``ROADMAP.md`` Queue 1, item 8), ``followers`` (item 12) and
-``telemetry`` (item 13).
+Not ported yet (each raises ``NotImplementedError``): ``followers``
+(``ROADMAP.md`` Queue 1, item 12) and ``telemetry`` (item 13).
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ from repro_torch.core.hashing import np_fmix32
 from repro_torch.core.image_store import DeviceImageStore
 from repro_torch.core.protocol import ALGORITHM_REGISTRY, make_hash, replica_sets
 from repro_torch.kernels.engine import bounded_assign, bounded_load_len
+from repro_torch.serve.plane import ShardedLookupPlane
 
 from .checkers import (Violation, candidate_hits, check_balance, check_cap_invariant,
                        check_minimal_disruption, check_replica_stability)
@@ -152,8 +154,6 @@ class ScenarioDriver:
             raise ValueError(f"unknown plane {plane!r} (have {PLANES})")
         if sync_mode not in ("block", "overlap"):
             raise ValueError(f"unknown sync_mode {sync_mode!r}")
-        if sharded:
-            raise NotImplementedError("sharded plane: ROADMAP.md Queue 1, item 8")
         if followers:
             raise NotImplementedError("follower replication: ROADMAP.md Queue 1, item 12")
         if telemetry:
@@ -183,6 +183,8 @@ class ScenarioDriver:
         self.metrics = ScenarioMetrics()
         self.violations: list[Violation] = []
         self._router = None
+        self._sharded = sharded
+        self._planes_sharded: dict[int, ShardedLookupPlane] = {}  # k → plane
         # membership applied since the last sync (checker comparands)
         self._pending_removed: set[int] = set()
         self._pending_added: set[int] = set()
@@ -217,6 +219,12 @@ class ScenarioDriver:
             if k == 1:
                 return np.asarray([self.h.lookup(int(x)) for x in keys], dtype=np.int32)
             return replica_sets(self.h, keys, k)
+        if self._sharded:
+            plane = self._planes_sharded.get(k)
+            if plane is None:
+                plane = self._planes_sharded[k] = ShardedLookupPlane(
+                    self.store, k=k, devices=[self.store.device])
+            return plane.lookup(keys)
         return _numpy(self.store.lookup(keys, k=k))
 
     # -- the event loop ------------------------------------------------------

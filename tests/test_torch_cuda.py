@@ -1850,3 +1850,79 @@ def test_anchor_walk_stops_every_lane_at_max_probe(dev):
     stepped = pending & (probe < max_probe)
     assert (got[2][stepped] == max_probe).all()
     assert torch.equal(got[2][~stepped], probe[~stepped])
+
+
+# ---------------------------------------------------------------------------
+# the sharded plane: two entries on one card (two streams), pipelined
+# ---------------------------------------------------------------------------
+
+def _plane_store(algo: str, dev, compact: bool):
+    from repro_torch.core.image_store import DeviceImageStore
+
+    h = make_hash(algo, 3000, capacity=12000, variant="32")
+    rng = np.random.default_rng(31)
+    for _ in range(400):
+        if ALGORITHM_REGISTRY[algo].lifo_only:
+            h.remove(h.size - 1)
+        else:
+            ws = sorted(h.working_set())
+            h.remove(ws[int(rng.integers(len(ws)))])
+    return h, DeviceImageStore(h, device=dev, compact=compact)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("algo,compact", [(a, False) for a in ALGORITHMS]
+                         + [(a, True) for a in ALGORITHMS if a in engine.PACKED_KERNELS])
+def test_sharded_plane_on_one_card_twice_matches_store(dev, algo, compact, k):
+    """``[cuda, cuda]``: each entry's chunk on its own stream, equal to the
+    store's single lookup, batch after batch of a stream (a staging or
+    stream race would show as a wrong batch)."""
+    from repro_torch.serve.plane import ShardedLookupPlane
+
+    _, store = _plane_store(algo, dev, compact)
+    plane = ShardedLookupPlane(store, devices=[dev, dev], k=k)
+    rng = np.random.default_rng(32)
+    batches = [rng.integers(0, 2**32, size=int(s), dtype=np.uint32)
+               for s in rng.integers(1, 70_000, size=24)]
+    want = [store.lookup(b, k=k).cpu().numpy() for b in batches]
+    np.testing.assert_array_equal(plane.lookup(batches[0]), want[0])
+    got = list(plane.route_stream(iter(batches)))
+    assert len(got) == len(want) and plane.copies == 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("replicas_k", [1, 2])
+@pytest.mark.parametrize("sync_mode", ["block", "overlap"])
+def test_route_stream_across_flips_on_one_card_twice(dev, sync_mode, replicas_k):
+    """Every streamed batch equals ``route_batch`` of its ids at the epoch
+    it was served at: taken before the batch is fed, after the event's
+    device work is done (so the next poll point lands an overlapped flip)."""
+    r = SessionRouter(2000, device=dev, sync_mode=sync_mode, replicas_k=replicas_k)
+    r.image_store()
+    rng = np.random.default_rng(33)
+    batches = [rng.integers(0, 2**63, size=(1 << 16) + 77, dtype=np.uint64) for _ in range(12)]
+    victim = 5
+    want = []
+
+    def feed():
+        for i, ids in enumerate(batches):
+            if i == 3:
+                r.mark_failed(victim)
+            if i == 4:
+                r.fail_replica(victim)
+            if i in (6, 7):
+                r.fail_replica(sorted(r.replicas)[100 + i])
+            if i == 9:
+                r.restore_replica()
+            torch.cuda.synchronize(dev)
+            want.append(r.route_batch(ids))
+            yield ids
+
+    got = list(r.route_stream(feed(), devices=[dev, dev]))
+    assert len(got) == len(want) == len(batches)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert r.image_store().epoch == r.ch.epoch
+    if replicas_k > 1:
+        assert victim not in set(got[3].tolist())

@@ -56,6 +56,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
 def test_default_device_needs_a_gpu(monkeypatch):
     from repro_torch.core.image_store import DeviceImageStore
     from repro_torch.core.memento import MementoHash
+    from repro_torch.data import ShardPlacement
+    from repro_torch.runtime import ElasticCluster
+    from repro_torch.serve.plane import ShardedLookupPlane
     from repro_torch.serve.router import SessionRouter
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -64,6 +67,16 @@ def test_default_device_needs_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SessionRouter(8)
     assert SessionRouter(8, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardPlacement(64, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ElasticCluster(8, num_shards=64)
+    store = DeviceImageStore(MementoHash(8, variant="32"), device="cpu")
+    with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
+        ShardedLookupPlane(store)
+    assert ShardPlacement(64, 8, device="cpu").device.type == "cpu"
+    assert ElasticCluster(8, num_shards=64, device="cpu").placement.device.type == "cpu"
+    assert ShardedLookupPlane(store, devices=["cpu"]).devices == [torch.device("cpu")]
 
 
 def test_chip_smoke_alone_fails_without_the_repo(tmp_path):

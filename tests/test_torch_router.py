@@ -135,7 +135,7 @@ def test_injected_store_and_unported_paths():
         SessionRouter(20, store=store, device="cpu")  # a different host state
     with pytest.raises(ValueError):
         SessionRouter(20, sync_mode="lazy", device="cpu")
-    with pytest.raises(NotImplementedError):
-        router.route_stream([IDS])
-    with pytest.raises(NotImplementedError):
-        router.sharded_plane()
+    plane = router.sharded_plane()  # ported: a plane over the injected store
+    assert plane._source is store and plane.devices == [store.device]
+    (streamed,) = list(router.route_stream([IDS]))
+    np.testing.assert_array_equal(streamed, router.route_batch(IDS))

@@ -182,12 +182,11 @@ def test_overlapped_syncs_replay_to_the_same_fingerprint():
 
 
 def test_cut_features_raise():
-    """The sharded plane, followers and telemetry raise; k-replica
+    """Followers and telemetry raise; the sharded plane, k-replica
     lookups, ``replica_k > 1``, ``assign`` events and ``session_affinity``
     replay as the reference replays them."""
     trace = make_trace("stable", 0, w=16, batches=1, n_keys=8)
-    for kw, item in ((dict(sharded=True), "item 8"), (dict(followers=2), "item 12"),
-                     (dict(telemetry=True), "item 13")):
+    for kw, item in ((dict(followers=2), "item 12"), (dict(telemetry=True), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             ScenarioDriver(trace, device="cpu", **kw)
     assign = Trace("assign", 0, 16, [TraceEvent("assign", n_keys=8, cap_c=1.5)])
@@ -197,6 +196,9 @@ def test_cut_features_raise():
         want = ref_replay(RefTrace.from_json(trace.to_json()), plane="jnp", **kw)
         got = replay(trace, device="cpu", **kw)
         assert got.ok and want.ok and got.fingerprint == want.fingerprint
+        # sharded: held against the reference's single-device replay
+        got = replay(trace, device="cpu", sharded=True, **kw)
+        assert got.ok and got.fingerprint == want.fingerprint
     trace = make_trace("stable", 0, w=16, batches=1, n_keys=8)
     with pytest.raises(ValueError):
         ScenarioDriver(trace, plane="jnp", device="cpu")
