@@ -128,7 +128,33 @@
    of ``route_batch`` on the same batches, and the card's lookup busy
    share during the stream (CUDA events), a record: one card cannot show
    fan-out.  Each of phases 8 and 9 logs its wall time.
-10. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+10. Drives replication on the card: for every algorithm
+   ``ScenarioDriver(make_trace("churn_storm_xl", w=10^6), followers=3,
+   repl_config={"topology": "tree", "arity": 2})`` (AnchorHash at w = 10^5,
+   a = 4 x 10^5: its constructor's Python removals at a = 4 x 10^6 took
+   most of the phase) in overlap mode (the
+   convergence checker after every synced event, no violation, the
+   fingerprint of a replay without followers), and packed: Memento at w =
+   10^6 and at 10^4 (int16 slots, random victims) and AnchorHash on
+   ``churn_storm`` at a = 32000 (int16 A/K); after each, every follower's
+   lookups of 2^20 keys at k = 1 and 3 equal the leader store's.  Then on
+   Memento at w = 10^6 through random storms: a follower offline across a
+   storm repaired by a delta catch-up, one attached mid-stream (a snapshot
+   catch-up), ``batch_epochs`` 0, 1 and 3 to one fingerprint, flat against
+   tree fan-out (arity 2 and 4, 7 followers: frames, bytes, leader sends),
+   the dense and packed snapshot bytes and a follower's drain ms.
+   ``delta_apply``, ``delta_apply_int16``, every ``{algo}_lookup``,
+   ``{algo}_replica`` and ``{algo}_diff``, ``memento_packed_lookup`` and
+   ``anchor_packed_lookup`` must be launched on that path (the leader's
+   comparand lookups and the replays without followers are not counted).
+   Then real processes over gloo, all on this card (its compute mode must
+   be ``Default``): a 4-process ``TreeBroadcast(arity=2)`` led at Memento
+   w = 10^6 and a 2-process ``DistributedBroadcast`` over PowerHash, 12
+   rounds of 3-event bursts; every rank's epoch, fingerprint and 2^20-key
+   lookup CRC agree, each rank launched the lookup entry (and
+   ``delta_apply`` where the image has a table; PowerHash has none) in its
+   own process; the snapshot and burst round ms are logged.
+11. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Any mismatch or error exits non-zero.  Without a GPU, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -281,6 +307,88 @@ PIPE_SHARDS, PIPE_HOSTS = 4096, 64  # phase 8: the DataPipeline's placement
 STREAM_BATCHES = 16       # phase 9: session-id batches of each route_stream
 STREAM_FAIL_AT, STREAM_RESTORE_AT = 4, 10  # phase 9: events before these batches
 STREAM_SIDE_BATCHES = 4   # phase 9: batches of the failover and packed streams
+REPL_FOLLOWERS = 3        # phase 10: followers of each replay (a tree of arity 2)
+REPL_ANCHOR_BURST = 500   # phase 10: removals a storm of the packed AnchorHash replay
+REPL_SMALL_W = 10**4      # phase 10: the packed Memento replay with int16 slots
+# phase 10: AnchorHash's dense storm fleet, churn_storm_xl's default (a = 4 x 10^5).
+# Its constructor replays a - w removals in Python: at w = 10^6 the replay and
+# its comparand took 185 s of a 1192 s run, too close to the run's time limit
+REPL_ANCHOR_W = 10**5
+REPL_STORMS = 3           # phase 10: storms of the pull paths on Memento w = N
+REPL_PULL_REMOVALS = 256  # phase 10: random removals a storm (then half as many adds)
+REPL_FANOUT = 7           # phase 10: followers of the flat and tree groups
+GLOO_ROUNDS, GLOO_BURST = 12, 3  # phase 10: the gloo leader's rounds, events a round
+GLOO_TIMEOUT = 300        # phase 10: seconds every process of a gloo run has
+# phase 10: code run first in each gloo worker (the CPU rehearsal routes the
+# kernels there); empty on the card
+WORKER_PRELUDE = ""
+# phase 10: a rank of a gloo run on the card.  Rank 0 leads: a DeviceImageStore
+# and a DeltaPublisher over the host state, bursts of churn between rounds;
+# the others replay its frames in a FollowerImageStore.  Each prints its
+# epoch, fingerprint, a CRC of a lookup, its round times and its launches
+# as one JSON line, and fails if the lookup entry (and, where the image has
+# a table, delta_apply) did not launch in its own process.
+GLOO_WORKER = r"""
+import json, os, time, zlib
+import numpy as np
+import torch
+from repro_torch.launch.mesh import init_distributed
+pid, nproc = int(os.environ["REPL_PID"]), int(os.environ["REPL_NPROC"])
+init_distributed("127.0.0.1:" + os.environ["REPL_PORT"], nproc, pid)
+from repro_torch.core.image_store import DeviceImageStore
+from repro_torch.core.protocol import ALGORITHM_REGISTRY, image_fingerprint, make_hash
+from repro_torch.kernels import delta_apply, engine
+from repro_torch.launch.replicate import (DeltaPublisher, DistributedBroadcast,
+                                          FollowerImageStore, TreeBroadcast)
+algo, n, seed = os.environ["REPL_ALGO"], int(os.environ["REPL_N"]), int(os.environ["REPL_SEED"])
+rounds, burst = int(os.environ["REPL_ROUNDS"]), int(os.environ["REPL_BURST"])
+chan = TreeBroadcast(arity=2) if os.environ["REPL_TREE"] == "1" else DistributedBroadcast()
+dev = torch.device("cuda", 0)
+keys = np.random.default_rng([seed, 10]).integers(0, 2**32, size=int(os.environ["REPL_KEYS"]),
+                                                  dtype=np.uint32)
+round_ms, received = [], []
+
+def exchange(frames=None):
+    t0 = time.perf_counter()
+    got = chan.exchange(frames)
+    round_ms.append((time.perf_counter() - t0) * 1e3)
+    received.append(got)
+    return got
+
+if pid == 0:
+    rng = np.random.default_rng([seed, 11])
+    lifo = ALGORITHM_REGISTRY[algo].lifo_only
+    h = make_hash(algo, n, variant="32")
+    store = DeviceImageStore(h, device=dev)
+    pub = DeltaPublisher(h)
+    exchange(pub.frames())
+    for _ in range(rounds):
+        for _ in range(burst):
+            if rng.random() < 0.45 and h.working > 8:
+                h.remove(h.size - 1 if lifo else h.lookup(int(rng.integers(1 << 30))))
+            else:
+                h.add()
+        store.sync()
+        exchange(pub.frames())
+    image, out = store.image(), store.lookup(keys).cpu().numpy()
+    epoch, fp = store.epoch, image_fingerprint(image)
+else:
+    fol = FollowerImageStore(device=dev)
+    for _ in range(rounds + 1):
+        fol.apply_frames(exchange())
+    image, out = fol.image(), fol.lookup(keys)
+    epoch, fp = fol.epoch, fol.fingerprint()
+torch.cuda.synchronize()
+launches = {k: v for c in (engine.LAUNCHES, delta_apply.LAUNCHES) for k, v in c.items() if v}
+missing = [k for k in [algo + "_lookup"] + (["delta_apply"] if image.arrays else [])
+           if not launches.get(k)]
+if missing:
+    raise SystemExit(f"rank {pid}: {missing} not launched in this process")
+print(json.dumps({"epoch": epoch, "fingerprint": fp, "round_ms": round_ms,
+                  "lookup_crc": zlib.crc32(out.astype(np.int64).tobytes()),
+                  "snapshot_bytes": 4 * sum(len(f) for f in received[0]),  # 0 on rank 0 of a tree
+                  "launches": launches}), flush=True)
+"""
 
 
 def log(msg: str) -> None:
@@ -708,19 +816,30 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     smoke = Smoke(torch)
-    smoke.phase_build(smi)
-    kernels = smoke.phase_kernels()
-    algo_kernels = smoke.phase_algo_kernels()
-    smoke.phase_main_path(kernels)
-    smoke.phase_replay(algo_kernels)
-    smoke.phase_host_vs_device()
-    replica_kernels = smoke.phase_replicas()
-    packed_kernels = smoke.phase_packed()
-    compact_kernels = smoke.phase_compact_replicas()
+    walls = {}
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    timed("1", smoke.phase_build, smi)
+    kernels = timed("2 memento", smoke.phase_kernels)
+    algo_kernels = timed("2 others", smoke.phase_algo_kernels)
+    timed("3", smoke.phase_main_path, kernels)
+    timed("4", smoke.phase_replay, algo_kernels)
+    timed("4b", smoke.phase_host_vs_device)
+    replica_kernels = timed("5", smoke.phase_replicas)
+    packed_kernels = timed("6", smoke.phase_packed)
+    compact_kernels = timed("7", smoke.phase_compact_replicas)
     kernels += algo_kernels + replica_kernels + packed_kernels + compact_kernels
-    smoke.lookup_cold_times(kernels)
-    smoke.phase_substrates()
-    smoke.phase_stream()
+    timed("7 cold", smoke.lookup_cold_times, kernels)
+    timed("8", smoke.phase_substrates)
+    timed("9", smoke.phase_stream)
+    timed("10", smoke.phase_replication)
+    log("phase walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f"; {sum(walls.values()):.1f} s in all")
     log_rule2_order(kernels)
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -3601,6 +3720,240 @@ class Smoke:
                 f"lookup busy at most {busy:.4f} of {start.elapsed_time(end):.4f} ms "
                 f"({busy / start.elapsed_time(end):.2%}, host issue time included) over "
                 f"{len(spans)} chunk lookups")
+
+    # -- phase 10: replication on the card -------------------------------------
+    def phase_replication(self) -> None:
+        """Phase 10: replays with followers on the card for every algorithm
+        (dense, and packed Memento at w = 10^6 and 10^4 and AnchorHash at a =
+        32000), the pull paths and fan-outs on Memento at w = 10^6, then real
+        processes over gloo sharing the card."""
+        from repro_torch.core.protocol import ALGORITHMS
+
+        t_phase = time.perf_counter()
+        reset, snapshot, uncounted = self.launch_counts()
+        reset()
+        t0 = time.perf_counter()
+        self.repl_replays(uncounted)
+        replays_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.repl_pulls(uncounted)
+        pulls_s = time.perf_counter() - t0
+        launches = snapshot()
+        log(f"phase 10 launches: {launches}")
+        for name in (["delta_apply", "delta_apply_int16", "memento_packed_lookup",
+                      "anchor_packed_lookup"]
+                     + [f"{a}_{m}" for a in ALGORITHMS for m in ("lookup", "replica", "diff")]):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the replication path")
+        t0 = time.perf_counter()
+        self.repl_processes()
+        log(f"phase 10 wall: {time.perf_counter() - t_phase:.1f} s (replays {replays_s:.1f} s, "
+            f"pull paths and fan-out {pulls_s:.1f} s, gloo {time.perf_counter() - t0:.1f} s)")
+
+    def repl_replays(self, uncounted) -> None:
+        """(a) ``ScenarioDriver(followers=3, tree of arity 2)`` in overlap
+        mode: no violation (the convergence checker runs after every synced
+        event), the fingerprint of a replay without followers, and every
+        follower's 2^20-key lookups at k = 1 and 3 == the leader store's."""
+        from repro_torch.core.protocol import ALGORITHMS
+        from repro_torch.sim import make_trace
+
+        xl = lambda w, **kw: make_trace("churn_storm_xl", SEED, w=w, **kw)  # noqa: E731
+        runs = [(algo, xl(REPL_ANCHOR_W if algo == "anchor" else N), False)
+                for algo in ALGORITHMS]
+        # the w = 10^4 storm's victims are random, so that its int16 slot
+        # tables take writes (LIFO removals of Memento change n alone)
+        runs += [("memento", xl(N), True), ("memento", xl(REPL_SMALL_W, select="random"), True),
+                 ("anchor", make_trace("churn_storm", SEED, w=ANCHOR_W, storms=3,
+                                       burst=REPL_ANCHOR_BURST), True)]
+        for algo, trace, packed in runs:
+            self.repl_replay(algo, trace, packed, uncounted)
+
+    def repl_replay(self, algo: str, trace, packed: bool, uncounted) -> None:
+        from repro_torch.sim import ScenarioDriver
+
+        np = self.np
+        config = {"topology": "tree", "arity": 2, "packed": packed}
+        t0 = time.perf_counter()
+        drv = ScenarioDriver(trace, algo=algo, sync_mode="overlap", followers=REPL_FOLLOWERS,
+                             repl_config=config)
+        res = drv.run()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        alone = uncounted(lambda: ScenarioDriver(trace, algo=algo, sync_mode="overlap").run())
+        alone_s = time.perf_counter() - t0
+        label = f"{algo} {trace.name} w={trace.initial_nodes}{' packed' if packed else ''}"
+        if not res.ok or res.fingerprint != alone.fingerprint:
+            raise AssertionError(f"phase 10 replay {label}: {res.violations[:2]}, fingerprint "
+                                 f"{res.fingerprint} != {alone.fingerprint} without followers")
+        synced = sum(1 for r in res.metrics.records if r.sync_mode)
+        image = drv.store.image()
+        _keys, kt = self.keys()
+        for k in (1, REPLICAS_K):
+            want = uncounted(lambda: drv.store.lookup(kt, k=k)).cpu().numpy()
+            for i, f in enumerate(drv.repl.followers):
+                if f.image().packed != packed or not np.array_equal(f.lookup(kt, k=k), want):
+                    raise AssertionError(f"phase 10 {label}: follower {i} k={k} != leader")
+        s = res.summary()
+        widths = {k: str(v.dtype).replace("torch.", "")
+                  for k, v in drv.repl.followers[0].image().arrays.items()}
+        log(f"phase 10 replay {label}: {REPL_FOLLOWERS} followers, tree arity 2, overlap; "
+            f"{synced} synced events each checked converged, no violation, fingerprint "
+            f"{res.fingerprint} == without followers; every follower's {KEYS} keys k=1 and "
+            f"k={REPLICAS_K} == leader; epoch {image.epoch}, tables {widths}; "
+            + ", ".join(f"{k} {s[k]}" for k in ("followers", "follower_lag_max",
+                                                 "follower_lag_mean", "fanout_depth",
+                                                 "wire_frames_total", "wire_bytes_total",
+                                                 "leader_sends_total"))
+            + f"; {wall:.1f} s (without followers {alone_s:.1f} s)")
+
+    def repl_pulls(self, uncounted) -> None:
+        """(b) On one Memento state at w = 10^6 through random storms: a
+        follower offline across a storm repaired by a delta catch-up, one
+        attached mid-stream (a snapshot catch-up), batch_epochs 0, 1 and 3,
+        and flat against tree fan-out (arity 2 and 4, 7 followers)."""
+        from repro_torch.core.image_store import DeviceImageStore
+        from repro_torch.core.memento import MementoHash
+        from repro_torch.core.protocol import image_fingerprint
+        from repro_torch.launch.replicate import (DeltaPublisher, FollowerImageStore,
+                                                  ReplicationGroup)
+
+        np, torch = self.np, self.torch
+        t0 = time.perf_counter()
+        m = MementoHash(N, variant="32")
+        store = DeviceImageStore(m, device=self.dev)
+        pull = ReplicationGroup(m, 2, device=self.dev)
+        batched = {be: ReplicationGroup(m, 1, device=self.dev, batch_epochs=be)
+                   for be in (0, 1, 3)}
+        fans = {"flat": ReplicationGroup(m, REPL_FANOUT, device=self.dev),
+                **{f"tree arity {a}": ReplicationGroup(m, REPL_FANOUT, device=self.dev,
+                                                       topology="tree", arity=a)
+                   for a in (2, 4)}}
+        groups = [pull, *batched.values(), *fans.values()]
+        pub, probe = DeltaPublisher(m), FollowerImageStore(device=self.dev)
+        for g in groups:
+            g.publish()
+        probe.apply_frames(pub.frames())
+        first = {be: (g.stats.frames, g.stats.total_bytes) for be, g in batched.items()}
+        dense_bytes = 4 * sum(len(f) for f in uncounted(lambda: DeltaPublisher(m).frames()))
+        drains = []
+        for storm in range(REPL_STORMS):
+            if storm == 1:
+                pull.set_online(1, False)
+            if storm == 2:
+                pull.set_online(1, True)
+            self.remove_random(m, REPL_PULL_REMOVALS)
+            for _ in range(REPL_PULL_REMOVALS // 2):
+                m.add()
+            store.sync()
+            for g in groups:
+                g.publish()
+            frames = pub.frames()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            probe.apply_frames(frames)
+            torch.cuda.synchronize()
+            drains.append(((time.perf_counter() - t1) * 1e3, 4 * sum(len(f) for f in frames)))
+        want = image_fingerprint(store.image())
+        if not all(g.converged(store.image()) for g in groups) or probe.fingerprint() != want:
+            raise AssertionError("phase 10: a group did not converge on the Memento storms")
+        repair = (pull.stats.catchup_frames, pull.stats.catchup_bytes)
+        if pull.followers[1].snapshots != 1 or repair[0] < 1:
+            raise AssertionError("phase 10: the offline follower's repair was not a delta catch-up")
+        joined = pull.attach_follower()
+        join_bytes = pull.stats.catchup_bytes - repair[1]
+        if joined.snapshots != 1 or joined.fingerprint() != want:
+            raise AssertionError("phase 10: the attached follower's snapshot catch-up failed")
+        prints = {be: g.followers[0].fingerprint() for be, g in batched.items()}
+        if set(prints.values()) != {want}:
+            raise AssertionError(f"phase 10: batch_epochs fingerprints {prints} != {want}")
+        _keys, kt = self.keys()
+        leader = uncounted(lambda: store.lookup(kt)).cpu().numpy()
+        if not np.array_equal(joined.lookup(kt), leader):
+            raise AssertionError("phase 10: the attached follower's lookups != leader")
+        packed_bytes = 4 * sum(len(f) for f in
+                               uncounted(lambda: DeltaPublisher(m, packed=True).frames()))
+        log(f"phase 10 pulls, memento w={N}, {REPL_STORMS} storms of {REPL_PULL_REMOVALS} "
+            f"random removals and {REPL_PULL_REMOVALS // 2} adds: follower 1 offline across "
+            f"storm 2, repaired by {repair[0]} catch-up frame(s) ({repair[1]} bytes, a delta: "
+            f"its snapshots {pull.followers[1].snapshots}); attached follower's snapshot "
+            f"catch-up ({join_bytes} bytes) == leader (fingerprint {want}, {KEYS} keys); "
+            "batch_epochs 0/1/3 fingerprints equal; the storms' frames and bytes after the "
+            "first snapshot: " + "; ".join(
+                f"batch_epochs {be}: {g.stats.frames - first[be][0]} frames, "
+                f"{g.stats.total_bytes - first[be][1]} bytes" for be, g in batched.items()))
+        log(f"phase 10 fan-out, {REPL_FANOUT} followers: " + "; ".join(
+            f"{name}: frames {g.stats.frames}, bytes {g.stats.total_bytes}, leader sends "
+            f"{g.stats.leader_sends}, leader bytes {g.stats.leader_bytes}, total sends "
+            f"{g.stats.total_sends}, depth {g.depth}" for name, g in fans.items()))
+        log(f"phase 10 wire: dense snapshot at w={N} {dense_bytes} bytes, packed "
+            f"{packed_bytes} bytes; follower drain (decode, compose, delta_apply, a "
+            "synchronize) ms and frame bytes by storm: "
+            + ", ".join(f"{ms:.3f} ms / {b} bytes" for ms, b in drains)
+            + f"; {time.perf_counter() - t0:.1f} s")
+
+    def repl_processes(self) -> None:
+        """(c) Real processes over gloo, every one on this card: a 4-process
+        ``TreeBroadcast(arity=2)`` led at Memento w = 10^6, and a 2-process
+        ``DistributedBroadcast`` over PowerHash.  Every rank's epoch,
+        fingerprint and 2^20-key lookup CRC must agree."""
+        mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              check=True).stdout.strip().splitlines()[0]
+        log(f"phase 10 compute mode: {mode}")
+        if mode != "Default":
+            raise AssertionError(f"phase 10 needs compute mode Default to put 4 processes on "
+                                 f"one card, not {mode}")
+        for nproc, algo, tree in ((4, "memento", True), (2, "power", False)):
+            self.gloo_run(nproc, algo, tree)
+
+    def gloo_run(self, nproc: int, algo: str, tree: bool) -> None:
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        path = os.pathsep.join([str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", WORKER_PRELUDE + GLOO_WORKER], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=path, REPL_PID=str(pid), REPL_NPROC=str(nproc),
+                     REPL_PORT=str(port), REPL_ALGO=algo, REPL_TREE=str(int(tree)),
+                     REPL_N=str(N), REPL_KEYS=str(KEYS), REPL_ROUNDS=str(GLOO_ROUNDS),
+                     REPL_BURST=str(GLOO_BURST), REPL_SEED=str(SEED)))
+            for pid in range(nproc)]
+        results, deadline = [], time.perf_counter() + GLOO_TIMEOUT
+        try:
+            for pid, p in enumerate(procs):
+                try:
+                    out, err = p.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"phase 10 gloo rank {pid} timed out after "
+                                         f"{GLOO_TIMEOUT} s") from None
+                if p.returncode != 0:
+                    raise AssertionError(f"phase 10 gloo rank {pid} failed:\n{out}\n{err[-4000:]}")
+                results.append(json.loads([ln for ln in out.splitlines()
+                                           if ln.startswith("{")][-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        agree = {(r["epoch"], r["fingerprint"], r["lookup_crc"]) for r in results}
+        if len(agree) != 1:
+            raise AssertionError(f"phase 10 gloo {algo}: ranks disagree: {results}")
+        rounds = [r["round_ms"] for r in results]
+        log(f"phase 10 gloo {'TreeBroadcast(arity=2)' if tree else 'DistributedBroadcast'}, "
+            f"{nproc} processes on {self.dev}, {algo} w={N}, {GLOO_ROUNDS} rounds of "
+            f"{GLOO_BURST}-event bursts: every rank at epoch {results[0]['epoch']}, fingerprint "
+            f"{results[0]['fingerprint']}, lookup CRC of {KEYS} keys {results[0]['lookup_crc']}; "
+            "launches a rank " + ", ".join(json.dumps(r["launches"]) for r in results)
+            + "; snapshot round ms by rank " + ", ".join(f"{r[0]:.3f}" for r in rounds)
+            + "; burst round ms by rank, median " + ", ".join(
+                f"{self.np.median(r[1:]):.3f}" for r in rounds)
+            + f"; snapshot frame {max(r['snapshot_bytes'] for r in results)} bytes; "
+            f"{time.perf_counter() - t0:.1f} s")
 
 if __name__ == "__main__":
     sys.exit(main())

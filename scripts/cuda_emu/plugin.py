@@ -92,7 +92,8 @@ def install() -> None:
     da.delta_apply = delta_apply
     for mod in ("repro_torch.serve.router", "repro_torch.core.image_store",
                 "repro_torch.kernels.engine", "repro_torch.sim.driver", "repro_torch.kernels.ops",
-                "repro_torch.serve.plane", "repro_torch.data.pipeline"):
+                "repro_torch.serve.plane", "repro_torch.data.pipeline",
+                "repro_torch.launch.replicate"):
         m = importlib.import_module(mod)
         if hasattr(m, "resolve_device"):
             m.resolve_device = _cpu

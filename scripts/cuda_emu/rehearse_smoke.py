@@ -10,6 +10,7 @@ alone, in order.
 """
 from __future__ import annotations
 
+import subprocess
 import sys
 import time
 import types
@@ -43,8 +44,19 @@ torch.cuda._sleep = lambda *a: None
 torch.cuda.get_device_name = lambda *a: "emulated"
 torch.cuda.device_count = lambda: 1
 build.build = lambda names=None: {}
-cs.subprocess = types.SimpleNamespace(
-    run=lambda *a, **k: types.SimpleNamespace(stdout="emulated, 0 W\n"))
+
+
+def _smi(cmd, **kw):
+    """``nvidia-smi``: the card's name and limit, or its compute mode."""
+    out = "Default\n" if any("compute_mode" in c for c in cmd) else "emulated, 0 W\n"
+    return types.SimpleNamespace(stdout=out)
+
+
+cs.subprocess = types.SimpleNamespace(run=_smi, Popen=subprocess.Popen, PIPE=subprocess.PIPE,
+                                      TimeoutExpired=subprocess.TimeoutExpired)
+# phase 10's gloo workers route the kernels to the same build (EMU_BUILD and
+# PYTHONPATH are inherited)
+cs.WORKER_PRELUDE = "import plugin\nplugin.install()\n"
 # PACKED_REMOVALS 128 with 16 INCREMENTAL_EVENTS: fewer removals give a slot
 # table too small for the single removals' deltas; 2 * SMALL_N <= 32767
 # keeps its tables int16
@@ -55,7 +67,8 @@ for k, v in dict(N=12000, KEYS=2**12, DELTA_TABLE=24000, DELTA_UPDATES=256,
                  FLUSH_BYTES=1 << 20, COLD_REPS=3, GATHER_WORDS=2**12,
                  GATHER_TABLE_MB=(1, 2), CLUSTER_HOSTS=200, CLUSTER_SHARDS=2**12,
                  CLUSTER_FAILS=6, CLUSTER_JOINS=3, CKPT_BYTES=1 << 20, PIPE_SHARDS=512,
-                 PIPE_HOSTS=16).items():
+                 PIPE_HOSTS=16, REPL_ANCHOR_BURST=50, REPL_PULL_REMOVALS=64,
+                 REPL_FANOUT=3, GLOO_ROUNDS=4, REPL_ANCHOR_W=10**4).items():
     setattr(cs, k, v)
 _init = cs.Smoke.__init__
 

@@ -12,6 +12,12 @@ and one diff kernel per algorithm) → ``SessionRouter.route_batch``, and
 shards (``ShardPlacement``, ``ElasticCluster``, movement plans from the
 diff kernels) and checkpoint buckets (``save_checkpoint``) by consistent
 hashing.
+``repro_torch.launch`` replicates a leader's epochs to followers that hold
+no host state: a frame codec equal word for word to the reference's,
+``DeltaPublisher``, ``FollowerImageStore`` (frames replayed on the card by
+the ``delta_apply`` kernels, lookups by the engine's), ``ReplicationGroup``
+(flat or tree fan-out, catch-up) and ``torch.distributed`` broadcasts
+between processes; ``repro_torch.sim`` replays with ``followers=``.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``,
 where every kernel is replaced by its plain torch version.
@@ -21,12 +27,13 @@ from repro_torch.ckpt import (AsyncCheckpointer, latest_step, restore_checkpoint
 from repro_torch.core import (DeviceImage, DeviceImageStore, MementoHash,
                               SyncHandle, SyncStats, make_hash)
 from repro_torch.data import DataPipeline, ShardPlacement
+from repro_torch.launch import DeltaPublisher, FollowerImageStore, ReplicationGroup
 from repro_torch.runtime import ElasticCluster, StragglerMonitor
 from repro_torch.serve.plane import ShardedLookupPlane
 from repro_torch.serve.router import BatchScheduler, SessionRouter
 
-__all__ = ["AsyncCheckpointer", "BatchScheduler", "DataPipeline", "DeviceImage",
-           "DeviceImageStore", "ElasticCluster", "MementoHash", "SessionRouter",
-           "ShardPlacement", "ShardedLookupPlane", "StragglerMonitor", "SyncHandle",
-           "SyncStats", "latest_step", "make_hash", "restore_checkpoint",
-           "save_checkpoint"]
+__all__ = ["AsyncCheckpointer", "BatchScheduler", "DataPipeline", "DeltaPublisher",
+           "DeviceImage", "DeviceImageStore", "ElasticCluster", "FollowerImageStore",
+           "MementoHash", "ReplicationGroup", "SessionRouter", "ShardPlacement",
+           "ShardedLookupPlane", "StragglerMonitor", "SyncHandle", "SyncStats",
+           "latest_step", "make_hash", "restore_checkpoint", "save_checkpoint"]

@@ -338,6 +338,47 @@ class DeltaEmitter:
                           epoch=self._epoch, n=self._image_n(),
                           updates=updates, scalars=dict(self._image_scalars()))
 
+    def device_delta_range(self, since_epoch: int, until_epoch: int):
+        """Compose the events in ``(since_epoch, until_epoch]`` into one
+        delta: :meth:`device_delta` to an intermediate target epoch, so a
+        replication publisher can chunk a long pending range into several
+        frames (``repro_torch.launch.replicate``).  ``n`` and the scalars
+        come from the log entry at ``until_epoch``; an empty range gives
+        the ``until`` state.  ``None`` when ``since_epoch`` predates the
+        bounded log, or ``until_epoch`` sits at its edge (no entry)."""
+        if until_epoch > self._epoch:
+            raise ValueError(f"until_epoch {until_epoch} is in the future "
+                             f"(current epoch {self._epoch})")
+        if since_epoch > until_epoch:
+            raise ValueError(f"empty range ({since_epoch}, {until_epoch}]")
+        if since_epoch < self._epoch - len(self._delta_log):
+            return None
+        start = len(self._delta_log) - (self._epoch - since_epoch)
+        stop = len(self._delta_log) - (self._epoch - until_epoch)
+        if stop == start:
+            if until_epoch == self._epoch:
+                n, scalars = self._image_n(), dict(self._image_scalars())
+            elif stop <= 0:
+                return None
+            else:
+                _e, _u, n, scalars = self._delta_log[stop - 1]
+            return ImageDelta(algo=self.image_algo, base_epoch=since_epoch,
+                              epoch=until_epoch, n=n, scalars=dict(scalars))
+        merged: dict[str, dict[int, int]] = {}
+        for _epoch, updates, _ev_n, _ev_scalars in self._delta_log[start:stop]:
+            for name, edits in updates.items():
+                merged.setdefault(name, {}).update(edits)
+        _e, _u, n, scalars = self._delta_log[stop - 1]
+        updates = {
+            name: (np.fromiter(edits.keys(), dtype=np.int32, count=len(edits)),
+                   np.fromiter(edits.values(), dtype=np.int64,
+                               count=len(edits)).astype(np.int32))
+            for name, edits in merged.items()
+        }
+        return ImageDelta(algo=self.image_algo, base_epoch=since_epoch,
+                          epoch=until_epoch, n=n, updates=updates,
+                          scalars=dict(scalars))
+
     def _image_n(self) -> int:
         raise NotImplementedError
 

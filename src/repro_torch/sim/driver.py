@@ -22,7 +22,13 @@ event by event through the objects that serve traffic:
   (:mod:`repro_torch.sim.checkers`) read ``store.migration_diff`` (the
   ``{algo}_diff`` kernel, and ``{algo}_replica_diff`` for the
   replica-stability check when ``replica_k > 1``) over a fixed probe
-  batch, as numpy.
+  batch, as numpy,
+* with ``followers=F`` a :class:`~repro_torch.launch.replicate.ReplicationGroup`
+  of F followers on the store's device publishes after each synced
+  membership event (``repl_config`` passes its topology, arity,
+  ``batch_epochs`` and ``packed``); the followers replay the frames
+  through ``delta_apply`` and the convergence checker holds their
+  fingerprints to the store's.
 
 Planes: ``"host"`` answers traffic from the host state; ``"device"`` from
 the store on ``device`` — the CUDA kernels on ``"cuda"`` (the default),
@@ -35,8 +41,8 @@ second (both from ``trace.seed``, as in the reference), so a replay of the
 resolved trace draws identical traffic and reproduces every placement;
 ``result.fingerprint`` equals the reference's on the same trace.
 
-Not ported yet (each raises ``NotImplementedError``): ``followers``
-(``ROADMAP.md`` Queue 1, item 12) and ``telemetry`` (item 13).
+Not ported yet (raises ``NotImplementedError``): ``telemetry``
+(``ROADMAP.md`` Queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -53,7 +59,8 @@ from repro_torch.kernels.engine import bounded_assign, bounded_load_len
 from repro_torch.serve.plane import ShardedLookupPlane
 
 from .checkers import (Violation, candidate_hits, check_balance, check_cap_invariant,
-                       check_minimal_disruption, check_replica_stability)
+                       check_follower_convergence, check_minimal_disruption,
+                       check_replica_stability)
 from .metrics import EventRecord, ScenarioMetrics
 from .traces import Trace, TraceEvent
 
@@ -149,13 +156,11 @@ class ScenarioDriver:
                  replica_k: int = 1, check: bool = True, sharded: bool = False,
                  step_sample: int = 256, balance_tol: float = 6.0,
                  sync_mode: str = "block", followers: int = 0,
-                 telemetry=False):
+                 repl_config: dict | None = None, telemetry=False):
         if plane not in PLANES:
             raise ValueError(f"unknown plane {plane!r} (have {PLANES})")
         if sync_mode not in ("block", "overlap"):
             raise ValueError(f"unknown sync_mode {sync_mode!r}")
-        if followers:
-            raise NotImplementedError("follower replication: ROADMAP.md Queue 1, item 12")
         if telemetry:
             raise NotImplementedError("telemetry: ROADMAP.md Queue 1, item 13")
         self.trace = trace
@@ -191,6 +196,16 @@ class ScenarioDriver:
         self._pending_hits: np.ndarray | None = None
         self._resolved_events: list[TraceEvent] = []
         self._route_prev: np.ndarray | None = None
+        # in-process followers on the store's device; the first publish
+        # ships the initial snapshot
+        self.repl = None
+        if followers:
+            from repro_torch.launch.replicate import ReplicationGroup
+            self.repl = ReplicationGroup(self.h, followers, device=self.store.device,
+                                         **(repl_config or {}))
+            self.repl.publish()
+            self.metrics.followers = followers
+            self.metrics.fanout_depth = self.repl.depth
 
     # -- consumers ----------------------------------------------------------
     @property
@@ -339,7 +354,18 @@ class ScenarioDriver:
             st = self.store.last_sync
             if st is not None:
                 rec.sync_mode, rec.sync_words = st.mode, st.words
-            rec.violations = len(self._run_checkers(i, rec))
+            conv: list[Violation] = []
+            if self.repl is not None:
+                rec.follower_lag = max(self.repl.publish(), default=0)
+                last = self.repl.last_publish
+                rec.wire_frames = last["frames"]
+                rec.wire_bytes = last["bytes"]
+                rec.leader_sends = last["leader_sends"]
+                if self.check:
+                    conv = check_follower_convergence(i, self.store.image(),
+                                                      self.repl.followers)
+                    self.violations.extend(conv)
+            rec.violations = len(self._run_checkers(i, rec)) + len(conv)
             self._degradation_point()
             self._pending_removed.clear()
             self._pending_added.clear()

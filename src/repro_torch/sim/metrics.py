@@ -9,6 +9,8 @@ reference's ``sim/metrics.py``, without its telemetry registry).
   snapshot, from the store's ``SyncStats``) and the epoch-flip latency,
 * **data plane**: lookup/route time per key of each traffic event,
 * **degradation**: (fraction removed, mean host lookup steps) points,
+* **replication**: with followers, each event's follower lag and the
+  publish round's frames, bytes and leader sends,
 * **fingerprint**: a running CRC32 over every data-plane result, the same
   bytes the reference folds, so fingerprints compare across packages.
 
@@ -39,6 +41,14 @@ class EventRecord:
     # overlapped sync: the time to dispatch the async delta apply (what the
     # hot path pays) beside sync_us, the whole dispatch-to-flip latency
     dispatch_us: float = 0.0
+    # replication: epochs the slowest follower was behind when this
+    # event's publish round shipped (0 = converged already), and that
+    # round's frames the publisher encoded, bytes across any link (relays
+    # included) and frame sends the leader paid
+    follower_lag: int = 0
+    wire_frames: int = 0
+    wire_bytes: int = 0
+    leader_sends: int = 0
 
 
 class ScenarioMetrics:
@@ -50,6 +60,8 @@ class ScenarioMetrics:
     def __init__(self) -> None:
         self.records: list[EventRecord] = []
         self.degradation: list[tuple[float, float]] = []
+        self.followers = 0     # in-process replication followers
+        self.fanout_depth = 0  # relay hops leader → farthest follower
         self._crc = 0
 
     def add_record(self, rec: EventRecord) -> None:
@@ -88,6 +100,15 @@ class ScenarioMetrics:
         }
         if dispatched:
             out["sync_dispatch_us_mean"] = float(np.mean(dispatched))
+        if self.followers:
+            lags = [r.follower_lag for r in member]
+            out["followers"] = self.followers
+            out["follower_lag_max"] = int(max(lags, default=0))
+            out["follower_lag_mean"] = float(np.mean(lags)) if lags else 0.0
+            out["fanout_depth"] = self.fanout_depth
+            out["wire_frames_total"] = sum(r.wire_frames for r in member)
+            out["wire_bytes_total"] = sum(r.wire_bytes for r in member)
+            out["leader_sends_total"] = sum(r.leader_sends for r in member)
         traffic = [r for r in self.records if r.keys and r.us_per_key]
         for op in sorted({r.op for r in traffic}):
             recs = [r for r in traffic if r.op == op]

@@ -1926,3 +1926,88 @@ def test_route_stream_across_flips_on_one_card_twice(dev, sync_mode, replicas_k)
     assert r.image_store().epoch == r.ch.epoch
     if replicas_k > 1:
         assert victim not in set(got[3].tolist())
+
+
+def _storm(m, rng, removals: int, restores: int) -> None:
+    """``removals`` removals of random working buckets, then ``restores``
+    adds."""
+    for b in rng.permutation(m.n).tolist()[:removals]:
+        if m.is_working(b) and m.working > 1:
+            m.remove(b)
+    for _ in range(restores):
+        m.add()
+
+
+@pytest.mark.parametrize("layout", ["dense", "int16"])
+def test_follower_on_the_card_matches_a_cpu_follower_and_the_leader(dev, layout):
+    """A follower on the card replays the publisher's frames through the
+    delta apply kernels (int16 slot tables when packed at n = 10^4) to the
+    fingerprint of a follower on the CPU and of the leader's host state,
+    and its lookups at k = 1 and 3 equal both and the leader's store."""
+    from repro_torch.core.image_store import DeviceImageStore
+    from repro_torch.core.protocol import image_fingerprint
+    from repro_torch.launch.replicate import DeltaPublisher, FollowerImageStore
+
+    packed = layout != "dense"
+    m = MementoHash(10_000, variant="32")
+    store = DeviceImageStore(m, device=dev, compact=packed)
+    pub = DeltaPublisher(m, packed=packed)
+    card = FollowerImageStore(device=dev, compact=packed)
+    cpu = FollowerImageStore(device="cpu", compact=packed)
+    rng = np.random.default_rng(3)
+    before = dict(da.LAUNCHES)
+    for storm in range(5):
+        if storm:
+            _storm(m, rng, 300, 150)
+            store.sync()
+        frames = pub.frames()
+        card.apply_frames(frames)
+        cpu.apply_frames(frames)
+        want = image_fingerprint(m.device_image())  # the store's may be packed
+        assert card.epoch == cpu.epoch == store.epoch
+        assert card.fingerprint() == cpu.fingerprint() == want
+    assert card.deltas > 0 and card.image().packed == packed
+    assert all(t.device == dev for t in card.image().arrays.values())
+    if packed:
+        assert card.image().arrays["slot_b"].dtype == torch.int16
+    name = "delta_apply_int16" if packed else "delta_apply"
+    assert da.LAUNCHES[name] > before[name]
+    for k in (1, 3):
+        got = card.lookup(KEYS, k=k)
+        np.testing.assert_array_equal(got, cpu.lookup(KEYS, k=k))
+        np.testing.assert_array_equal(got, store.lookup(KEYS, k=k).cpu().numpy())
+
+
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_two_followers_on_one_card_converge(dev, algo):
+    """A replication group with two followers on the card (a tree of
+    arity 1: the second relays through the first) through storms and an
+    offline round repaired by catch-up."""
+    from repro_torch.core.image_store import DeviceImageStore
+    from repro_torch.launch.replicate import ReplicationGroup
+
+    info = ALGORITHM_REGISTRY[algo]
+    h = make_hash(algo, 2000, capacity=8000, variant="32")
+    store = DeviceImageStore(h, device=dev)
+    g = ReplicationGroup(h, 2, device=dev, topology="tree", arity=1)
+    g.publish()
+    rng = np.random.default_rng(4)
+    for storm in range(4):
+        g.set_online(1, storm != 1)
+        for _ in range(40):
+            if info.lifo_only:
+                h.remove(h.size - 1)
+            else:
+                ws = sorted(h.working_set())
+                h.remove(ws[int(rng.integers(len(ws)))])
+        for _ in range(20):
+            h.add()
+        store.sync()
+        g.publish()
+    assert g.converged(store.image()) and g.stats.catchup_frames >= 1
+    a, b = g.followers
+    assert a.image() is not b.image()
+    for k in (1, 3):
+        want = store.lookup(KEYS, k=k).cpu().numpy()
+        np.testing.assert_array_equal(a.lookup(KEYS, k=k), want)
+        np.testing.assert_array_equal(b.lookup(KEYS, k=k), want)

@@ -57,6 +57,7 @@ def test_default_device_needs_a_gpu(monkeypatch):
     from repro_torch.core.image_store import DeviceImageStore
     from repro_torch.core.memento import MementoHash
     from repro_torch.data import ShardPlacement
+    from repro_torch.launch import FollowerImageStore, ReplicationGroup
     from repro_torch.runtime import ElasticCluster
     from repro_torch.serve.plane import ShardedLookupPlane
     from repro_torch.serve.router import SessionRouter
@@ -77,6 +78,13 @@ def test_default_device_needs_a_gpu(monkeypatch):
     assert ShardPlacement(64, 8, device="cpu").device.type == "cpu"
     assert ElasticCluster(8, num_shards=64, device="cpu").placement.device.type == "cpu"
     assert ShardedLookupPlane(store, devices=["cpu"]).devices == [torch.device("cpu")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FollowerImageStore()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicationGroup(MementoHash(8, variant="32"))
+    assert FollowerImageStore(device="cpu").device.type == "cpu"
+    group = ReplicationGroup(MementoHash(8, variant="32"), 2, device="cpu")
+    assert [f.device.type for f in group.followers] == ["cpu", "cpu"]
 
 
 def test_chip_smoke_alone_fails_without_the_repo(tmp_path):

@@ -182,13 +182,18 @@ def test_overlapped_syncs_replay_to_the_same_fingerprint():
 
 
 def test_cut_features_raise():
-    """Followers and telemetry raise; the sharded plane, k-replica
-    lookups, ``replica_k > 1``, ``assign`` events and ``session_affinity``
-    replay as the reference replays them."""
+    """Telemetry raises; followers, the sharded plane, k-replica lookups,
+    ``replica_k > 1``, ``assign`` events and ``session_affinity`` replay
+    as the reference replays them."""
     trace = make_trace("stable", 0, w=16, batches=1, n_keys=8)
-    for kw, item in ((dict(followers=2), "item 12"), (dict(telemetry=True), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            ScenarioDriver(trace, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ScenarioDriver(trace, device="cpu", telemetry=True)
+    storm = dict(seed=1, w=64, storms=2, burst=8, n_keys=256)
+    want = ref_replay(ref_make_trace("churn_storm", **storm), plane="jnp", followers=2)
+    got = replay(make_trace("churn_storm", **storm), device="cpu", followers=2)
+    assert got.ok and want.ok and got.fingerprint == want.fingerprint
+    assert _untimed(got.summary()) == _untimed(want.summary())
+    assert got.summary()["followers"] == 2 and got.summary()["follower_lag_max"] >= 1
     assign = Trace("assign", 0, 16, [TraceEvent("assign", n_keys=8, cap_c=1.5)])
     for trace, kw in ((make_trace("stable", 0, w=16, batches=1, n_keys=8), dict(replica_k=2)),
                       (make_trace("stable", 0, w=16, batches=1, n_keys=8, k=2), {}),
