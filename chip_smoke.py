@@ -154,7 +154,27 @@
    lookup CRC agree, each rank launched the lookup entry (and
    ``delta_apply`` where the image has a table; PowerHash has none) in its
    own process; the snapshot and burst round ms are logged.
-11. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+11. Drives the telemetry plane (``repro_torch.obs``): two
+   ``SessionRouter``s over one host state, one with a ``MetricRegistry``
+   injected (and installed as the process default), route the same 10
+   batches of 2^20 ids in turns on a stable n = 10^6 state and on phase 2's
+   one-shot state: equal outputs, ``router.batch_keys``, ``store.lookups``,
+   ``engine.dispatches`` and ``engine.keys`` equal to the batches and keys
+   routed, and the p50 batch ms on and off (a record).  A telemetered
+   Memento one-shot replay at w = 10^6 with 2^20 keys to phase 4's
+   fingerprint, ``sim.delta_words == store.delta_words``.  For every
+   algorithm ``churn_storm`` with two followers replayed twice with
+   ``telemetry=True`` and once without: one fingerprint, equal counters,
+   gauges and histogram counts, and each Prometheus exposition parsing
+   back to its snapshot's counters.  One telemetered Memento storm under
+   ``torch.profiler`` (CPU and CUDA activities): every span of the
+   tracer's ring is a CPU event of the profile; the device events it holds
+   are logged by name (the spans' ranges on the device, copies, kernels:
+   count, device us, share of the wall), nothing asserted of them, beside
+   the card's busy share (the union of the kernel and copy intervals).  ``memento_lookup``,
+   ``memento_diff``, ``delta_apply`` and every ``{algo}_lookup`` and
+   ``{algo}_diff`` must be launched on that path.
+12. Prints one ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 Any mismatch or error exits non-zero.  Without a GPU, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -162,6 +182,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -319,6 +340,7 @@ REPL_PULL_REMOVALS = 256  # phase 10: random removals a storm (then half as many
 REPL_FANOUT = 7           # phase 10: followers of the flat and tree groups
 GLOO_ROUNDS, GLOO_BURST = 12, 3  # phase 10: the gloo leader's rounds, events a round
 GLOO_TIMEOUT = 300        # phase 10: seconds every process of a gloo run has
+TELEMETRY_BATCHES = 10    # phase 11: route_batch batches with telemetry off, and on
 # phase 10: code run first in each gloo worker (the CPU rehearsal routes the
 # kernels there); empty on the card
 WORKER_PRELUDE = ""
@@ -393,6 +415,19 @@ print(json.dumps({"epoch": epoch, "fingerprint": fp, "round_ms": round_ms,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def prom_counters(text: str) -> dict:
+    """Counter samples of a Prometheus text exposition: name with labels
+    → value (the lines under each ``# TYPE ... counter`` header)."""
+    out, counter = {}, False
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            counter = line.endswith(" counter")
+        elif counter:
+            name, value = line.rsplit(" ", 1)
+            out[name] = int(value)
+    return out
 
 
 def replica_sectors(work: dict, keys: int, bounded: bool) -> float:
@@ -838,6 +873,7 @@ def main() -> int:
     timed("8", smoke.phase_substrates)
     timed("9", smoke.phase_stream)
     timed("10", smoke.phase_replication)
+    timed("11", smoke.phase_telemetry)
     log("phase walls: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
         + f"; {sum(walls.values()):.1f} s in all")
     log_rule2_order(kernels)
@@ -3954,6 +3990,214 @@ class Smoke:
                 f"{self.np.median(r[1:]):.3f}" for r in rounds)
             + f"; snapshot frame {max(r['snapshot_bytes'] for r in results)} bytes; "
             f"{time.perf_counter() - t0:.1f} s")
+
+    # -- phase 11: the telemetry plane -----------------------------------------
+    def phase_telemetry(self) -> None:
+        """Phase 11: route_batch with telemetry off and on at n = 10^6, a
+        telemetered Memento one-shot replay at w = 10^6, every algorithm's
+        churn_storm with followers replayed twice with telemetry and once
+        without, and a telemetered storm under torch.profiler."""
+        from repro_torch.core.protocol import ALGORITHMS
+
+        t_phase = time.perf_counter()
+        reset, snapshot, _uncounted = self.launch_counts()
+        reset()
+        self.tele_routing()
+        self.tele_replay()
+        self.tele_storms()
+        self.tele_profiler()
+        launches = snapshot()
+        log(f"phase 11 launches: {launches}")
+        for name in (["memento_lookup", "memento_diff", "delta_apply"]
+                     + [f"{a}_{m}" for a in ALGORITHMS for m in ("lookup", "diff")]):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the telemetry path")
+        log(f"phase 11 wall: {time.perf_counter() - t_phase:.1f} s")
+
+    def tele_routing(self) -> None:
+        """(a) Two routers over one host state, one with a MetricRegistry
+        injected (and installed as the process default, where the engine
+        records), route the same 2^20-id batches in turns (which side goes
+        first alternates) on the stable state and on phase 2's one-shot
+        state: equal outputs, and the router, store and engine count the
+        batches and keys routed."""
+        from repro_torch import obs
+        from repro_torch.core.protocol import make_hash
+        from repro_torch.serve.router import SessionRouter
+
+        np = self.np
+        rng = np.random.default_rng([SEED, 11])
+        batches = [rng.integers(0, 2**63, size=KEYS, dtype=np.uint64)
+                   for _ in range(TELEMETRY_BATCHES)]
+        stable = make_hash("memento", N, variant="32")
+        for label, h in (("stable", stable), ("one-shot", self.kept["memento"][0])):
+            reg = obs.MetricRegistry()
+            off = SessionRouter(0, algo=h, device=self.dev)
+            on = SessionRouter(0, algo=h, device=self.dev, registry=reg)
+            off.route_batch(batches[0])  # warm
+            on.image_store()
+            ms = {"off": [], "on": []}
+
+            def route(side, ids):
+                prev = obs.set_default_registry(reg if side == "on" else None)
+                try:
+                    t0 = time.perf_counter()
+                    out = (on if side == "on" else off).route_batch(ids)
+                    ms[side].append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    obs.set_default_registry(prev)
+                return out
+
+            for i, ids in enumerate(batches):
+                # the side that runs second finds the ids warm: alternate
+                order = ("off", "on") if i % 2 == 0 else ("on", "off")
+                outs = {side: route(side, ids) for side in order}
+                got, want = outs["on"], outs["off"]
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"phase 11 {label}: route_batch with telemetry != off")
+            c = reg.snapshot()["counters"]
+            n, keys = len(batches), len(batches) * KEYS
+            counts = {name: c.get(name) for name in (
+                "router.batch_keys", "store.lookups", "store.lookup_keys", "engine.lookups",
+                "engine.dispatches", "engine.keys")}
+            if counts != {"router.batch_keys": keys, "store.lookups": n,
+                          "store.lookup_keys": keys, "engine.lookups": n,
+                          "engine.dispatches": n, "engine.keys": keys}:
+                raise AssertionError(f"phase 11 {label}: counters {counts} != {n} batches of "
+                                     f"{KEYS} keys")
+            p50 = {k: float(np.median(v)) for k, v in ms.items()}
+            log(f"phase 11 route_batch {label} (w={h.working}): {n} batches of {KEYS} ids "
+                f"in turns (off first on even batches), equal with telemetry on and off; "
+                f"p50 batch ms off "
+                f"{p50['off']:.3f}, on {p50['on']:.3f}, on/off {p50['on'] / p50['off']:.4f} "
+                f"(all ms off {[round(x, 3) for x in ms['off']]}, on "
+                f"{[round(x, 3) for x in ms['on']]}); counters {counts}")
+
+    def tele_replay(self) -> None:
+        """(b) Memento one-shot at w = 10^6 with 2^20 keys, telemetered: the
+        fingerprint of phase 4's replay, and the sim's delta words equal to
+        the store's."""
+        from repro_torch.sim import make_trace, replay
+
+        t0 = time.perf_counter()
+        res = replay(make_trace("oneshot", SEED, w=N, n_keys=KEYS), algo="memento",
+                     probe_keys=KEYS, telemetry=True)
+        want = self.fingerprints[("oneshot", "memento", "full")]
+        c = res.summary()["telemetry"]["counters"]
+        if not res.ok or res.fingerprint != want:
+            raise AssertionError(f"phase 11 one-shot replay: {res.fingerprint} != phase 4's "
+                                 f"{want}, {res.violations[:2]}")
+        if c["sim.delta_words"] != c.get("store.delta_words", 0) or \
+                c["sim.snapshot_words"] != c.get("store.snapshot_words", 0):
+            raise AssertionError(f"phase 11 one-shot replay: sim and store words differ: {c}")
+        log(f"phase 11 replay memento one-shot w={N}, {KEYS} keys, telemetry=True: fingerprint "
+            f"{res.fingerprint} == phase 4's, sim.delta_words {c['sim.delta_words']} == "
+            f"store.delta_words, sim.snapshot_words {c['sim.snapshot_words']} == "
+            f"store.snapshot_words; engine dispatches {c['engine.dispatches']}, keys "
+            f"{c['engine.keys']}, moved keys {c.get('engine.moved_keys', 0)}; "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def tele_storms(self) -> None:
+        """(c) Every algorithm's churn_storm at its default size with two
+        followers, twice with telemetry and once without: one fingerprint,
+        equal counter and gauge snapshots and histogram counts, and the
+        Prometheus text of each parsing back to its counters."""
+        from repro_torch import obs
+        from repro_torch.core.protocol import ALGORITHMS
+        from repro_torch.sim import make_trace, replay
+
+        t0 = time.perf_counter()
+        for algo in ALGORITHMS:
+            trace = make_trace("churn_storm", SEED)
+            runs = [replay(trace, algo=algo, followers=2, telemetry=tele)
+                    for tele in (True, True, False)]
+            prints = {r.fingerprint for r in runs}
+            if len(prints) != 1 or not all(r.ok for r in runs):
+                raise AssertionError(f"phase 11 churn_storm {algo}: fingerprints {prints}")
+            snaps = [r.metrics.obs.snapshot() for r in runs[:2]]
+            for part in ("counters", "gauges"):
+                if snaps[0][part] != snaps[1][part]:
+                    raise AssertionError(f"phase 11 churn_storm {algo}: {part} differ")
+            counts = [{k: v["count"] for k, v in s["histograms"].items()} for s in snaps]
+            if counts[0] != counts[1]:
+                raise AssertionError(f"phase 11 churn_storm {algo}: histogram counts differ")
+            for r, snap in zip(runs, snaps):
+                parsed = prom_counters(obs.render_prometheus(r.metrics.obs))
+                want = {obs.export.prom_name(k.partition("{")[0]) + (
+                    "{" + k.partition("{")[2] if "{" in k else ""): v
+                        for k, v in snap["counters"].items()}
+                if parsed != want:
+                    raise AssertionError(f"phase 11 churn_storm {algo}: the exposition's "
+                                         f"counters != the snapshot's")
+            c = snaps[0]["counters"]
+            log(f"phase 11 churn_storm {algo} (w={trace.initial_nodes}, 2 followers): "
+                f"fingerprint {runs[0].fingerprint} x3, counters ({len(c)}), gauges "
+                f"({len(snaps[0]['gauges'])}) and histogram counts ({len(counts[0])}) equal "
+                f"run to run, exposition == snapshot; store.syncs {c['store.syncs']}, "
+                f"repl.publishes {c['repl.publishes']}, repl.wire_bytes {c['repl.wire_bytes']}, "
+                f"engine.dispatches {c['engine.dispatches']}, spans "
+                f"{len(runs[0].metrics.obs.tracer.completed())}")
+        log(f"phase 11 churn_storms: {time.perf_counter() - t0:.1f} s")
+
+    def tele_profiler(self) -> None:
+        """(d) A telemetered Memento storm under torch.profiler: every span
+        of the tracer's ring is a CPU event of the profile.  Logs the
+        profile's device events by name in three groups (the spans' ranges
+        on the device, copies, kernels: whether kernels launched through
+        the ctypes library show up is the finding; nothing about them is
+        asserted) and the card's busy share over the replay's wall, the
+        union of its kernel and copy intervals."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.sim import make_trace, replay
+
+        torch = self.torch
+        activities = [ProfilerActivity.CPU]
+        if self.dev.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        trace = make_trace("churn_storm", SEED)
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            res = replay(trace, algo="memento", followers=2, telemetry=True)
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        cpu_names = {e.name for e in events}
+        spans = {s.name for s in res.metrics.obs.tracer.completed()}
+        if not spans or not spans <= cpu_names:
+            raise AssertionError(f"phase 11 profiler: spans {sorted(spans - cpu_names)} are "
+                                 "not CPU events of the profile")
+        # the profile's device events: the spans' own ranges on the device
+        # (kineto's GPU user annotations, named as the spans), copies, kernels
+        groups: dict = {"span ranges": {}, "copies": {}, "kernels": {}}
+        busy = []
+        for e in events:
+            if "CUDA" not in str(getattr(e, "device_type", "")):
+                continue
+            group = ("span ranges" if e.name in spans else
+                     "copies" if e.name.startswith(("Memcpy", "Memset")) else "kernels")
+            n, us = groups[group].get(e.name, (0, 0.0))
+            groups[group][e.name] = (n + 1, us + e.time_range.elapsed_us())
+            if group != "span ranges":
+                busy.append((e.time_range.start, e.time_range.end))
+        busy_us, reach = 0.0, -math.inf
+        for a, b in sorted(busy):
+            busy_us += max(0.0, b - max(a, reach))
+            reach = max(reach, b)
+        parts = []
+        for group, names in groups.items():
+            total = sum(us for _n, us in names.values())
+            parts.append(f"{group}: {len(names)} names, {sum(n for n, _us in names.values())} "
+                         f"events, {total:.3f} device us ({total / wall_us:.4%} of the wall)"
+                         + "".join(f"; {name[:120]} x{n} {us:.3f} us" for name, (n, us) in sorted(
+                             names.items(), key=lambda kv: -kv[1][1])))
+        log(f"phase 11 profiler: memento churn_storm with 2 followers, telemetry=True, "
+            f"{wall_us / 1e3:.3f} ms of wall; {len(spans)} span names, all among the "
+            f"{len(cpu_names)} CPU event names; the card busy (the union of its kernel and "
+            f"copy intervals, CUPTI stamps) {busy_us:.3f} us, {busy_us / wall_us:.4%} of the "
+            f"wall; CUDA events by group: " + " | ".join(parts))
+
 
 if __name__ == "__main__":
     sys.exit(main())

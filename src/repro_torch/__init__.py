@@ -18,10 +18,16 @@ no host state: a frame codec equal word for word to the reference's,
 the ``delta_apply`` kernels, lookups by the engine's), ``ReplicationGroup``
 (flat or tree fan-out, catch-up) and ``torch.distributed`` broadcasts
 between processes; ``repro_torch.sim`` replays with ``followers=``.
+``repro_torch.obs`` is the telemetry plane: counters, gauges, log-bucketed
+histograms, spans (``torch.profiler.record_function``, and NVTX ranges on
+a CUDA build) and their exports, recorded by the engine, the store, the
+router, the plane and replication on an injected or process-default
+registry; ``ScenarioDriver(telemetry=True)`` scopes one to a replay.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``,
 where every kernel is replaced by its plain torch version.
 """
+from repro_torch import obs
 from repro_torch.ckpt import (AsyncCheckpointer, latest_step, restore_checkpoint,
                               save_checkpoint)
 from repro_torch.core import (DeviceImage, DeviceImageStore, MementoHash,
@@ -36,4 +42,4 @@ __all__ = ["AsyncCheckpointer", "BatchScheduler", "DataPipeline", "DeltaPublishe
            "DeviceImage", "DeviceImageStore", "ElasticCluster", "FollowerImageStore",
            "MementoHash", "ReplicationGroup", "SessionRouter", "ShardPlacement",
            "ShardedLookupPlane", "StragglerMonitor", "SyncHandle", "SyncStats",
-           "latest_step", "make_hash", "restore_checkpoint", "save_checkpoint"]
+           "latest_step", "make_hash", "obs", "restore_checkpoint", "save_checkpoint"]

@@ -31,10 +31,22 @@ outgrown, slots full, a value too wide) rebuilds a snapshot.
 scatter and returns a :class:`SyncHandle` without flipping.  The flip
 lands on ``handle.commit()``, the store's ``poll()`` (only once a CUDA
 event recorded after the scatter has completed) or ``flush()``.
+
+Telemetry (:mod:`repro_torch.obs`): ``registry=`` (else the process
+default, resolved at each call) receives the reference's ``store.*``
+instruments: the ``store.sync > store.sync.dispatch, store.sync.flip``
+span tree and ``store.sync.us{mode}``, ``store.sync.dispatch`` of
+``sync_async``, ``store.sync.commit > store.sync.materialize,
+store.sync.flip`` of a handle's commit, the ``store.pending`` gauge, the
+sync counters (``syncs``, ``sync_events``, ``delta_applies``,
+``delta_words``, ``snapshot_rebuilds``, ``snapshot_words``) with a
+``sync`` sink event a sync, ``store.lookups``/``lookup_keys``/
+``lookup.us`` and the ``store.diff`` span.
 """
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 
 import torch
@@ -42,6 +54,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.delta_apply import apply_updates, scatter_update
 from repro_torch.kernels.engine import engine_diff, engine_lookup
+from repro_torch.obs.metrics import default_registry as _default_obs
 from .packing import host_arrays, pack_image, packed_delta_updates
 from .protocol import (ALGORITHM_REGISTRY, DeviceImage, ImageDelta,
                        required_lengths, round_up)
@@ -101,21 +114,23 @@ class SyncHandle:
             store._account(stats)
 
     @property
-    def done(self) -> bool:
+    def done(self) -> bool:  # obs-exempt: pure accessor
         return self._done
 
     @property
-    def stats(self) -> SyncStats:
+    def stats(self) -> SyncStats:  # obs-exempt: pure accessor
         """Target-epoch stats (valid before and after the flip)."""
         return self._stats
 
     def ready(self) -> bool:
         """Non-blocking: has the device finished the dispatched work?"""
+        # obs-exempt: readiness probe only, no device dispatch
         return self._done or self._event is None or self._event.query()
 
     def poll(self) -> bool:
         """Flip iff the device work is done; never blocks.  Returns whether
         the handle is done."""
+        # obs-exempt: delegates to commit(), which records the flip
         if not self._done and self.ready():
             self.commit()
         return self._done
@@ -125,12 +140,17 @@ class SyncHandle:
         with self._store._lock:
             if self._done:
                 return self._stats
-            if self._event is not None:
-                self._event.synchronize()
-            self._store._flip(self._new, self._new_mirror, self._stats)
+            reg = self._store._obs()
+            with reg.span("store.sync.commit", epoch=self._stats.epoch):
+                with reg.span("store.sync.materialize"):
+                    if self._event is not None:
+                        self._event.synchronize()
+                with reg.span("store.sync.flip", epoch=self._stats.epoch):
+                    self._store._flip(self._new, self._new_mirror, self._stats)
             self._done = True
             if self._store._pending is self:
                 self._store._pending = None
+            reg.gauge("store.pending").set(0)
         return self._stats
 
 
@@ -138,12 +158,14 @@ class DeviceImageStore:
     """Double-buffered device image of a consistent-hash state, updated by
     deltas; packed with ``compact=True``.  ``device`` defaults to
     ``"cuda"``; with no GPU the constructor raises unless the caller
-    passes ``device="cpu"``."""
+    passes ``device="cpu"``.  ``registry`` is the telemetry registry to
+    record on (``None``: the process default at each call)."""
 
     def __init__(self, ch, *, device=None, headroom: int = 2,
-                 compact: bool = False):
+                 compact: bool = False, registry=None):
         self.device = resolve_device(device)
         self._ch = ch
+        self._registry = registry  # None → follow the process default
         self.headroom = max(1, headroom)
         self.compact = compact
         self.totals = SyncTotals()
@@ -152,6 +174,11 @@ class DeviceImageStore:
         self._lock = threading.RLock()
         self._pending: SyncHandle | None = None
         self._front, self._mirror = self._snapshot()
+
+    def _obs(self):
+        """The live telemetry registry: the injected one, else whatever the
+        process default is now (so ``enable()`` reaches existing stores)."""
+        return self._registry or _default_obs()
 
     # -- buffers ---------------------------------------------------------------
     def _snapshot(self) -> tuple[DeviceImage, dict | None]:
@@ -176,18 +203,18 @@ class DeviceImageStore:
         return front, mirror
 
     @property
-    def epoch(self) -> int:
+    def epoch(self) -> int:  # obs-exempt: pure accessor
         return self._front.epoch
 
     @property
-    def capacity(self) -> dict[str, int]:
+    def capacity(self) -> dict[str, int]:  # obs-exempt: pure accessor
         return {k: int(v.shape[0]) for k, v in self._front.arrays.items()}
 
-    def image(self) -> DeviceImage:
+    def image(self) -> DeviceImage:  # obs-exempt: pure accessor
         """The serving (front) image.  Never edited: syncs replace it."""
         return self._front
 
-    def previous_image(self) -> DeviceImage | None:
+    def previous_image(self) -> DeviceImage | None:  # obs-exempt: pure accessor
         """The retained pre-sync epoch (migration-diff comparand), if any."""
         return self._prev
 
@@ -197,39 +224,52 @@ class DeviceImageStore:
         O(changed-words) delta when the host log covers our epoch and the
         capacity suffices, else a full snapshot.  The old front is kept as
         ``previous_image()``.  A pending async epoch is committed first."""
-        self.flush()
-        new, mirror, stats, _event = self._prepare()
-        with self._lock:
-            if new is not None:
-                self._flip(new, mirror, stats)
-            else:
-                self._account(stats)
+        reg = self._obs()
+        t0 = time.perf_counter_ns() if reg.active else 0
+        with reg.span("store.sync", mode="block"):
+            self.flush()
+            with reg.span("store.sync.dispatch"):
+                new, mirror, stats, _event = self._prepare()
+            with self._lock:
+                if new is not None:
+                    with reg.span("store.sync.flip", epoch=stats.epoch):
+                        self._flip(new, mirror, stats)
+                else:
+                    self._account(stats)
+        if reg.active:
+            reg.histogram("store.sync.us", mode=stats.mode).observe(
+                (time.perf_counter_ns() - t0) / 1e3)
         return stats
 
     def sync_async(self) -> SyncHandle:
         """Dispatch epoch N+1 without flipping and without waiting for the
         device.  The front keeps serving epoch N until the handle commits
         (``handle.commit()``, ``poll()``, ``flush()``, or the next sync)."""
-        self.flush()
-        new, mirror, stats, event = self._prepare()
+        reg = self._obs()
+        with reg.span("store.sync.dispatch", mode="overlap"):
+            self.flush()
+            new, mirror, stats, event = self._prepare()
         handle = SyncHandle(self, stats, new, event, mirror)
         if not handle.done:
             self._pending = handle
+            reg.gauge("store.pending").set(1)
         return handle
 
     def poll(self) -> bool:
         """Commit the pending async epoch iff its device work is done
         (never blocks).  True when no flip remains outstanding."""
+        # obs-exempt: delegates to SyncHandle.commit (instrumented)
         h = self._pending
         return h.poll() if h is not None else True
 
     def flush(self) -> SyncStats | None:
         """Commit the pending async epoch, blocking if needed."""
+        # obs-exempt: delegates to SyncHandle.commit (instrumented)
         h = self._pending
         return h.commit() if h is not None else None
 
     @property
-    def pending(self) -> SyncHandle | None:
+    def pending(self) -> SyncHandle | None:  # obs-exempt: pure accessor
         """The in-flight ``sync_async`` handle, if any."""
         return self._pending
 
@@ -299,6 +339,18 @@ class DeviceImageStore:
         self.totals.events += stats.events
         self.totals.words += stats.words
         self.last_sync = stats
+        reg = self._obs()
+        if reg.active:  # the totals mirrored on the registry
+            reg.counter("store.syncs").inc()
+            reg.counter("store.sync_events").inc(stats.events)
+            if stats.mode == "delta":
+                reg.counter("store.delta_applies").inc()
+                reg.counter("store.delta_words").inc(stats.words)
+            elif stats.mode == "snapshot":
+                reg.counter("store.snapshot_rebuilds").inc()
+                reg.counter("store.snapshot_words").inc(stats.words)
+            reg.sink.emit("sync", mode=stats.mode, events=stats.events,
+                          words=stats.words, epoch=stats.epoch)
 
     # -- data plane ------------------------------------------------------------
     def lookup(self, keys, *, k: int = 1, load=None,
@@ -307,8 +359,16 @@ class DeviceImageStore:
         or replica sets [K, k] on the store's device, one launch on CUDA
         (the layout's ``lookup`` kernel, or its ``replica`` kernel for
         k > 1 or a bounded lookup under ``load``/``cap``)."""
-        return engine_lookup(keys, self._front, k=k, load=load, cap=cap,
-                             device=self.device)
+        reg = self._obs()
+        t0 = time.perf_counter_ns() if reg.active else 0
+        out = engine_lookup(keys, self._front, k=k, load=load, cap=cap,
+                            device=self.device)
+        if reg.active:
+            reg.counter("store.lookups").inc()
+            reg.counter("store.lookup_keys").inc(int(out.shape[0]))
+            reg.histogram("store.lookup.us").observe(
+                (time.perf_counter_ns() - t0) / 1e3)
+        return out
 
     def migration_diff(self, keys, *, k: int = 1):
         """Moved-key mask between the retained epoch and the front epoch
@@ -317,4 +377,5 @@ class DeviceImageStore:
         Across a snapshot both epochs are of the store's one layout."""
         if self._prev is None:
             raise ValueError("no previous epoch retained (sync() first)")
-        return engine_diff(keys, self._prev, self._front, k=k, device=self.device)
+        with self._obs().span("store.diff", epoch=self._front.epoch):
+            return engine_diff(keys, self._prev, self._front, k=k, device=self.device)

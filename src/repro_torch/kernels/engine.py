@@ -51,6 +51,7 @@ tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -64,6 +65,7 @@ from repro_torch.core.protocol import (ALGORITHM_REGISTRY, ALGORITHMS,
                                       image_scalar_vec, required_lengths,
                                       round_up)
 from repro_torch.device import resolve_device
+from repro_torch.obs.metrics import default_registry as _obs_registry
 from . import build
 from .primitives import as_u32, fmix32, gather1d, hash2, jump32, power32
 
@@ -182,6 +184,31 @@ class EngineOp:
     @property
     def table_names(self) -> tuple[str, ...]:
         return table_names(self.algo, self.table)
+
+
+def op_tag(op: EngineOp) -> str:
+    """Stable textual identity of an :class:`EngineOp` (the reference's
+    ``autotune.op_tag``), e.g. ``memento.lookup.k1.dense``: the ``op``
+    label of the ``engine.dispatch.us`` histogram."""
+    tag = f"{op.algo}.{op.mode}.k{op.k}"
+    if op.bounded:
+        tag += ".bounded"
+    if op.diff:
+        tag += ".diff"
+    return f"{tag}.{op.table}"
+
+
+def _obs_dispatch(reg, op: EngineOp, n_keys: int, t0_ns: int) -> None:
+    """Fold one engine dispatch into the live telemetry registry: the
+    dispatches served, their keys, the batch-size distribution, and the
+    host time of the call a :func:`op_tag` (on the card, its dispatch
+    time: nothing here waits for the device).  One API call is one
+    dispatch, whatever kernels it launches."""
+    reg.counter("engine.dispatches").inc()
+    reg.counter("engine.keys").inc(n_keys)
+    reg.histogram("engine.batch_keys").observe(n_keys)
+    reg.histogram("engine.dispatch.us", op=op_tag(op)).observe(
+        (time.perf_counter_ns() - t0_ns) / 1e3)
 
 
 # ---------------------------------------------------------------------------
@@ -1113,19 +1140,37 @@ def engine_lookup(keys, image, *, k: int = 1, load=None, cap: int | None = None,
     runs its packed kernels; ``table="compact"`` runs a dense Memento
     image's lookup, k-replica or bounded, over its Θ(r) table.
     Bit-identical to the host ``lookup``/``lookup_k`` of a
-    ``variant="32"`` state."""
+    ``variant="32"`` state.  With a live telemetry registry, counts one
+    ``engine.lookups`` and one dispatch."""
+    reg = _obs_registry()
+    t0 = time.perf_counter_ns() if reg.active else 0
+    return _engine_lookup(keys, image, k=k, load=load, cap=cap, table=table,
+                          device=device, reg=reg, t0=t0)
+
+
+def _engine_lookup(keys, image, *, k: int = 1, load=None, cap: int | None = None,
+                   table: str = "dense", device=None, reg=None, t0: int = 0) -> torch.Tensor:
+    """:func:`engine_lookup`, recorded on ``reg`` when it is live (as the
+    reference records: after the launch, before the bounded check).  With
+    no ``reg`` nothing is recorded: the sharded plane's per-device chunks
+    and a cross-algorithm diff's two lookups are not API calls of their
+    own."""
     bounded = load is not None
     if bounded and cap is None:
         raise ValueError("bounded lookup needs a cap")
     table = op_table(image, table)
-    EngineOp(algo=image.algo, k=k, bounded=bounded, table=table)
+    op = EngineOp(algo=image.algo, k=k, bounded=bounded, table=table)
     dev = _image_device([image], device)
     kt = key_tensor(keys, dev)
     tables, scalars = image_operands(image, table)
     if k == 1 and not bounded:
-        return kernel_lookup(image.algo, kt, tables, scalars, table=table)
-    load_t = _int32_tensor(load, dev) if bounded else None
-    out = kernel_replica(image.algo, kt, k, tables, scalars, load_t, cap, table=table)
+        out = kernel_lookup(image.algo, kt, tables, scalars, table=table)
+    else:
+        load_t = _int32_tensor(load, dev) if bounded else None
+        out = kernel_replica(image.algo, kt, k, tables, scalars, load_t, cap, table=table)
+    if reg is not None and reg.active:
+        reg.counter("engine.lookups").inc()
+        _obs_dispatch(reg, op, kt.numel(), t0)
     if bounded:
         _check_bounded(out, load_t, int(cap), k)
     return out.reshape(-1) if k == 1 else out
@@ -1157,11 +1202,26 @@ def engine_diff(keys, old_image, new_image, *, k: int = 1, device=None) -> Engin
     layout in one launch (both epochs' tables resident); k > 1 diffs
     whole replica sets.  Images of two algorithms (a migration between
     them) take one lookup each, on each algorithm's kernel in its own
-    layout, as the reference's jnp plane does."""
+    layout, as the reference's jnp plane does.  With a live telemetry
+    registry, counts one ``engine.diffs``, the moved keys (one readback
+    of the moved count, as the reference's) and one dispatch."""
+    reg = _obs_registry()
+    if not reg.active:
+        return _engine_diff(keys, old_image, new_image, k=k, device=device)
+    t0 = time.perf_counter_ns()
+    out = _engine_diff(keys, old_image, new_image, k=k, device=device)
+    reg.counter("engine.diffs").inc()
+    reg.counter("engine.moved_keys").inc(out.num_moved)
+    _obs_dispatch(reg, EngineOp(algo=new_image.algo, k=k, diff=True,
+                                table=op_table(new_image)), out.moved.shape[0], t0)
+    return out
+
+
+def _engine_diff(keys, old_image, new_image, *, k: int = 1, device=None) -> EngineDiff:
     if old_image.algo != new_image.algo:
         dev = _image_device([old_image, new_image], device)
         kt = key_tensor(keys, dev)
-        old, new = (engine_lookup(kt, img, k=k, device=dev) for img in (old_image, new_image))
+        old, new = (_engine_lookup(kt, img, k=k, device=dev) for img in (old_image, new_image))
         return EngineDiff(old, new, old != new if k == 1 else (old != new).any(dim=1))
     if old_image.packed != new_image.packed:
         raise ValueError("epoch diff needs both images in one layout")
@@ -1180,16 +1240,27 @@ def engine_chain_walk(chain, probe, pending, image, load, cap: int, *, device=No
     :func:`bounded_assign`): every pending lane advances to the first
     bucket of its rehash chain with ``load[b] < cap``.  Returns numpy
     ``(b int32, chain uint32, probe int32)``; non-pending lanes come back
-    with their chain and probe unchanged."""
+    with their chain and probe unchanged.  With a live telemetry registry,
+    counts one ``engine.walk_steps`` and one dispatch of all the lanes."""
+    reg = _obs_registry()
+    t0 = time.perf_counter_ns() if reg.active else 0
     table = op_table(image)
-    EngineOp(algo=image.algo, mode="walk", table=table)
+    op = EngineOp(algo=image.algo, mode="walk", table=table)
     dev = _image_device([image], device)
     pend = (pending if isinstance(pending, torch.Tensor)
             else torch.from_numpy(np.asarray(pending, dtype=bool)).to(dev))
-    b, ch, pr = kernel_walk(image.algo, key_tensor(chain, dev), _int32_tensor(probe, dev),
+    ct = key_tensor(chain, dev)
+    b, ch, pr = kernel_walk(image.algo, ct, _int32_tensor(probe, dev),
                             pend, *image_operands(image), _int32_tensor(load, dev), cap,
                             table=table)
+    if reg.active:
+        _obs_walk(reg, op, ct.numel(), t0)
     return (b.cpu().numpy(), ch.cpu().numpy().view(np.uint32), pr.cpu().numpy())
+
+
+def _obs_walk(reg, op: EngineOp, n_lanes: int, t0_ns: int) -> None:
+    reg.counter("engine.walk_steps").inc()
+    _obs_dispatch(reg, op, n_lanes, t0_ns)
 
 
 def bounded_assign(keys, image, load, cap: int, *, device=None, walk=None):
@@ -1202,9 +1273,12 @@ def bounded_assign(keys, image, load, cap: int, *, device=None, walk=None):
     Chain and probe stay on the device between rounds.  ``walk`` is the
     step (default :func:`kernel_walk`; :func:`walk_plain` runs the same
     loop through the plain version).  Returns ``(assignments int32 [m],
-    new_load int32)`` as numpy."""
+    new_load int32)`` as numpy.  With a live telemetry registry each round
+    counts as an :func:`engine_chain_walk` (one ``engine.walk_steps`` and
+    one dispatch of all m lanes), and the call one
+    ``engine.bounded_assigns`` and its ``engine.bounded_rounds``."""
     table = op_table(image)
-    EngineOp(algo=image.algo, mode="walk", table=table)
+    op = EngineOp(algo=image.algo, mode="walk", table=table)
     walk = kernel_walk if walk is None else walk
     dev = _image_device([image], device)
     tables, scalars = image_operands(image)
@@ -1215,11 +1289,16 @@ def bounded_assign(keys, image, load, cap: int, *, device=None, walk=None):
     out = np.full(m, -1, np.int32)
     pending = np.ones(m, bool)
     load = np.asarray(load, dtype=np.int32).copy()
+    reg = _obs_registry()
+    rounds = 0
     while pending.any():
+        t0 = time.perf_counter_ns() if reg.active else 0
         b, chain, probe = walk(image.algo, chain, probe, torch.from_numpy(pending).to(dev),
                                tables, scalars, torch.from_numpy(load).to(dev), cap,
                                table=table)
         b = b.cpu().numpy()
+        if reg.active:
+            _obs_walk(reg, op, m, t0)
         if (load[b[pending]] >= cap).any():  # probe bound exhausted
             raise RuntimeError("no bucket below capacity (infeasible cap: "
                                f"cap={cap} cannot hold the pending keys)")
@@ -1227,6 +1306,10 @@ def bounded_assign(keys, image, load, cap: int, *, device=None, walk=None):
         out[acc] = b[acc]
         np.add.at(load, b[acc], 1)
         pending[acc] = False
+        rounds += 1
+    if reg.active:
+        reg.counter("engine.bounded_assigns").inc()
+        reg.counter("engine.bounded_rounds").inc(rounds)
     return out, load
 
 

@@ -35,6 +35,17 @@ tensors (gloo) after :func:`repro_torch.launch.mesh.init_distributed`.
 Frames are host vectors, so gloo carries them whatever device the images
 live on.  There is no NCCL path: an NCCL group needs one card a rank, and
 two processes on one card cannot join one.
+
+Telemetry (:mod:`repro_torch.obs`): ``registry=`` on the publisher, the
+follower and the group receives the reference's ``repl.*`` instruments:
+``repl.encode`` and ``repl.frames_encoded{kind}``, ``repl.catchup_serves``;
+``repl.drain`` with the applied, installed, delta and stale counters and
+the ``repl.follower_epoch`` gauge, ``repl.follower_lookup_keys``; and the
+group's ``repl.publish > repl.encode, repl.relay > repl.apply > repl.drain``
+tree, wire counters, ``repl.follower_lag{follower}``/``follower_lag_max``
+gauges, a ``publish`` sink event a round, and the catch-up and attach
+counters.  A group records even with telemetry off (its lag gauges are
+its API), on a private registry.
 """
 from __future__ import annotations
 
@@ -53,6 +64,8 @@ from repro_torch.core.protocol import (ALGORITHM_REGISTRY, ALGORITHMS, IMAGE_LAY
 from repro_torch.device import resolve_device
 from repro_torch.kernels.delta_apply import apply_updates, compose_updates
 from repro_torch.kernels.engine import engine_lookup
+from repro_torch.obs.metrics import default_registry as _default_obs
+from repro_torch.obs.metrics import ensure_real
 
 #: frame type tags
 KIND_DELTA = 1
@@ -285,8 +298,9 @@ class DeltaPublisher:
     _CATCHUP_LOG_CAP = 512
 
     def __init__(self, ch, *, headroom: int = 2, batch_epochs: int = 0,
-                 packed: bool = False):
+                 packed: bool = False, registry=None):
         self._ch = ch
+        self._registry = registry  # None → follow the process default
         self.headroom = max(1, headroom)
         self.batch_epochs = max(0, int(batch_epochs))
         self.packed = bool(packed)
@@ -298,8 +312,12 @@ class DeltaPublisher:
         # (base, epoch, wire updates, n, scalars)
         self._log: list[tuple] = []
 
+    def _obs(self):
+        """The live telemetry registry (injected, else process default)."""
+        return self._registry or _default_obs()
+
     @property
-    def published_epoch(self) -> int | None:
+    def published_epoch(self) -> int | None:  # obs-exempt: pure accessor
         return self._epoch
 
     @property
@@ -336,6 +354,16 @@ class DeltaPublisher:
     def frames(self) -> list[np.ndarray]:
         """Frames advancing subscribers to the current host epoch (empty
         when it is published already)."""
+        reg = self._obs()
+        with reg.span("repl.encode"):
+            out = self._encode_frames()
+        if reg.active and out:
+            for buf in out:
+                kind = "snapshot" if _peek_kind(buf) in _SNAPSHOT_KINDS else "delta"
+                reg.counter("repl.frames_encoded", kind=kind).inc()
+        return out
+
+    def _encode_frames(self) -> list[np.ndarray]:
         cur = getattr(self._ch, "epoch", None)
         if self._epoch is None:
             return [self._snapshot_frame()]
@@ -383,6 +411,7 @@ class DeltaPublisher:
         if follower_epoch > self._epoch:
             raise ValueError(f"follower epoch {follower_epoch} is ahead of "
                              f"the published cursor {self._epoch}")
+        self._obs().counter("repl.catchup_serves").inc()
         start = next((i for i, ent in enumerate(self._log) if ent[0] == follower_epoch), None)
         if start is not None:
             tail = self._log[start:]
@@ -426,11 +455,13 @@ class FollowerImageStore:
     packed image's dense equivalent, so compact and dense followers of one
     leader fingerprint equal.  ``compact``: ``True`` takes packed frames
     only, ``False`` dense only, ``None`` whatever the leader sends.
+    ``registry`` is the telemetry registry (``None``: the process default).
     """
 
-    def __init__(self, *, device=None, compact: bool | None = None):
+    def __init__(self, *, device=None, compact: bool | None = None, registry=None):
         self.device = resolve_device(device)
         self.compact = compact
+        self._registry = registry  # None → follow the process default
         self._front: DeviceImage | None = None
         self.frames_applied = 0
         self.snapshots = 0
@@ -438,16 +469,20 @@ class FollowerImageStore:
         self.batches = 0        # multi-epoch DELTA_BATCH frames applied
         self.stale_skipped = 0  # dropped as stale (epoch ≤ current)
 
+    def _obs(self):
+        """The live telemetry registry (injected, else process default)."""
+        return self._registry or _default_obs()
+
     @property
-    def epoch(self) -> int:
+    def epoch(self) -> int:  # obs-exempt: pure accessor
         return -1 if self._front is None else self._front.epoch
 
-    def image(self) -> DeviceImage:
+    def image(self) -> DeviceImage:  # obs-exempt: pure accessor
         if self._front is None:
             raise ValueError("no snapshot received yet")
         return self._front
 
-    def fingerprint(self) -> str:
+    def fingerprint(self) -> str:  # obs-exempt: host-side hash, no wire
         """Convergence fingerprint; a packed image hashes its dense
         equivalent (unpacked on the host)."""
         img = self.image()
@@ -459,12 +494,26 @@ class FollowerImageStore:
 
     # -- frame application ---------------------------------------------------
     def apply_frame(self, buf: np.ndarray) -> None:
+        # obs-exempt: delegates to apply_frames (instrumented)
         self.apply_frames([buf])
 
     def apply_frames(self, bufs: list[np.ndarray]) -> int:
         """Apply one drained batch of frames; returns how many landed.  A
         chain with a real gap (a base epoch no frame of the batch reaches)
         raises: reordering repairs shuffles, not losses."""
+        reg = self._obs()
+        before = (self.snapshots, self.deltas, self.stale_skipped)
+        with reg.span("repl.drain", n_frames=len(bufs)):
+            applied = self._drain(bufs)
+        if reg.active:
+            reg.counter("repl.frames_applied").inc(applied)
+            reg.counter("repl.snapshots_installed").inc(self.snapshots - before[0])
+            reg.counter("repl.deltas_applied").inc(self.deltas - before[1])
+            reg.counter("repl.stale_skipped").inc(self.stale_skipped - before[2])
+            reg.gauge("repl.follower_epoch").set(self.epoch)
+        return applied
+
+    def _drain(self, bufs: list[np.ndarray]) -> int:
         frames = [decode_frame(b) for b in bufs]
         if not frames:
             return 0
@@ -541,8 +590,12 @@ class FollowerImageStore:
         """Bulk lookup against the replicated image on the follower's
         device (``engine_lookup``: a packed image runs its packed
         kernels), as numpy."""
+        reg = self._obs()
         kw.setdefault("device", self.device)
-        return engine_lookup(keys, self.image(), k=k, **kw).cpu().numpy()
+        out = engine_lookup(keys, self.image(), k=k, **kw).cpu().numpy()
+        if reg.active:
+            reg.counter("repl.follower_lookup_keys").inc(int(out.shape[0]))
+        return out
 
 
 # -- topology -----------------------------------------------------------------
@@ -706,17 +759,22 @@ class ReplicationGroup:
     ``set_online(i, False)`` partitions follower ``i``; once back, the
     next delivery that finds its gap repairs it by the targeted catch-up
     pull (or :meth:`catch_up`).  ``stats`` accumulates the wire
-    accounting, ``last_publish`` holds the latest round's."""
+    accounting, ``last_publish`` holds the latest round's.  ``telemetry``
+    is the registry the group, its publisher and its followers record on:
+    ``registry`` (else the process default) when it is live, else a
+    private one, since the lag gauges are part of the group's API."""
 
     def __init__(self, ch, num_followers: int = 1, *, device=None, headroom: int = 2,
                  topology: str = "flat", arity: int = 2, batch_epochs: int = 0,
-                 packed: bool = False):
+                 packed: bool = False, registry=None):
         if topology not in ("flat", "tree"):
             raise ValueError(f"unknown topology {topology!r}")
         self.device = resolve_device(device)
+        self.telemetry = ensure_real(registry or _default_obs())
         self.publisher = DeltaPublisher(ch, headroom=headroom, batch_epochs=batch_epochs,
-                                        packed=packed)
-        self.followers = [FollowerImageStore(device=self.device, compact=packed or None)
+                                        packed=packed, registry=self.telemetry)
+        self.followers = [FollowerImageStore(device=self.device, compact=packed or None,
+                                             registry=self.telemetry)
                           for _ in range(num_followers)]
         self.tree = TreeTopology(num_followers, arity=arity) if topology == "tree" else None
         self.topology = topology
@@ -727,7 +785,7 @@ class ReplicationGroup:
                              "catchup_frames": 0}
 
     @property
-    def depth(self) -> int:
+    def depth(self) -> int:  # obs-exempt: pure accessor
         """Fan-out depth: relay hops from the leader to the farthest follower."""
         if self.tree is not None:
             return self.tree.depth
@@ -736,28 +794,43 @@ class ReplicationGroup:
     def set_online(self, i: int, online: bool = True) -> None:
         """Partition (or heal) follower ``i``: an offline follower gets no
         frames and, in a tree, relays none to its subtree."""
+        # obs-exempt: topology toggle, no frames move here
         self._online[i] = bool(online)
 
     # -- publishing ----------------------------------------------------------
     def publish(self) -> list[int]:
+        reg = self.telemetry
         before = (self.stats.frames, self.stats.total_bytes,
                   self.stats.leader_sends, self.stats.catchup_frames)
-        frames = self.publisher.frames()
-        target = getattr(self._ch, "epoch", 0)
-        lags = [max(0, target - max(f.epoch, 0)) for f in self.followers]
-        if frames:
-            self.stats.publishes += 1
-            self.stats.frames += len(frames)
-            if self.tree is None:
-                self._deliver_flat(frames)
-            else:
-                self._deliver_tree(frames)
+        with reg.span("repl.publish", topology=self.topology):
+            frames = self.publisher.frames()
+            target = getattr(self._ch, "epoch", 0)
+            lags = [max(0, target - max(f.epoch, 0)) for f in self.followers]
+            if frames:
+                self.stats.publishes += 1
+                self.stats.frames += len(frames)
+                with reg.span("repl.relay", n_frames=len(frames)):
+                    if self.tree is None:
+                        self._deliver_flat(frames)
+                    else:
+                        self._deliver_tree(frames)
         self.last_publish = {
             "frames": self.stats.frames - before[0],
             "bytes": self.stats.total_bytes - before[1],
             "leader_sends": self.stats.leader_sends - before[2],
             "catchup_frames": self.stats.catchup_frames - before[3],
         }
+        if frames:
+            reg.counter("repl.publishes").inc()
+        reg.counter("repl.wire_frames").inc(self.last_publish["frames"])
+        reg.counter("repl.wire_bytes").inc(self.last_publish["bytes"])
+        reg.counter("repl.leader_sends").inc(self.last_publish["leader_sends"])
+        for i, lag in enumerate(lags):
+            reg.gauge("repl.follower_lag", follower=i).set(lag)
+        reg.gauge("repl.follower_lag_max").set(max(lags, default=0))
+        reg.sink.emit("publish", **self.last_publish,
+                      epoch=self.publisher.published_epoch,
+                      lag_max=max(lags, default=0))
         return lags
 
     @staticmethod
@@ -807,7 +880,8 @@ class ReplicationGroup:
         bases = [_peek_base(b) for b in batch if _peek_kind(b) in _DELTA_KINDS]
         if not has_snap and bases and min(bases) > fol.epoch:
             batch = self._pull_catchup(fol.epoch) + batch
-        fol.apply_frames(batch)
+        with self.telemetry.span("repl.apply", follower=i):
+            fol.apply_frames(batch)
 
     def _pull_catchup(self, epoch: int) -> list[np.ndarray]:
         cf = self.publisher.catchup_frames(epoch)
@@ -815,6 +889,9 @@ class ReplicationGroup:
         self.stats.catchup_frames += len(cf)
         self.stats.catchup_bytes += nbytes
         self._send(cf, nbytes, leader=True)
+        self.telemetry.counter("repl.catchup_repairs").inc()
+        self.telemetry.counter("repl.catchup_frames").inc(len(cf))
+        self.telemetry.counter("repl.catchup_bytes").inc(nbytes)
         return cf
 
     # -- the pull path -------------------------------------------------------
@@ -822,6 +899,7 @@ class ReplicationGroup:
         """Repair follower ``i`` to the published cursor by the targeted
         pull (the stream is published to everyone first); returns the
         catch-up frames served."""
+        # obs-exempt: delegates to publish/_pull_catchup (instrumented)
         self.publish()
         fol = self.followers[i]
         if fol.epoch == self.publisher.published_epoch:
@@ -834,14 +912,17 @@ class ReplicationGroup:
         """Join a new follower mid-stream: it pulls a targeted catch-up
         from its empty base at once."""
         self.publish()
-        fol = FollowerImageStore(device=self.device, compact=self.publisher.packed or None)
+        fol = FollowerImageStore(device=self.device, compact=self.publisher.packed or None,
+                                 registry=self.telemetry)
         cf = self._pull_catchup(fol.epoch)
         fol.apply_frames(cf)
         self.followers.append(fol)
         self._online.append(True)
+        self.telemetry.counter("repl.followers_attached").inc()
         return fol
 
     def converged(self, leader_image: DeviceImage) -> bool:
+        # obs-exempt: host-side fingerprint comparison, no wire
         want = image_fingerprint(leader_image)
         return all(f.epoch == leader_image.epoch and f.fingerprint() == want
                    for f in self.followers)

@@ -31,15 +31,26 @@ Throughput mechanics, on CUDA entries:
 
 A sharded lookup equals the single-device ``engine_lookup`` bit for bit
 for any device list: the per-key work is elementwise.
+
+Telemetry (:mod:`repro_torch.obs`): ``registry=`` (else the process
+default at each call) receives the reference's ``plane.repins`` counter
+and, a batch, ``plane.batches``, ``plane.keys``, the ``plane.shard_keys``
+histogram (a device entry's chunk) and ``plane.dispatch.us`` (the host
+time to stage and queue the batch).  The chunks' lookups are not engine
+dispatches of their own: as the reference's sharded program, the plane
+counts no ``engine.*``.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.core.protocol import DeviceImage
 from repro_torch.device import resolve_devices
-from repro_torch.kernels.engine import engine_lookup
+from repro_torch.kernels.engine import _engine_lookup
+from repro_torch.obs.metrics import default_registry as _default_obs
 
 #: keys per device entry are a multiple of this
 LANES = 128
@@ -78,9 +89,11 @@ class ShardedLookupPlane:
     ``devices`` defaults to every visible GPU; with no GPU the constructor
     raises unless the caller passes a list such as ``["cpu"]``.
     ``sync_mode="overlap"`` lands a store's pending async epoch
-    (``store.poll()``) at every batch boundary."""
+    (``store.poll()``) at every batch boundary.  ``registry`` is the
+    telemetry registry (``None``: the process default)."""
 
-    def __init__(self, source, *, devices=None, k: int = 1, sync_mode: str = "block"):
+    def __init__(self, source, *, devices=None, k: int = 1, sync_mode: str = "block",
+                 registry=None):
         if k < 1:
             raise ValueError("k must be ≥ 1")
         if sync_mode not in ("block", "overlap"):
@@ -89,6 +102,7 @@ class ShardedLookupPlane:
         self.k = k
         self.sync_mode = sync_mode
         self._source = source
+        self._registry = registry  # None → follow the process default
         self._image = None       # the image the device copies mirror
         self._dev: dict | None = None  # device → DeviceImage on it
         self._rep_cache: dict = {}     # (device, name) → (source tensor, copy)
@@ -105,13 +119,17 @@ class ShardedLookupPlane:
         self._slots: list[_Slot | None] = [None, None]
         self._turn = 0
 
+    def _obs(self):
+        """The live telemetry registry (injected, else process default)."""
+        return self._registry or _default_obs()
+
     # -- geometry -----------------------------------------------------------------
     @property
-    def num_shards(self) -> int:
+    def num_shards(self) -> int:  # obs-exempt: device-list geometry
         return len(self.devices)
 
     @property
-    def lanes(self) -> int:
+    def lanes(self) -> int:  # obs-exempt: device-list geometry
         """Key-count granularity: every entry gets 128-aligned chunks."""
         return self.num_shards * LANES
 
@@ -141,6 +159,7 @@ class ShardedLookupPlane:
         if self._dev is not None and img is self._image:
             return
         self.repins += 1
+        self._obs().counter("plane.repins").inc()
         per_device = {}
         for dev in dict.fromkeys(self.devices):
             arrays = {}
@@ -173,9 +192,10 @@ class ShardedLookupPlane:
             slot = self._slots[i] = _Slot(padded, self.k, self._pinned)
         return slot
 
-    def _dispatch(self, keys) -> tuple[_Slot, int]:
+    def _dispatch(self, keys) -> tuple[_Slot, int, int]:
         """Stage a key batch and queue every chunk's lookup; on CUDA
-        entries nothing here waits for the device."""
+        entries nothing here waits for the device.  Returns the slot, the
+        batch's keys and its padded length."""
         keys = np.asarray(keys, dtype=np.uint32).reshape(-1)
         n = len(keys)
         padded = max(self.lanes, -(-n // self.lanes) * self.lanes)
@@ -201,7 +221,7 @@ class ShardedLookupPlane:
             img = self._dev[dev]
             where = None if img.arrays else dev  # a tableless image runs on dev
             if dev.type != "cuda":
-                slot.out[rows] = engine_lookup(slot.keys[rows], img, k=self.k, device=where)
+                slot.out[rows] = _engine_lookup(slot.keys[rows], img, k=self.k, device=where)
                 continue
             stream, kt = self._streams[i], staged[i]
             stream.wait_stream(self._copy_streams[dev])   # its keys
@@ -211,7 +231,7 @@ class ShardedLookupPlane:
                 if self.trace is not None:
                     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                     start.record(stream)
-                out = engine_lookup(kt, img, k=self.k, device=where)
+                out = _engine_lookup(kt, img, k=self.k, device=where)
                 if self.trace is not None:
                     end.record(stream)
                     self.trace.append((start, end))
@@ -224,10 +244,19 @@ class ShardedLookupPlane:
         for i, dev, _rows in parts:
             if dev.type == "cuda":
                 torch.cuda.current_stream(dev).wait_stream(self._streams[i])
-        return slot, n
+        return slot, n, padded
 
-    def _finish(self, pending: tuple[_Slot, int]) -> np.ndarray:
-        slot, n = pending
+    def _record_batch(self, reg, n: int, padded: int, t0_ns: int) -> None:
+        """A batch's telemetry: batch and key counters, a device entry's
+        chunk, and the host time to stage and queue it."""
+        reg.counter("plane.batches").inc()
+        reg.counter("plane.keys").inc(n)
+        reg.histogram("plane.shard_keys").observe(padded // self.num_shards)
+        reg.histogram("plane.dispatch.us").observe(
+            (time.perf_counter_ns() - t0_ns) / 1e3)
+
+    def _finish(self, pending: tuple[_Slot, int, int]) -> np.ndarray:
+        slot, n, _padded = pending
         for ev in slot.done:
             ev.synchronize()
         return np.array(slot.out.numpy()[:n])
@@ -236,9 +265,15 @@ class ShardedLookupPlane:
     def lookup(self, keys) -> np.ndarray:
         """Sharded batched lookup: keys [K] → numpy int32 [K] (k = 1) or
         [K, k]."""
+        reg = self._obs()
+        t0 = time.perf_counter_ns() if reg.active else 0
         self._poll_source()
         self._ensure()
-        return self._finish(self._dispatch(keys))
+        staged = self._dispatch(keys)
+        out = self._finish(staged)
+        if reg.active:
+            self._record_batch(reg, staged[1], staged[2], t0)
+        return out
 
     def route_stream(self, batches):
         """Stream key batches through the plane, one batch in flight.
@@ -247,11 +282,15 @@ class ShardedLookupPlane:
         pulled, staged and dispatched before batch i's result is read, so
         membership events that the caller applies between batches reach
         the batch after them, at its boundary."""
+        reg = self._obs()
         pending = None
         for batch in batches:
+            t0 = time.perf_counter_ns() if reg.active else 0
             self._poll_source()  # overlap: land a ready async epoch
             self._ensure()       # pick up an epoch flip between batches
             staged = self._dispatch(batch)
+            if reg.active:  # dispatch time: the batch's device work overlaps
+                self._record_batch(reg, staged[1], staged[2], t0)
             if pending is not None:
                 yield self._finish(pending)
             pending = staged

@@ -15,11 +15,17 @@ Session ids are hashed to uint32 keys on the host, as in the reference.
 ``route_stream`` streams batches through a
 :class:`~repro_torch.serve.plane.ShardedLookupPlane` over the router's
 store: key chunks fanned over a device list, one batch in flight.
+
+Telemetry (:mod:`repro_torch.obs`): ``registry=`` (else the process
+default at each call) receives the reference's ``router.*`` instruments,
+and :class:`RouterStats` is a view over the ``router.*`` counters, on a
+private registry when telemetry is off.
 """
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
-from dataclasses import asdict, dataclass, field
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -27,20 +33,48 @@ from repro_torch.core.hashing import key_to_u32, np_key_to_u32
 from repro_torch.core.image_store import DeviceImageStore
 from repro_torch.core.protocol import make_hash
 from repro_torch.device import resolve_device, resolve_devices
+from repro_torch.obs.metrics import default_registry as _default_obs
+from repro_torch.obs.metrics import ensure_real
 from repro_torch.serve.plane import ShardedLookupPlane
 
 
-@dataclass
 class RouterStats:
-    """The router's counters."""
+    """Live view over the router's ``router.*`` telemetry counters.
 
-    routed: int = 0
-    moved_on_failure: int = 0
-    affinity_hits: int = 0
-    failovers: int = 0
+    ``stats.routed`` reads a counter and ``stats.routed += n`` adds to it,
+    so the numbers reach the registry's exporters.  With telemetry off the
+    view rides a private registry (:func:`~repro_torch.obs.metrics.ensure_real`),
+    so the API never goes dark.  A write is a delta on a monotonic
+    counter: setting a smaller value does nothing."""
+
+    FIELDS = ("routed", "moved_on_failure", "affinity_hits", "failovers")
+
+    def __init__(self, registry=None):
+        object.__setattr__(self, "_counters",
+                           {f: ensure_real(registry).counter(f"router.{f}")
+                            for f in self.FIELDS})
+
+    def __getattr__(self, name):
+        counters = object.__getattribute__(self, "_counters")
+        if name in counters:
+            return counters[name].value
+        raise AttributeError(name)
+
+    def __setattr__(self, name, value) -> None:
+        counters = self._counters
+        if name in counters:
+            delta = int(value) - counters[name].value
+            if delta > 0:
+                counters[name].inc(delta)
+            return
+        object.__setattr__(self, name, value)
 
     def as_dict(self) -> dict:
-        return asdict(self)
+        return {f: getattr(self, f) for f in self.FIELDS}
+
+    def __repr__(self) -> str:
+        inner = ", ".join(f"{f}={getattr(self, f)}" for f in self.FIELDS)
+        return f"RouterStats({inner})"
 
 
 class SessionRouter:
@@ -55,6 +89,8 @@ class SessionRouter:
     at the next batch boundary.  ``compact_images=True`` keeps the packed
     layout on the device (``DeviceImageStore(compact=True)``: for Memento
     a bitmap and a Θ(r) slot table instead of the Θ(n) ``repl`` array).
+    ``registry`` is the telemetry registry of the router, of the store it
+    builds and of its planes (``None``: the process default).
     """
 
     def __init__(self, num_replicas: int, *, algo="memento",
@@ -62,7 +98,7 @@ class SessionRouter:
                  max_sessions: int = 1_000_000, replicas_k: int = 1,
                  store: DeviceImageStore | None = None,
                  compact_images: bool = False,
-                 sync_mode: str = "block"):
+                 sync_mode: str = "block", registry=None):
         self.device = resolve_device(device)
         if isinstance(algo, str):
             # variant="32": host lookups bit-identical to the device
@@ -76,7 +112,10 @@ class SessionRouter:
         self.replicas_k = replicas_k
         self.sync_mode = sync_mode
         self.compact_images = compact_images
-        self.stats = RouterStats()
+        self._registry = registry  # None → follow the process default
+        # on the injected registry when it records, else on the process
+        # default, else on the view's own private registry
+        self.stats = RouterStats(registry or _default_obs())
         self.max_sessions = max_sessions
         # session id → last replica, LRU-bounded
         self._last: OrderedDict = OrderedDict()
@@ -94,16 +133,24 @@ class SessionRouter:
     @property
     def memento(self):
         """Back-compat alias from the Memento-only router: the host state."""
+        # obs-exempt: pure accessor
         return self.ch
+
+    def _obs(self):
+        """The live telemetry registry (injected, else process default)."""
+        return self._registry or _default_obs()
 
     # -- single-request path --------------------------------------------------
     def replica_set(self, session_id) -> list[int]:
         """The session's k distinct candidate replicas, k clamped to the
         surviving fleet."""
+        self._obs().counter("router.replica_set_calls").inc()
         k = min(self.replicas_k, self.ch.working)
         return self.ch.lookup_k(key_to_u32(session_id), k)
 
     def route(self, session_id) -> int:
+        reg = self._obs()
+        t0 = time.perf_counter_ns() if reg.active else 0
         self._poll_store()
         if self.replicas_k > 1 and self._failed:
             reps = self.replica_set(session_id)
@@ -121,16 +168,20 @@ class SessionRouter:
         self._last.move_to_end(session_id)
         if len(self._last) > self.max_sessions:
             self._last.popitem(last=False)  # evict the coldest session
+        if reg.active:
+            reg.histogram("router.route.us").observe(
+                (time.perf_counter_ns() - t0) / 1e3)
         return r
 
     # -- bulk path (device) ---------------------------------------------------
     def image_store(self) -> DeviceImageStore:
         if self._store is None:
             self._store = DeviceImageStore(self.ch, device=self.device,
-                                           compact=self.compact_images)
+                                           compact=self.compact_images,
+                                           registry=self._registry)
         return self._store
 
-    def device_image(self):
+    def device_image(self):  # obs-exempt: pure accessor
         """The device image the batch paths serve (the store's front epoch)."""
         return self.image_store().image()
 
@@ -152,19 +203,32 @@ class SessionRouter:
         """Session ids → int32 replicas, one device lookup; with
         ``replicas_k > 1`` and a replica marked failed, the k-replica sets
         in one launch and the same failover rule as :meth:`route`."""
+        reg = self._obs()
+        t0 = time.perf_counter_ns() if reg.active else 0
         self._poll_store()
-        if self.replicas_k > 1 and self._failed:
-            return self._failover_pick(self.replica_set_batch(session_ids))
         keys = np_key_to_u32(np.asarray(session_ids))
-        return self.image_store().lookup(keys).cpu().numpy()
+        if self.replicas_k > 1 and self._failed:
+            out = self._failover_pick(self.replica_set_batch(session_ids))
+        else:
+            out = self.image_store().lookup(keys).cpu().numpy()
+        if reg.active:
+            reg.counter("router.batch_keys").inc(len(keys))
+            reg.histogram("router.route_batch.us").observe(
+                (time.perf_counter_ns() - t0) / 1e3)
+        return out
 
     def replica_set_batch(self, session_ids: np.ndarray) -> np.ndarray:
         """k-replica sets of a session batch in one device launch: int32
         [len(ids), k], column 0 the plain placement; k clamped to the
         surviving fleet."""
+        reg = self._obs()
+        t0 = time.perf_counter_ns() if reg.active else 0
         keys = np_key_to_u32(np.asarray(session_ids))
         k = min(self.replicas_k, self.ch.working)
         out = self.image_store().lookup(keys, k=k).cpu().numpy()
+        if reg.active:
+            reg.histogram("router.replica_set.us", k=k).observe(
+                (time.perf_counter_ns() - t0) / 1e3)
         return out.reshape(-1, k)
 
     # -- streaming path (sharded plane) ---------------------------------------
@@ -179,13 +243,15 @@ class SessionRouter:
         plane = self._planes.get(key)
         if plane is None:
             plane = self._planes[key] = ShardedLookupPlane(
-                self.image_store(), devices=devices, k=k, sync_mode=self.sync_mode)
+                self.image_store(), devices=devices, k=k, sync_mode=self.sync_mode,
+                registry=self._registry)
         return plane
 
     def sharded_plane(self, *, devices=None) -> ShardedLookupPlane:
         """The router's :class:`~repro_torch.serve.plane.ShardedLookupPlane`
         over its image store (one per device list): membership deltas reach
         every device through the store's epoch sync."""
+        # obs-exempt: builds the plane, which takes the router's registry
         return self._plane(devices, 1)
 
     def route_stream(self, session_id_batches, *, devices=None):
@@ -197,12 +263,14 @@ class SessionRouter:
         ``replicas_k == 1`` batches stream through the plane's pipelined
         path; with ``replicas_k > 1`` each batch is served on its own, so
         the failover rule is applied as in the scalar path."""
+        reg = self._obs()
         plane = self.sharded_plane(devices=devices)
         if self.replicas_k == 1:
             def to_keys():
                 for ids in session_id_batches:
                     ids = np.asarray(ids)
                     self.stats.routed += len(ids)
+                    reg.counter("router.stream_batches").inc()
                     yield np_key_to_u32(ids)
 
             yield from plane.route_stream(to_keys())
@@ -212,6 +280,7 @@ class SessionRouter:
             ids = np.asarray(ids)
             self._poll_store()  # overlap: land a ready flip, retire marks
             self.stats.routed += len(ids)
+            reg.counter("router.stream_batches").inc()
             keys = np_key_to_u32(ids)
             if not self._failed:
                 yield plane.lookup(keys)
@@ -249,15 +318,19 @@ class SessionRouter:
         """Health-checker hook: route around ``replica`` now, before any
         membership delta is emitted or applied."""
         self._failed.add(replica)
+        self._obs().counter("router.failover_marks").inc()
 
     def fail_replica(self, replica: int) -> dict:
+        reg = self._obs()
         before = dict(self._last)
         self.mark_failed(replica)  # failover active while the delta lands
         removed = False
         try:
-            self.ch.remove(replica)
-            removed = True
-            self._push_delta()
+            with reg.span("router.fail_replica", replica=replica):
+                self.ch.remove(replica)
+                removed = True
+                self._push_delta()
+            reg.counter("router.membership_events", op="fail").inc()
         finally:
             if (removed and self.sync_mode == "overlap"
                     and self._store is not None
@@ -280,12 +353,15 @@ class SessionRouter:
         return info
 
     def restore_replica(self) -> int:
-        b = self.ch.add()
-        self._push_delta()
+        reg = self._obs()
+        with reg.span("router.restore_replica"):
+            b = self.ch.add()
+            self._push_delta()
+        reg.counter("router.membership_events", op="restore").inc()
         return b
 
     @property
-    def replicas(self) -> set[int]:
+    def replicas(self) -> set[int]:  # obs-exempt: pure accessor
         return self.ch.working_set()
 
 

@@ -41,8 +41,16 @@ second (both from ``trace.seed``, as in the reference), so a replay of the
 resolved trace draws identical traffic and reproduces every placement;
 ``result.fingerprint`` equals the reference's on the same trace.
 
-Not ported yet (raises ``NotImplementedError``): ``telemetry``
-(``ROADMAP.md`` Queue 1, item 13).
+Telemetry: ``telemetry=True`` scopes a fresh
+:class:`~repro_torch.obs.metrics.MetricRegistry` to the replay (a registry
+object is used as it is; ``False``, the default, leaves every component
+on the process default).  The registry is injected into the store, the
+router, the sharded planes, the replication group and the metrics, and
+installed as the process default for the length of ``run()`` so the
+engine's dispatches record there too; ``summary()["telemetry"]`` is its
+snapshot.  Its counters, gauges, histogram counts, span tree and sink
+events equal the reference's on the same resolved trace, and telemetry
+never changes a placement.
 """
 from __future__ import annotations
 
@@ -56,6 +64,7 @@ from repro_torch.core.hashing import np_fmix32
 from repro_torch.core.image_store import DeviceImageStore
 from repro_torch.core.protocol import ALGORITHM_REGISTRY, make_hash, replica_sets
 from repro_torch.kernels.engine import bounded_assign, bounded_load_len
+from repro_torch.obs.metrics import MetricRegistry, set_default_registry
 from repro_torch.serve.plane import ShardedLookupPlane
 
 from .checkers import (Violation, candidate_hits, check_balance, check_cap_invariant,
@@ -161,8 +170,6 @@ class ScenarioDriver:
             raise ValueError(f"unknown plane {plane!r} (have {PLANES})")
         if sync_mode not in ("block", "overlap"):
             raise ValueError(f"unknown sync_mode {sync_mode!r}")
-        if telemetry:
-            raise NotImplementedError("telemetry: ROADMAP.md Queue 1, item 13")
         self.trace = trace
         self.algo = algo
         self.plane = plane
@@ -173,19 +180,26 @@ class ScenarioDriver:
         # driver commits at the checker boundary — dispatch_us is what the
         # hot path pays, sync_us the full flip latency
         self.sync_mode = sync_mode
+        # telemetry: False → off (the process default, normally the
+        # NullRegistry); True → a fresh scoped registry; a registry → as it is
+        if telemetry:
+            self.obs = (telemetry if getattr(telemetry, "active", False)
+                        else MetricRegistry())
+        else:
+            self.obs = None
         self.h = make_hash(algo, trace.initial_nodes,
                            capacity=trace.capacity_factor * trace.initial_nodes,
                            variant="32")
         # the ONE store every consumer shares (router included); the host
         # plane still needs it for delta bookkeeping and the epoch diff
-        self.store = DeviceImageStore(self.h, device=device)
+        self.store = DeviceImageStore(self.h, device=device, registry=self.obs)
         # independent streams: membership victims vs traffic keys
         self._rng_member = np.random.default_rng([trace.seed, 0])
         self._rng_traffic = np.random.default_rng([trace.seed, 1])
         self.probe = np.random.default_rng([trace.seed, 2]).integers(
             0, 2**32, size=probe_keys, dtype=np.uint32)
         self._step_sample = self.probe[:step_sample]
-        self.metrics = ScenarioMetrics()
+        self.metrics = ScenarioMetrics(registry=self.obs)
         self.violations: list[Violation] = []
         self._router = None
         self._sharded = sharded
@@ -202,7 +216,7 @@ class ScenarioDriver:
         if followers:
             from repro_torch.launch.replicate import ReplicationGroup
             self.repl = ReplicationGroup(self.h, followers, device=self.store.device,
-                                         **(repl_config or {}))
+                                         registry=self.obs, **(repl_config or {}))
             self.repl.publish()
             self.metrics.followers = followers
             self.metrics.fanout_depth = self.repl.depth
@@ -217,7 +231,7 @@ class ScenarioDriver:
             self._router = SessionRouter(
                 0, algo=self.h, store=self.store, device=self.store.device,
                 replicas_k=self.trace.meta.get("replicas_k", 1),
-                sync_mode=self.sync_mode)
+                sync_mode=self.sync_mode, registry=self.obs)
         return self._router
 
     # -- traffic ------------------------------------------------------------
@@ -238,14 +252,21 @@ class ScenarioDriver:
             plane = self._planes_sharded.get(k)
             if plane is None:
                 plane = self._planes_sharded[k] = ShardedLookupPlane(
-                    self.store, k=k, devices=[self.store.device])
+                    self.store, k=k, devices=[self.store.device], registry=self.obs)
             return plane.lookup(keys)
         return _numpy(self.store.lookup(keys, k=k))
 
     # -- the event loop ------------------------------------------------------
     def run(self) -> ScenarioResult:
-        for i, ev in enumerate(self.trace.events):
-            getattr(self, f"_do_{ev.op}")(i, ev)
+        # the scoped registry is the process default for the replay, so the
+        # engine's dispatches record on it too; always restored
+        prev = set_default_registry(self.obs) if self.obs is not None else None
+        try:
+            for i, ev in enumerate(self.trace.events):
+                getattr(self, f"_do_{ev.op}")(i, ev)
+        finally:
+            if self.obs is not None:
+                set_default_registry(prev)
         return ScenarioResult(
             trace=self.trace, algo=self.algo, plane=self.plane,
             metrics=self.metrics, violations=self.violations,

@@ -2011,3 +2011,65 @@ def test_two_followers_on_one_card_converge(dev, algo):
         want = store.lookup(KEYS, k=k).cpu().numpy()
         np.testing.assert_array_equal(a.lookup(KEYS, k=k), want)
         np.testing.assert_array_equal(b.lookup(KEYS, k=k), want)
+
+
+@pytest.mark.parametrize("replicas_k", [1, 3])
+def test_route_batch_with_telemetry_equals_off(dev, replicas_k):
+    """Telemetry never changes a placement on the card: one router with a
+    live registry (also the process default while it routes, where the
+    engine records) and one without route the same batches through a marked replica, equal, and
+    the registry counts the batches and keys."""
+    from repro_torch import obs
+
+    ids = np.random.default_rng(6).integers(0, 2**63, size=(4, 50_000), dtype=np.uint64)
+    off = SessionRouter(5000, device=dev, replicas_k=replicas_k)
+    reg = obs.MetricRegistry()
+    on = SessionRouter(0, algo=off.ch, device=dev, replicas_k=replicas_k, registry=reg)
+    for i, batch in enumerate(ids):
+        if i == 2:
+            off.mark_failed(7)
+            on.mark_failed(7)
+        want = off.route_batch(batch)
+        prev = obs.set_default_registry(reg)
+        try:
+            got = on.route_batch(batch)
+        finally:
+            obs.set_default_registry(prev)
+        np.testing.assert_array_equal(got, want)
+    c = reg.snapshot()["counters"]
+    assert c["router.batch_keys"] == ids.size and c["store.lookups"] == len(ids)
+    assert c["engine.dispatches"] == len(ids) and c["engine.keys"] == ids.size
+
+
+@pytest.mark.parametrize("algo", ALGORITHMS)
+def test_replay_with_telemetry_equals_off(dev, algo):
+    trace = make_trace("churn_storm", 3, w=200, storms=2, burst=8, n_keys=4096)
+    on = replay(trace, algo=algo, device=dev, followers=2, telemetry=True)
+    off = replay(trace, algo=algo, device=dev, followers=2)
+    assert on.ok and off.ok and on.fingerprint == off.fingerprint
+    c = on.summary()["telemetry"]["counters"]
+    assert c["sim.events"] == len(trace.events) and c["engine.diffs"] > 0
+    assert c["store.syncs"] == c["sim.delta_applies"] + c["sim.snapshot_rebuilds"]
+
+
+def test_spans_push_and_pop_nvtx_ranges_on_a_cuda_build(dev, monkeypatch):
+    """On a CUDA build the tracer opens an NVTX range a span and closes it,
+    also when the body raises; the ranges are real calls into NVTX."""
+    from repro_torch import obs
+
+    assert torch.version.cuda is not None
+    reg = obs.MetricRegistry()
+    with reg.span("store.sync"):  # the real NVTX calls: they must not raise
+        with reg.span("store.sync.flip"):
+            torch.ones(4, device=dev).sum()
+    push, pop = torch.cuda.nvtx.range_push, torch.cuda.nvtx.range_pop
+    calls = []
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", lambda n: calls.append(n) or push(n))
+    monkeypatch.setattr(torch.cuda.nvtx, "range_pop", lambda: calls.append(None) or pop())
+    with pytest.raises(ValueError):
+        with reg.span("repl.publish"):
+            with reg.span("repl.relay"):
+                raise ValueError("body failed")
+    assert calls == ["repl.publish", "repl.relay", None, None]
+    assert [n for _, n, _ in reg.tracer.tree()] == [
+        "store.sync.flip", "store.sync", "repl.relay", "repl.publish"]

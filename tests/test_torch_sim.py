@@ -4,7 +4,7 @@ replays to the reference's fingerprint on the port's device plane (the
 plain torch versions, on the CPU) and host plane, with every checker
 silent, and so do ``replica_k = 2`` replays and bounded assignment; the
 resolved trace replays bit for bit; traces, checkers and metrics match
-the reference's copies; every cut feature raises ``NotImplementedError``."""
+the reference's copies; the features once cut replay as the reference's."""
 from __future__ import annotations
 
 import json
@@ -182,12 +182,15 @@ def test_overlapped_syncs_replay_to_the_same_fingerprint():
 
 
 def test_cut_features_raise():
-    """Telemetry raises; followers, the sharded plane, k-replica lookups,
-    ``replica_k > 1``, ``assign`` events and ``session_affinity`` replay
-    as the reference replays them."""
+    """No feature of the reference's driver is cut any more: telemetry,
+    followers, the sharded plane, k-replica lookups, ``replica_k > 1``,
+    ``assign`` events and ``session_affinity`` replay as the reference
+    replays them."""
     trace = make_trace("stable", 0, w=16, batches=1, n_keys=8)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ScenarioDriver(trace, device="cpu", telemetry=True)
+    want = ref_replay(RefTrace.from_json(trace.to_json()), plane="jnp", telemetry=True)
+    got = replay(trace, device="cpu", telemetry=True)
+    assert got.fingerprint == want.fingerprint
+    assert got.summary()["telemetry"]["counters"] == want.summary()["telemetry"]["counters"]
     storm = dict(seed=1, w=64, storms=2, burst=8, n_keys=256)
     want = ref_replay(ref_make_trace("churn_storm", **storm), plane="jnp", followers=2)
     got = replay(make_trace("churn_storm", **storm), device="cpu", followers=2)
